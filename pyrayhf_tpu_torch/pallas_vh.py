@@ -1,0 +1,755 @@
+"""Ionogram synthesis kernels for Hopper: host prep, plain versions, wrappers.
+
+Port of ``pyrayhf_tpu.pallas_vh``. The JAX package computes one
+discretisation — flat-extended profile, reflection-height solve, per-
+frequency stretched grid, piecewise-linear resample, Appleton–Hartree μ'
+with the analytic near-reflection margin, Σ μ'·dh — in four Pallas
+kernels whose differences exist to get around TPU gathers. Here all four
+are instantiations of ONE templated CUDA kernel (``csrc/ionogram.cu``):
+
+kernel (counter name) ← replaced TPU kernel; its plain PyTorch version:
+
+* ``gather_osolve`` ← ``_kernel_gather_osolve`` (O, solve in the kernel,
+  uniform index); ``_osolve_plain`` + ``_resample_plain``;
+* ``gather_xsolve`` ← ``_kernel_gather_xsolve`` (X, solve in the kernel,
+  uniform index); ``_xsolve_plain`` + ``_resample_plain``;
+* ``gather`` ← ``_kernel_gather`` (solve on the host, uniform index);
+  :func:`prepare_profile_tables` + ``_resample_plain``;
+* ``sweep`` ← ``_kernel`` (solve on the host, any grid: binary-search
+  index); :func:`ionogram_fast_xla`.
+
+Each wrapper runs the kernel on CUDA tensors and the plain version on CPU
+tensors, and only there; on any other device it raises. ``LAUNCHES``
+counts kernel launches and ``PLAIN_CALLS`` calls of the plain versions, so
+a run can show which of the two it went through.
+
+Gradients: :class:`_PallasAD` (the counterpart of the JAX ``_pallas_ad``
+custom JVP) runs the kernel forward and recomputes the VJP through the
+plain segment sweep :func:`ionogram_fast_xla`, which evaluates the same
+discretisation; the TPU kernels had no backward kernel either.
+"""
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ._util import clip, profile_tensors
+from .config import resolve
+from .constants import CP, G_P
+
+__all__ = ["ionogram_pallas", "ionogram_pallas_gather", "ionogram_fast_xla",
+           "prepare_profile_tables", "uniform_inv_dalt", "LAUNCHES",
+           "PLAIN_CALLS", "reset_counters"]
+
+_DH_BACKOFF = 1e-6
+_NAN = float("nan")
+_DEG2RAD = np.pi / 180.0
+
+# kernel launches / plain-version calls, by kernel name
+KERNELS = ("gather_osolve", "gather_xsolve", "gather", "sweep")
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
+
+
+def reset_counters():
+    """Set every launch and plain-call count to 0."""
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+        PLAIN_CALLS[k] = 0
+
+
+def uniform_inv_dalt(alt):
+    """1/Δalt for a uniformly spaced grid, else None (reads ``alt`` on host)."""
+    a = (alt.detach().cpu().double().numpy() if isinstance(alt, torch.Tensor)
+         else np.asarray(alt, dtype=np.float64))
+    if a.ndim != 1:
+        return None
+    d = np.diff(a)
+    if d.size and np.allclose(d, d[0], rtol=1e-9, atol=1e-9):
+        return float(1.0 / d[0])
+    return None
+
+
+def _flat_extend(den, bmag, bpsi, alt):
+    """Flat-extend each profile at its density peak (ref truncation)."""
+    B, N = den.shape
+    ind_max = torch.argmax(den, dim=1)
+    idx = torch.arange(N, device=den.device)
+    keep = idx[None, :] < ind_max[:, None]
+    last = torch.clamp(ind_max - 1, min=0)[:, None]
+
+    def ext(a):
+        return torch.where(keep, a, torch.gather(a, 1, last))
+
+    alt_b = alt.expand(B, N)
+    return ext(den), ext(bmag), ext(bpsi), ext(alt_b)
+
+
+def _pack_segment_table(den_t, bmag_t, bpsi_t, alt_t):
+    """Pack the per-segment piecewise-linear table [B, N, 8].
+
+    Segment row j: [alt_j, 1/Δalt_j, den_j, Δden_j, bmag_j, Δbmag_j,
+    bpsi_j, Δbpsi_j]; altitudes stored relative to alt[0].
+    """
+    dalt = torch.diff(alt_t, dim=1)
+    inv_dalt = torch.where(dalt > 0,
+                           1.0 / torch.where(dalt > 0, dalt, 1.0), 0.0)
+
+    def pad(a):
+        return torch.cat([a, a[:, -1:]], dim=1)
+
+    return torch.stack([
+        alt_t - alt_t[:, :1],
+        pad(inv_dalt),
+        den_t, pad(torch.diff(den_t, dim=1)),
+        bmag_t, pad(torch.diff(bmag_t, dim=1)),
+        bpsi_t, pad(torch.diff(bpsi_t, dim=1)),
+    ], dim=2)
+
+
+def _crossing(f0, f1, a0, a1, r0, first_exceeds, valid, base):
+    """Critical height, slope and analytic-margin bound on the crossing
+    segment [a0, a1] where the cutoff function goes f0 → f1 through 1.
+
+    ``base`` is the grid's first altitude in the frame of a0/a1 (0 in the
+    relative frame the in-kernel solves use). Returns (crit, slope, emax)
+    with the JAX package's masking: escaped rows collapse to a zero-span
+    grid at ``base``.
+    """
+    t = torch.where(f1 != f0, (1.0 - f0) / torch.where(f1 != f0, f1 - f0, 1.0),
+                    0.0)
+    crit = a0 + clip(t, 0.0, 1.0) * (a1 - a0)
+    da = a1 - a0
+    slope = torch.where((da > 0) & (f1 > f0),
+                        (f1 - f0) / torch.where(da > 0, da, 1.0), 0.0)
+    # The analytic near-reflection margin is exact only on the crossing
+    # segment and only when the cutoff equals the local (non-cummax) value
+    # there: a cummax-shadowed lower node (an E-peak above a valley) never
+    # reaches 1 at crit. ``emax`` = cutoff margin at the lower node.
+    genuine = r0 == f0
+    emax = torch.where(genuine, torch.maximum(slope * (crit - a0),
+                                              torch.zeros_like(slope)), 0.0)
+    # np.interp edge semantics: cutoff already exceeded at the first node
+    crit = torch.where(first_exceeds, base, crit)
+    crit = torch.where(valid, crit, base) - _DH_BACKOFF
+    slope = torch.where(valid, slope, 0.0)
+    emax = torch.where(valid, emax, 0.0)
+    return crit, slope, emax
+
+
+def prepare_profile_tables(freq_hz, den, bmag, bpsi, alt, mode_mult):
+    """Host-side preprocessing shared by the solve-outside paths.
+
+    Flat-extends each profile at its density peak, runs the monotone
+    cutoff (cummax) and the crossing reflection-height solve, and packs
+    the per-segment table. Returns (seg [B, N, 8], crit [B, F] finite,
+    valid [B, F] bool, slope [B, F], emax [B, F]); ``slope`` is
+    d(fcrit)/dh on the crossing segment (the analytic margin's rate).
+    """
+    B, N = den.shape
+    dtype = den.dtype
+    cp2 = torch.as_tensor(CP * CP, dtype=dtype, device=den.device)
+
+    den_t, bmag_t, bpsi_t, alt_t = _flat_extend(den, bmag, bpsi, alt)
+
+    inv_f2 = 1.0 / (freq_hz * freq_hz)
+    F = freq_hz.shape[0]
+    if mode_mult > 0:
+        # O-mode: cummax_j X[b,f,j] == cummax_j(den)[b,j]·cp²·inv_f2[f]
+        # exactly (multiplication by a positive constant is monotone), so
+        # the crossing index is a density-space count, then a ±1
+        # correction in X-space restores agreement at rounding razors.
+        dmax = torch.cummax(den_t, dim=1).values                 # [B, N]
+
+        def Xval(kk):
+            return torch.gather(dmax, 1, kk) * cp2 * inv_f2[None, :]
+
+        thr = (freq_hz * freq_hz) / cp2                           # den units
+        # #{j: dmax[j] < thr}: dmax is nondecreasing, so a left search
+        k = torch.searchsorted(dmax.contiguous(),
+                               thr[None, :].expand(B, F).contiguous())
+        k = torch.clamp(k, 1, N - 1)
+        # X-space ±1 correction (2 steps each way cover razor plateaus)
+        for _ in range(2):
+            k = torch.where((Xval(k - 1) >= 1.0) & (k > 1), k - 1, k)
+        for _ in range(2):
+            k = torch.where((Xval(k) < 1.0) & (k < N - 1), k + 1, k)
+        valid = Xval(torch.full_like(k, N - 1)) >= 1.0
+        f0 = Xval(k - 1)
+        f1 = Xval(k)
+        a0 = torch.gather(alt_t, 1, k - 1)
+        a1 = torch.gather(alt_t, 1, k)
+        r0 = torch.gather(den_t, 1, k - 1) * cp2 * inv_f2[None, :]
+        first_exceeds = (den_t[:, 0:1] * cp2) * inv_f2[None, :] >= 1.0
+    else:
+        X = den_t[:, None, :] * cp2 * inv_f2[None, :, None]
+        Y = bmag_t[:, None, :] * G_P / freq_hz[None, :, None]
+        s = X + Y
+        fcrit = torch.cummax(s, dim=2).values
+        valid = fcrit[:, :, -1] >= 1.0
+        # crossing index by counting nodes below the cutoff (monotone rows)
+        k = torch.clamp(torch.sum(fcrit < 1.0, dim=2), 1, N - 1)
+
+        def take(a, kk):
+            return torch.gather(a, 2, kk[:, :, None])[..., 0]
+
+        f0 = take(fcrit, k - 1)
+        f1 = take(fcrit, k)
+        alt_bf = alt_t[:, None, :].expand(B, F, N)
+        a0 = take(alt_bf, k - 1)
+        a1 = take(alt_bf, k)
+        r0 = take(s, k - 1)
+        first_exceeds = 1.0 <= fcrit[:, :, 0]
+    crit, slope, emax = _crossing(f0, f1, a0, a1, r0, first_exceeds, valid,
+                                  alt_t[:, 0:1])
+    seg = _pack_segment_table(den_t, bmag_t, bpsi_t, alt_t)
+    return seg, crit, valid, slope, emax
+
+
+def _mu_mup_stable_tile(X, Y, psi_deg, mode_mult, eps_crit, eps_max):
+    """μ' with the near-reflection small quantity supplied analytically.
+
+    Expression-for-expression port of ``pallas_vh._mu_mup_stable_tile``
+    (the CUDA kernel's ``mup_stable`` is the same sequence). ``eps_crit``
+    is the cutoff margin (1−X for O-mode, 1−X−Y for X-mode) from the
+    crossing-segment geometry, substituted where the sample lies on the
+    crossing segment (``eps_crit ≤ eps_max``) and ``eps_crit < 1e-3``.
+
+    Analytic-path factorisations (cancellation-free):
+      O:  under = (Xm1² + s)/(Xm1 + s),            s = YL²Xm1²/(β + ½YT²)
+      X:  under = Xm1²·ε·(Xm1+Y) / ((Xm1² + s)·D), D = Xm1 − ½YT² − β
+    Returns (μ', ok) with μ' = 0 where not ok.
+    """
+    TH = 1e-3
+    use_an = (eps_crit < TH) & (eps_crit <= eps_max)
+    psi = psi_deg * _DEG2RAD
+    sinp = torch.sin(psi)
+    cosp = torch.cos(psi)
+    YT = Y * sinp
+    YL = Y * cosp
+
+    if mode_mult > 0:
+        Xm1 = torch.where(use_an, eps_crit, 1.0 - X)
+    else:
+        eps_u = torch.where(use_an, eps_crit, 1.0 - X - Y)
+        Xm1 = torch.where(use_an, Y + eps_u, 1.0 - X)
+
+    YT2 = YT * YT
+    YL2 = YL * YL
+    beta = torch.sqrt(0.25 * (YT2 * YT2) + YL2 * (Xm1 * Xm1))
+    bsum = beta + 0.5 * YT2
+    b_ok = bsum > 0.0
+    bsum_safe = torch.where(b_ok, bsum, 1.0)
+    s_term = torch.where(b_ok, YL2 * (Xm1 * Xm1) / bsum_safe, 0.0)
+    conj = Xm1 * Xm1 + s_term                    # = Xm1² − ½YT² + β exactly
+
+    if mode_mult > 0:
+        D = Xm1 + s_term
+        d_ok = D != 0.0
+        D_safe = torch.where(d_ok, D, 1.0)
+        under = conj / D_safe
+    else:
+        D = Xm1 - 0.5 * YT2 - beta
+        d_ok = D != 0.0
+        D_safe = torch.where(d_ok, D, 1.0)
+        conj_safe = torch.where(conj > 0.0, conj, 1.0)
+        under_an = (Xm1 * Xm1) * eps_u * (Xm1 + Y) / (conj_safe * D_safe)
+        under = torch.where(use_an, under_an, 1.0 - X * Xm1 / D_safe)
+        d_ok = d_ok & (~use_an | (conj > 0.0))
+
+    u_ok = (under >= 0.0) & d_ok
+    mu = torch.where(u_ok, torch.sqrt(torch.where(u_ok, under, 1.0)), 1.0)
+    mu_le1 = mu <= 1.0
+
+    bb_ok = beta > 0.0
+    beta_safe = torch.where(bb_ok, beta, 1.0)
+
+    m_ok = u_ok & bb_ok & (mu > 0.0) & mu_le1
+    mu_safe = torch.where(m_ok, mu, 1.0)
+    if mode_mult > 0:
+        # feed the (discarded) naive derivative branch harmless inputs on
+        # analytic lanes: its 1/D⁴-scale cotangents would overflow into
+        # inf·0 = NaN (double-where guard)
+        Xm1_nv = torch.where(use_an, 1.0, Xm1)
+        D_nv = torch.where(use_an, 1.0, D_safe)
+        mu_nv = torch.where(use_an, 1.0, mu_safe)
+    else:
+        Xm1_nv, D_nv, mu_nv = Xm1, D_safe, mu_safe
+    dbetadX = -YL2 * Xm1_nv / beta_safe
+    dDdX = -1.0 + mode_mult * dbetadX
+    dalphadY = YT * YT2 * sinp + 2.0 * YL * (Xm1_nv * Xm1_nv) * cosp
+    dbetadY = 0.5 * dalphadY / beta_safe
+    dDdY = -YT * sinp + mode_mult * dbetadY
+    dmudY = (X * Xm1_nv * dDdY) / (2.0 * mu_nv * (D_nv * D_nv))
+    dmudX = (1.0 / (2.0 * mu_nv * D_nv)) * (
+        2.0 * X - 1.0 + X * Xm1_nv / D_nv * dDdX)
+    if mode_mult > 0:
+        # cancellation-free expansions with X ≡ 1 − Xm1 on analytic lanes
+        # (c = YL²/(β+½YT²), D = Xm1·(1+c·Xm1)); see the JAX docstring
+        cfac = torch.where(b_ok, YL2 / bsum_safe, 0.0)
+        onepr = 1.0 + cfac * Xm1
+        T_st = (-1.0 + cfac * (1.0 - 2.0 * Xm1)
+                - YL2 / beta_safe * (1.0 - Xm1))
+        dmudX_st = T_st / (2.0 * mu_safe * (onepr * onepr))
+        q_st = cosp - YT * sinp * YL / bsum_safe
+        dmudY_st = X * YL * Xm1 * q_st / (2.0 * mu_safe * beta_safe
+                                          * (onepr * onepr))
+        dmudX = torch.where(use_an, dmudX_st, dmudX)
+        dmudY = torch.where(use_an, dmudY_st, dmudY)
+    mup = mu - (2.0 * X * dmudX + Y * dmudY)
+    ok = m_ok & torch.isfinite(mup)
+
+    # per-element isotropic fallback for unmagnetised samples
+    iso_ok = Xm1 > 0.0
+    iso_mup = 1.0 / torch.sqrt(torch.where(iso_ok, Xm1, 1.0))
+    unmag = torch.abs(Y) < 1e-12
+    mup = torch.where(unmag, torch.where(iso_ok, iso_mup, 0.0),
+                      torch.where(ok, mup, 0.0))
+    ok = (unmag & iso_ok) | (~unmag & ok)
+    ok = ok & (mup > 0.0) & (mup <= 1e7)
+    return mup, ok
+
+
+def _stretched_grid_tables(n_points):
+    """Static stretched-grid vectors in f64: (mult, 1−mult, Δmult).
+
+    The multiplier and its complement/differences MUST be formed in f64
+    before any cast to the working dtype: near the reflection point the
+    grid spacing is ~6e-6·span out of mult≈1, i.e. ≲2e-8 relative — below
+    f32 eps — so diff/one-minus on an f32 ``mult`` collapses and the
+    singular μ′ tail integrates ~0.09 km wrong on the X-mode 20k workload.
+    """
+    u = np.linspace(0.0, 1.0, n_points)
+    factor = (np.exp(10.0 * (1.0 - u)) - 1.0) / (np.exp(10.0) - 1.0)
+    mult = 1.0 - factor
+    dmult = np.concatenate([np.diff(mult), [0.0]])
+    return mult, factor, dmult
+
+
+def _grid_tensors(n_points, like):
+    """(mult, 1−mult, Δmult) as [P] tensors in ``like``'s dtype/device."""
+    return tuple(torch.as_tensor(a, dtype=like.dtype, device=like.device)
+                 for a in _stretched_grid_tables(n_points))
+
+
+def ionogram_fast_xla(freq_mhz, den, bmag, bpsi, alt, mode_mult=1.0,
+                      n_points=200):
+    """Gather-free segment sweep of the fused kernel, in plain PyTorch.
+
+    The public ``"xla"`` engine, the plain version of the sweep kernel and
+    the gradient path of every kernel. Same math as the JAX
+    ``ionogram_fast_xla``: a loop over the profile's N−1 segments adds
+    each saturated hat weight to [B, F, P] accumulators. Runs on any
+    device and is differentiable by autograd.
+    """
+    PLAIN_CALLS["sweep"] += 1
+    freq_mhz, den, bmag, bpsi, alt = profile_tensors(freq_mhz, den, bmag,
+                                                     bpsi, alt)
+    freq_hz = freq_mhz * 1e6
+    B, N = den.shape
+
+    seg, crit, valid, slope, emax = prepare_profile_tables(
+        freq_hz, den, bmag, bpsi, alt, mode_mult)
+    mult, omm, dmult = _grid_tensors(n_points, den)
+    span = crit - alt[0]                                     # [B, F]
+    # work in altitudes relative to alt0, matching the packed table
+    new_alt = span[:, :, None] * mult
+    is_last = torch.arange(n_points, device=den.device) == n_points - 1
+    dh = torch.where(is_last, _DH_BACKOFF, span[:, :, None] * dmult)
+
+    d = seg[:, 0, 2][:, None, None]
+    bm = seg[:, 0, 4][:, None, None]
+    bp = seg[:, 0, 6][:, None, None]
+    for j in range(N - 1):
+        a_j = seg[:, j, 0][:, None, None]
+        inv = seg[:, j, 1][:, None, None]
+        tt = clip((new_alt - a_j) * inv, 0.0, 1.0)
+        d = d + tt * seg[:, j, 3][:, None, None]
+        bm = bm + tt * seg[:, j, 5][:, None, None]
+        bp = bp + tt * seg[:, j, 7][:, None, None]
+    shape = new_alt.shape
+    d, bm, bp = d.expand(shape), bm.expand(shape), bp.expand(shape)
+
+    f = freq_hz[None, :, None]
+    X = d * (CP * CP) / (f * f)
+    Y = bm * G_P / f
+    eps = slope[:, :, None] * (span[:, :, None] * omm + _DH_BACKOFF)
+    mup, ok = _mu_mup_stable_tile(X, Y, bp, mode_mult, eps,
+                                  emax[:, :, None])
+    ih = torch.sum(torch.where(ok, mup * dh, 0.0), dim=2)
+    min_alt = torch.amin(alt)
+    return torch.where(valid & (ih != 0.0), ih + min_alt, _NAN)
+
+
+# --------------------------------------------------------------------------
+# Kernel arguments (host prep) and the plain versions of kernels 1-3
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KernelArgs:
+    """Everything one kernel launch reads, prepared on the inputs' device.
+
+    ``tab`` is the channel-major segment table [B, C, N] (channels as in
+    :func:`_pack_segment_table`, plus cummax(den) as channel 8 for the
+    O-mode in-kernel solve). ``span``/``slope``/``emax``/``valid`` [B, F]
+    are set when the solve runs outside the kernel. ``inv_dalt`` selects
+    the arithmetic index (uniform grid); None the binary search.
+    """
+    kind: str
+    mode_mult: float
+    tab: torch.Tensor
+    freq_hz: torch.Tensor
+    mult: torch.Tensor
+    omm: torch.Tensor
+    dmult: torch.Tensor
+    alt_min: torch.Tensor
+    inv_dalt: Optional[float]
+    span: Optional[torch.Tensor] = None
+    slope: Optional[torch.Tensor] = None
+    emax: Optional[torch.Tensor] = None
+    valid: Optional[torch.Tensor] = None
+
+
+def prepare_kernel_args(kind, freq_mhz, den, bmag, bpsi, alt, mode_mult,
+                        n_points, inv_dalt):
+    """Host prep for one of the four kernels (torch ops on den's device)."""
+    freq_hz = freq_mhz * 1e6
+    mult, omm, dmult = _grid_tensors(n_points, den)
+    alt_min = torch.amin(alt).reshape(1)
+    common = dict(kind=kind, mode_mult=mode_mult, freq_hz=freq_hz,
+                  mult=mult, omm=omm, dmult=dmult, alt_min=alt_min,
+                  inv_dalt=inv_dalt)
+    if kind in ("gather_osolve", "gather_xsolve"):
+        den_t, bmag_t, bpsi_t, alt_t = _flat_extend(den, bmag, bpsi, alt)
+        seg = _pack_segment_table(den_t, bmag_t, bpsi_t, alt_t)
+        chans = [seg.transpose(1, 2)]
+        if kind == "gather_osolve":
+            chans.append(torch.cummax(den_t, dim=1).values[:, None, :])
+        return KernelArgs(tab=torch.cat(chans, dim=1).contiguous(), **common)
+    seg, crit, valid, slope, emax = prepare_profile_tables(
+        freq_hz, den, bmag, bpsi, alt, mode_mult)
+    return KernelArgs(tab=seg.transpose(1, 2).contiguous(),
+                      span=(crit - alt[0]).contiguous(),
+                      slope=slope.contiguous(), emax=emax.contiguous(),
+                      valid=valid.to(torch.uint8).contiguous(), **common)
+
+
+def _osolve_plain(a):
+    """O-mode in-kernel solve (``_osolve_tile``) on the table, [B, F] each.
+
+    Frequency-separable count of cummax(den) < f²/cp², X-space ±1 razor
+    correction, crossing geometry in the relative-altitude frame.
+    """
+    tab, f = a.tab, a.freq_hz[None, :]
+    B, _, N = tab.shape
+    alt_rel, den, dmax = tab[:, 0], tab[:, 2], tab[:, 8]
+    cp2 = torch.as_tensor(CP * CP, dtype=tab.dtype, device=tab.device)
+    inv_f2 = 1.0 / (f * f)
+    thr = (f * f) / cp2
+
+    def Xval(kk):
+        return torch.gather(dmax, 1, kk) * cp2 * inv_f2
+
+    # the count #{j: dmax[j] < thr}; dmax is nondecreasing
+    k = torch.searchsorted(dmax.contiguous(),
+                           thr.expand(B, -1).contiguous())
+    k = torch.clamp(k, 1, N - 1)
+    for _ in range(2):
+        k = torch.where((Xval(k - 1) >= 1.0) & (k > 1), k - 1, k)
+    for _ in range(2):
+        k = torch.where((Xval(k) < 1.0) & (k < N - 1), k + 1, k)
+    f0 = Xval(k - 1)
+    f1 = Xval(k)
+    a0 = torch.gather(alt_rel, 1, k - 1)
+    a1 = torch.gather(alt_rel, 1, k)
+    r0 = torch.gather(den, 1, k - 1) * cp2 * inv_f2
+    first_exceeds = (dmax[:, 0:1] * cp2) * inv_f2 >= 1.0
+    valid = (dmax[:, N - 1:N] * cp2) * inv_f2 >= 1.0
+    valid = valid.expand_as(f0)
+    span, slope, emax = _crossing(f0, f1, a0, a1, r0, first_exceeds, valid,
+                                  0.0)
+    return span, slope, emax, valid
+
+
+def _xsolve_plain(a):
+    """X-mode in-kernel solve (``_xsolve_tile``) on the table, [B, F] each.
+
+    The crossing is the first exceedance of the raw s = X+Y; f0/f1 are
+    prefix maxima of the same s values, r0 the raw s at k−1.
+    """
+    tab, f = a.tab, a.freq_hz[None, :, None]
+    B, _, N = tab.shape
+    alt_rel, den, bm = tab[:, 0], tab[:, 2], tab[:, 4]
+    cp2 = torch.as_tensor(CP * CP, dtype=tab.dtype, device=tab.device)
+    gp = torch.as_tensor(G_P, dtype=tab.dtype, device=tab.device)
+    inv_f2 = 1.0 / (f * f)
+    # same op ORDER as the dense path: X = (den·cp²)/f², Y = (|B|·g_p)/f
+    s = den[:, None, :] * cp2 * inv_f2 + bm[:, None, :] * gp / f  # [B,F,N]
+    exceed = s >= 1.0
+    first = torch.argmax(exceed.to(torch.uint8), dim=2)
+    k_first = torch.where(exceed.any(dim=2), first, N)
+    valid = k_first < N
+    k = torch.clamp(k_first, 1, N - 1)[:, :, None]
+    f0 = torch.gather(torch.cummax(s, dim=2).values, 2, k - 1)[..., 0]
+    s_k = torch.gather(s, 2, k)[..., 0]
+    f1 = torch.maximum(f0, s_k)
+    r0 = torch.gather(s, 2, k - 1)[..., 0]
+    a0 = torch.gather(alt_rel, 1, k[..., 0] - 1)
+    a1 = torch.gather(alt_rel, 1, k[..., 0])
+    span, slope, emax = _crossing(f0, f1, a0, a1, r0, exceed[:, :, 0],
+                                  valid, 0.0)
+    return span, slope, emax, valid
+
+
+def _resample_plain(a, span, slope, emax):
+    """Gather resample + μ' + Σ μ'·dh on the uniform grid → ih [B, F].
+
+    The index is ``floor(span·mult/Δalt)`` clamped to [0, N−2], as in the
+    gather kernels. Profiles are processed in chunks so that the [b, F, P]
+    workspace stays near 2**25 elements.
+    """
+    tab = a.tab
+    B, _, N = tab.shape
+    F, P = a.freq_hz.shape[0], a.mult.shape[0]
+    mi = a.mult * a.inv_dalt
+    f = a.freq_hz[None, :, None]
+    is_last = torch.arange(P, device=tab.device) == P - 1
+    step = max(1, (1 << 25) // max(1, F * P))
+    out = []
+    for b0 in range(0, B, step):
+        sl = slice(b0, b0 + step)
+        sp = span[sl][:, :, None]
+        pos = sp * mi                                        # [b, F, P]
+        i0 = torch.clamp(torch.floor(pos), 0, N - 2)
+        frac = clip(pos - i0, 0.0, 1.0)
+        idx = i0.to(torch.int64).reshape(pos.shape[0], F * P)
+
+        def gat(c):
+            return torch.gather(tab[sl, c], 1, idx).reshape(pos.shape)
+
+        d = gat(2) + frac * gat(3)
+        bm = gat(4) + frac * gat(5)
+        bp = gat(6) + frac * gat(7)
+        dh = torch.where(is_last, _DH_BACKOFF, sp * a.dmult)
+        X = d * (CP * CP) / (f * f)
+        Y = bm * G_P / f
+        eps = slope[sl][:, :, None] * (sp * a.omm + _DH_BACKOFF)
+        mup, ok = _mu_mup_stable_tile(X, Y, bp, a.mode_mult, eps,
+                                      emax[sl][:, :, None])
+        out.append(torch.sum(torch.where(ok, mup * dh, 0.0), dim=2))
+    return torch.cat(out, dim=0)
+
+
+def plain_ionogram(a):
+    """The plain PyTorch version of kernel ``a.kind`` on prepared args.
+
+    Computes exactly what the kernel computes, in the kernel's own way
+    (its solve, its index, its μ' tail), on any device.
+    """
+    PLAIN_CALLS[a.kind] += 1
+    if a.kind == "gather_osolve":
+        span, slope, emax, valid = _osolve_plain(a)
+    elif a.kind == "gather_xsolve":
+        span, slope, emax, valid = _xsolve_plain(a)
+    elif a.kind == "gather":
+        span, slope, emax, valid = a.span, a.slope, a.emax, a.valid != 0
+    else:
+        raise ValueError(f"no prepared-args plain version for {a.kind!r} "
+                         "(the sweep's plain version is ionogram_fast_xla)")
+    ih = _resample_plain(a, span, slope, emax)
+    return torch.where(valid & (ih != 0.0), ih + a.alt_min, _NAN)
+
+
+# --------------------------------------------------------------------------
+# Kernel launch
+# --------------------------------------------------------------------------
+
+_WARPS = 8                      # warps per block: one frequency per warp
+
+
+def launch_shape(B, F, n_sm):
+    """(frequencies per block, warps per block) for a [B, F] launch.
+
+    One block per (profile, frequency group); groups are split only as far
+    as needed to put about four blocks on every SM.
+    """
+    n_groups = max(1, min(-(-F // _WARPS), -(-4 * n_sm // B)))
+    return -(-F // n_groups), _WARPS
+
+
+def launch_kernel(a):
+    """Launch ``csrc/ionogram.cu`` for prepared args; returns vh [B, F].
+
+    Checks device, dtype and contiguity, launches on the current stream,
+    and raises on any CUDA error the launch reports.
+    """
+    from . import cuda_ext
+
+    tab = a.tab
+    dtype, dev = tab.dtype, tab.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"unsupported dtype {dtype}")
+    solve = a.kind in ("gather_osolve", "gather_xsolve")
+    uniform = a.inv_dalt is not None
+    if solve and not uniform:
+        raise ValueError("the in-kernel solve needs a uniform grid")
+    B, C, N = tab.shape
+    F, P = a.freq_hz.shape[0], a.mult.shape[0]
+    if N < 2 or F == 0 or B == 0:
+        raise ValueError(f"degenerate launch B={B} F={F} N={N}")
+    need = [tab, a.freq_hz, a.mult, a.omm, a.dmult, a.alt_min]
+    if not solve:
+        need += [a.span, a.slope, a.emax]
+    for t in need:
+        if t.dtype != dtype or t.device != dev or not t.is_contiguous():
+            raise ValueError("kernel operands must share dtype and device "
+                             "and be contiguous")
+    smem = tab.element_size() * C * N
+    if smem > cuda_ext.MAX_SMEM_BYTES:
+        raise ValueError(f"profile table of {smem} bytes exceeds the "
+                         f"{cuda_ext.MAX_SMEM_BYTES}-byte shared memory of "
+                         "one block (N_alt too large)")
+    out = torch.empty((B, F), dtype=dtype, device=dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    f_group, warps = launch_shape(B, F, n_sm)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = cuda_ext.load().pyrayhf_ionogram(
+            0 if dtype == torch.float32 else 1,
+            1 if a.mode_mult > 0 else -1, int(solve), int(uniform),
+            ptr(tab), C, B, N, ptr(a.mult), ptr(a.omm), ptr(a.dmult), P,
+            ptr(a.freq_hz), F, f_group, warps,
+            ptr(a.span), ptr(a.slope), ptr(a.emax), ptr(a.valid),
+            ptr(a.alt_min), float(a.inv_dalt or 0.0), ptr(out), stream)
+    if err != 0:
+        raise RuntimeError(f"ionogram kernel launch failed: "
+                           f"{cuda_ext.error_string(err)} ({err})")
+    LAUNCHES[a.kind] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# Public wrappers and the autograd rule
+# --------------------------------------------------------------------------
+
+def _run(cfg, freq_mhz, den, bmag, bpsi, alt):
+    """Kernel on CUDA tensors, plain version on CPU tensors, else raise."""
+    dev = den.device.type
+    if dev not in ("cuda", "cpu"):
+        raise ValueError(f"no ionogram kernel for device {den.device}")
+    if dev == "cuda" and cfg["interpret"]:
+        raise ValueError("interpret=True has no meaning for a CUDA kernel; "
+                         "pass CPU tensors to run the plain version")
+    kind, mm, P = cfg["kind"], cfg["mode_mult"], cfg["n_points"]
+    if dev == "cpu" and kind == "sweep":
+        return ionogram_fast_xla(freq_mhz, den, bmag, bpsi, alt,
+                                 mode_mult=mm, n_points=P)
+    inv_dalt = None if kind == "sweep" else cfg["inv_dalt"]
+    a = prepare_kernel_args(kind, freq_mhz, den, bmag, bpsi, alt, mm, P,
+                            inv_dalt)
+    return launch_kernel(a) if dev == "cuda" else plain_ionogram(a)
+
+
+class _PallasAD(torch.autograd.Function):
+    """Kernel forward; VJP recomputed through :func:`ionogram_fast_xla`.
+
+    Counterpart of the JAX ``_pallas_ad`` custom JVP: the sweep evaluates
+    the same discretisation, so its derivatives are the kernel's to their
+    forward agreement.
+    """
+
+    @staticmethod
+    def forward(ctx, cfg, freq_mhz, den, bmag, bpsi, alt):
+        ctx.cfg = cfg
+        ctx.save_for_backward(freq_mhz, den, bmag, bpsi, alt)
+        return _run(cfg, freq_mhz, den, bmag, bpsi, alt)
+
+    @staticmethod
+    def backward(ctx, g):
+        cfg = ctx.cfg
+        needs = ctx.needs_input_grad[1:]
+        with torch.enable_grad():
+            xs = [x.detach().requires_grad_(n)
+                  for x, n in zip(ctx.saved_tensors, needs)]
+            out = ionogram_fast_xla(*xs, mode_mult=cfg["mode_mult"],
+                                    n_points=cfg["n_points"])
+            want = [x for x, n in zip(xs, needs) if n]
+            got = iter(torch.autograd.grad(out, want, g, allow_unused=True))
+        return (None, *[next(got) if n else None for n in needs])
+
+
+def _mode_mult(mode_mult, config):
+    if mode_mult is None:
+        return 1.0 if resolve(config, "mode", None, "O") == "O" else -1.0
+    return mode_mult
+
+
+def ionogram_pallas_gather(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
+                           n_points=None, p_chunk=None, interpret=False,
+                           f_tile=None, b_tile=4, config=None,
+                           x_in_kernel_solve=True):
+    """Gather-kernel ionogram synthesis: [B, N_alt] profiles → [B, F] vh.
+
+    The main-path engine (``engine="pallas_gather"``, and ``"auto"`` on
+    CUDA tensors with a uniform shared grid). With ``x_in_kernel_solve``
+    (default) the reflection-height solve runs inside the kernel for both
+    modes (kernels ``gather_osolve``/``gather_xsolve``); with False the X
+    mode solves on the host first (:func:`prepare_profile_tables`, kernel
+    ``gather``), as the JAX option does. O mode always solves in-kernel.
+    Requires a uniformly spaced shared altitude grid (raises otherwise).
+    ``p_chunk``, ``f_tile`` and ``b_tile`` are the TPU kernel's tiling
+    knobs, accepted for signature compatibility and unused.
+    Differentiable through :class:`_PallasAD`.
+    """
+    return _ionogram_gather(freq_mhz, den, bmag, bpsi, alt,
+                            _mode_mult(mode_mult, config),
+                            resolve(config, "n_points", n_points, 200),
+                            uniform_inv_dalt(alt), x_in_kernel_solve,
+                            interpret)
+
+
+def _ionogram_gather(freq_mhz, den, bmag, bpsi, alt, mode_mult, n_points,
+                     inv_dalt, x_in_kernel_solve=True, interpret=False):
+    """:func:`ionogram_pallas_gather` with 1/Δalt already read from ``alt``
+    (``engine="auto"`` reads it while routing: one host sync per call)."""
+    if inv_dalt is None:
+        raise ValueError("ionogram_pallas_gather requires a uniformly "
+                         "spaced altitude grid (use ionogram_pallas)")
+    if mode_mult > 0:
+        kind = "gather_osolve"
+    else:
+        kind = "gather_xsolve" if x_in_kernel_solve else "gather"
+    cfg = dict(kind=kind, mode_mult=mode_mult, n_points=n_points,
+               inv_dalt=inv_dalt, interpret=bool(interpret))
+    return _PallasAD.apply(cfg, *profile_tensors(freq_mhz, den, bmag, bpsi,
+                                                 alt))
+
+
+def ionogram_pallas(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
+                    n_points=None, p_chunk=None, interpret=False, f_tile=32,
+                    b_tile=4, config=None):
+    """Sweep-kernel ionogram synthesis: [B, N_alt] profiles → [B, F] vh.
+
+    Same discretisation as :func:`pyrayhf_tpu_torch.forward
+    .vertical_forward_operator_batch`, for any shared altitude grid
+    (uniform or not): the kernel finds each point's segment by binary
+    search, the plain version (CPU tensors) is :func:`ionogram_fast_xla`.
+    ``config`` supplies mode (as ±1 mode_mult) and n_points when not
+    explicit. ``p_chunk``, ``f_tile`` and ``b_tile`` are accepted for
+    signature compatibility and unused. Differentiable through
+    :class:`_PallasAD`.
+    """
+    mode_mult = _mode_mult(mode_mult, config)
+    n_points = resolve(config, "n_points", n_points, 200)
+    cfg = dict(kind="sweep", mode_mult=mode_mult, n_points=n_points,
+               inv_dalt=None, interpret=bool(interpret))
+    return _PallasAD.apply(cfg, *profile_tensors(freq_mhz, den, bmag, bpsi,
+                                                 alt))

@@ -1,0 +1,395 @@
+"""PyTorch port vs the JAX package: the ionogram kernels' module.
+
+Each kernel's plain PyTorch version (what the wrappers run on CPU tensors)
+is held against its Pallas kernel run in interpret mode, exactly as
+``tests/test_pallas.py`` runs it. Inputs are made with numpy from a seed
+and fed to both packages in f64.
+
+Tolerances: identical NaN masks and max |Δvh| ≤ 1e-6 km (the JAX
+package's own bound); the X-mode sub-gyro row (first node already past
+the cutoff) is compared on its NaN pattern only, as
+``tests/test_pallas.py:286`` masks it. Gradients: rtol 1e-7 with atol
+1e-9·max, because the two backward passes sum in another order near
+reflection.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+from numpy.testing import assert_allclose
+
+import pyrayhf_tpu.pallas_vh as JV
+import pyrayhf_tpu_torch.pallas_vh as TV
+
+TOL_KM = 1e-6
+
+
+def _workload(B=4, n_alt=180):
+    alt = np.linspace(90.0, 550.0, n_alt)
+    rng = np.random.default_rng(3)
+    hms = rng.uniform(250.0, 330.0, B)
+    peaks = rng.uniform(1e12, 3e12, B)
+    den = peaks[:, None] * np.exp(-(alt[None, :] - hms[:, None]) ** 2
+                                  / (2 * 55.0 ** 2))
+    bmag = np.full((B, n_alt), 3.2e-5)
+    bpsi = np.full((B, n_alt), 65.0)
+    freqs = np.arange(1.0, 16.0, 0.5)
+    return freqs, den, bmag, bpsi, alt
+
+
+def _two_peak():
+    """Plain F layer, and F + E-peak over a valley (cummax-shadowed
+    bottomside); 0.3 MHz (X-mode sub-gyro row) and 25-30 MHz (escape)."""
+    n_alt = 180
+    alt = np.linspace(90.0, 550.0, n_alt)
+    f2 = 2.5e12 * np.exp(-(alt - 300.0) ** 2 / (2 * 55.0 ** 2))
+    e_layer = 9e11 * np.exp(-(alt - 110.0) ** 2 / (2 * 10.0 ** 2))
+    den = np.stack([f2, f2 + e_layer])
+    bmag = np.full((2, n_alt), 3.2e-5)
+    bpsi = np.full((2, n_alt), 65.0)
+    freqs = np.concatenate([[0.3], np.arange(1.0, 16.0, 0.5), [25.0, 30.0]])
+    return freqs, den, bmag, bpsi, alt
+
+
+def _nonuniform():
+    rng = np.random.default_rng(7)
+    alt = np.sort(rng.uniform(90.0, 550.0, 150))
+    alt[0], alt[-1] = 90.0, 550.0
+    den = 2e12 * np.exp(-(alt - 300.0) ** 2 / (2 * 60.0 ** 2))[None, :]
+    bmag = np.full_like(den, 3e-5)
+    bpsi = np.full_like(den, 60.0)
+    freqs = np.arange(2.0, 14.0, 1.0)
+    return freqs, den, bmag, bpsi, alt
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, dtype=np.float64))
+
+
+def _j(args):
+    return [jnp.asarray(a) for a in args]
+
+
+def _assert_vh(port, ref, tol=TOL_KM, skip_cols=()):
+    port = port.detach().numpy() if isinstance(port, torch.Tensor) else port
+    ref = np.asarray(ref)
+    assert port.shape == ref.shape
+    assert np.array_equal(np.isnan(port), np.isnan(ref))
+    m = np.isfinite(ref)
+    m[:, list(skip_cols)] = False
+    assert m.any()
+    assert np.abs(port[m] - ref[m]).max() <= tol
+
+
+def test_stretched_grid_tables_identical():
+    for n in (200, 600, 20000):
+        for a, b in zip(TV._stretched_grid_tables(n),
+                        JV._stretched_grid_tables(n)):
+            assert np.array_equal(a, b)
+
+
+def test_uniform_inv_dalt_matches_jax():
+    _, _, _, _, alt = _workload()
+    assert TV.uniform_inv_dalt(_t(alt)) == JV.uniform_inv_dalt(alt)
+    alt_nu = alt.copy()
+    alt_nu[5] += 0.5
+    assert TV.uniform_inv_dalt(_t(alt_nu)) is None
+    assert TV.uniform_inv_dalt(_t(np.stack([alt, alt]))) is None
+
+
+@pytest.mark.parametrize("mode_mult", [1.0, -1.0])
+def test_prepare_profile_tables_matches_jax(mode_mult):
+    freqs, den, bmag, bpsi, alt = _two_peak()
+    ref = JV.prepare_profile_tables(jnp.asarray(freqs) * 1e6,
+                                    *_j((den, bmag, bpsi, alt)), mode_mult)
+    port = TV.prepare_profile_tables(_t(freqs) * 1e6,
+                                     *map(_t, (den, bmag, bpsi, alt)),
+                                     mode_mult)
+    for name, p, r in zip(("seg", "crit", "valid", "slope", "emax"),
+                          port, ref):
+        r = np.asarray(r)
+        if r.dtype == bool:
+            assert np.array_equal(p.numpy(), r), name
+        else:
+            assert_allclose(p.numpy(), r, rtol=1e-12, atol=1e-12,
+                            err_msg=name)
+
+
+@pytest.mark.parametrize("mode_mult", [1.0, -1.0])
+def test_mu_mup_stable_tile_matches_jax(mode_mult):
+    """Random samples, about half of them on the analytic-margin path
+    (eps < 1e-3 and eps ≤ emax). rtol 1e-10: μ' near the cutoff is
+    conditioned like 1/ε and the libraries' sin/cos differ by an ulp."""
+    rng = np.random.default_rng(21)
+    n = 4000
+    eps = 10.0 ** rng.uniform(-9, -2, n)
+    emax = np.where(rng.uniform(size=n) < 0.7, 2e-3, 0.0)
+    Y = rng.uniform(0.05, 0.6, n)
+    Y[:50] = 0.0
+    X = np.where(rng.uniform(size=n) < 0.5, 1.0 - eps,
+                 rng.uniform(0.0, 1.2, n))
+    if mode_mult < 0:
+        X = np.clip(X - Y, 0.0, None)
+    psi = rng.uniform(0.0, 90.0, n)
+    args = (X, Y, psi)
+    mup_j, ok_j = JV._mu_mup_stable_tile(*_j(args), mode_mult,
+                                         jnp.asarray(eps), jnp.asarray(emax))
+    mup_t, ok_t = TV._mu_mup_stable_tile(*map(_t, args), mode_mult,
+                                         _t(eps), _t(emax))
+    assert np.array_equal(ok_t.numpy(), np.asarray(ok_j))
+    assert_allclose(mup_t.numpy(), np.asarray(mup_j), rtol=1e-10, atol=0)
+
+
+@pytest.mark.parametrize("case", ["workload", "two_peak", "unmagnetised"])
+def test_gather_osolve_plain_matches_jax_interpret(case):
+    args = _workload() if case == "workload" else _two_peak()
+    if case == "unmagnetised":
+        args = (*args[:2], np.zeros_like(args[2]), np.zeros_like(args[3]),
+                args[4])
+    ref = JV.ionogram_pallas_gather(*_j(args), mode_mult=1.0, n_points=200,
+                                    interpret=True)
+    TV.reset_counters()
+    port = TV.ionogram_pallas_gather(*map(_t, args), mode_mult=1.0,
+                                     n_points=200)
+    assert TV.PLAIN_CALLS["gather_osolve"] == 1
+    assert sum(TV.LAUNCHES.values()) == 0
+    _assert_vh(port, ref)
+
+
+def test_gather_xsolve_plain_matches_jax_interpret():
+    args = _two_peak()
+    ref = np.asarray(JV.ionogram_pallas_gather(
+        *_j(args), mode_mult=-1.0, n_points=200, interpret=True))
+    TV.reset_counters()
+    port = TV.ionogram_pallas_gather(*map(_t, args), mode_mult=-1.0,
+                                     n_points=200)
+    assert TV.PLAIN_CALLS["gather_xsolve"] == 1
+    _assert_vh(port, ref, skip_cols=[0])
+    assert np.isnan(port[:, -1].numpy()).all()   # above-MUF rows escape
+
+
+def test_gather_plain_matches_jax_interpret():
+    """Solve on the host (``x_in_kernel_solve=False``): JAX's
+    ``_kernel_gather`` in interpret mode, X mode (the only mode the JAX
+    wrapper routes to it)."""
+    args = _two_peak()
+    ref = JV.ionogram_pallas_gather(*_j(args), mode_mult=-1.0, n_points=200,
+                                    interpret=True, x_in_kernel_solve=False)
+    TV.reset_counters()
+    port = TV.ionogram_pallas_gather(*map(_t, args), mode_mult=-1.0,
+                                     n_points=200, x_in_kernel_solve=False)
+    assert TV.PLAIN_CALLS["gather"] == 1
+    _assert_vh(port, ref, skip_cols=[0])
+
+
+def test_gather_plain_o_mode_matches_jax_sweep():
+    """The host-solve gather in O mode (reachable in the port through the
+    prepared-args API) against the JAX segment sweep."""
+    args = _workload()
+    ref = JV.ionogram_fast_xla(*_j(args), mode_mult=1.0, n_points=200)
+    t = [_t(a) for a in args]
+    a = TV.prepare_kernel_args("gather", *t, 1.0, 200,
+                               TV.uniform_inv_dalt(t[4]))
+    _assert_vh(TV.plain_ionogram(a), ref)
+
+
+@pytest.mark.parametrize("mode_mult", [1.0, -1.0])
+def test_sweep_plain_matches_jax_interpret(mode_mult):
+    args = _workload(B=2)
+    ref = JV.ionogram_pallas(*_j(args), mode_mult=mode_mult, n_points=200,
+                             interpret=True)
+    TV.reset_counters()
+    port = TV.ionogram_pallas(*map(_t, args), mode_mult=mode_mult,
+                              n_points=200)
+    assert TV.PLAIN_CALLS["sweep"] == 1
+    _assert_vh(port, ref)
+
+
+def test_sweep_nonuniform_grid_matches_jax_interpret():
+    args = _nonuniform()
+    ref = JV.ionogram_pallas(*_j(args), mode_mult=1.0, n_points=200,
+                             interpret=True)
+    port = TV.ionogram_pallas(*map(_t, args), mode_mult=1.0, n_points=200)
+    _assert_vh(port, ref)
+
+
+def test_gather_p600_matches_jax_interpret():
+    """P = 600 spans two of the TPU kernel's 512-point chunks (its hoisted
+    solve); the port has no chunks."""
+    args = _workload(B=2)
+    ref = JV.ionogram_pallas_gather(*_j(args), mode_mult=1.0, n_points=600,
+                                    interpret=True)
+    port = TV.ionogram_pallas_gather(*map(_t, args), mode_mult=1.0,
+                                     n_points=600)
+    _assert_vh(port, ref)
+
+
+@pytest.mark.parametrize("mode_mult", [1.0, -1.0])
+def test_sweep_gradient_matches_jax_grad(mode_mult):
+    """torch.autograd.grad of Σ where(valid, vh, 0) w.r.t. den through
+    ionogram_fast_xla equals jax.grad through the JAX one."""
+    freqs, den, bmag, bpsi, alt = _two_peak()
+    fixed = (bmag, bpsi, alt)
+
+    def loss_j(d):
+        vh = JV.ionogram_fast_xla(jnp.asarray(freqs), d, *_j(fixed),
+                                  mode_mult=mode_mult, n_points=200)
+        return jnp.sum(jnp.where(jnp.isfinite(vh), vh, 0.0))
+
+    g_j = np.asarray(jax.grad(loss_j)(jnp.asarray(den)))
+    d = _t(den).requires_grad_(True)
+    vh = TV.ionogram_fast_xla(_t(freqs), d, *map(_t, fixed),
+                              mode_mult=mode_mult, n_points=200)
+    loss = torch.where(torch.isfinite(vh), vh, 0.0).sum()
+    g_t = torch.autograd.grad(loss, d)[0].numpy()
+    assert np.isfinite(g_t).all() and np.abs(g_t).max() > 0
+    assert_allclose(g_t, g_j, rtol=1e-7, atol=1e-9 * np.abs(g_j).max())
+
+
+def test_wrapper_gradient_is_the_sweeps():
+    """The autograd rule of the wrappers: gradients through
+    ionogram_pallas_gather equal those through ionogram_fast_xla, for
+    every differentiable input."""
+    freqs, den, bmag, bpsi, alt = _workload(B=2)
+
+    def grads(fn):
+        xs = [_t(a).requires_grad_(True) for a in (den, bmag, bpsi)]
+        vh = fn(_t(freqs), *xs, _t(alt), mode_mult=1.0, n_points=200)
+        loss = torch.where(torch.isfinite(vh), vh, 0.0).sum()
+        return torch.autograd.grad(loss, xs)
+
+    for gw, gs in zip(grads(TV.ionogram_pallas_gather),
+                      grads(TV.ionogram_fast_xla)):
+        assert torch.isfinite(gw).all()
+        assert_allclose(gw.numpy(), gs.numpy(), rtol=1e-10, atol=0)
+
+
+def test_f32_plain_within_budget_of_f64():
+    """f32 plain versions stay within 0.05 km of f64, near-critical rows
+    included (the analytic-margin tail; ``tests/test_pallas.py:102``).
+    The gather needs a grid uniform in f32 too: 2 km steps are exact."""
+    args = _workload(B=2, n_alt=231)
+    for fn in (TV.ionogram_pallas_gather, TV.ionogram_pallas):
+        for mm in (1.0, -1.0):
+            v64 = fn(*map(_t, args), mode_mult=mm)
+            v32 = fn(*(torch.from_numpy(np.asarray(a, np.float32))
+                       for a in args), mode_mult=mm)
+            assert v32.dtype == torch.float32
+            m = torch.isfinite(v64) & torch.isfinite(v32)
+            assert m.sum() > 40
+            assert (v32.double()[m] - v64[m]).abs().max() < 0.05
+
+
+def test_f32_crossing_above_node_fault_is_the_jax_packages():
+    """ROADMAP Queue 3: a Chapman profile (NmF2 4.6e11 m⁻³, hmF2 328 km) on
+    the 620-node 80-699 km grid whose 5.6 MHz crossing lies 2.5e-6 of
+    cutoff margin above a node. f32 lands 0.55 km from f64 there, in the
+    JAX package (its Pallas gather in interpret mode and its sweep) as in
+    the port; the neighbouring frequencies stay within 0.1 km. Port f32
+    against JAX f32: ≤ 1e-3 km (f32 sums in another order); f64: ≤ 1e-6."""
+    alt = np.linspace(80.0, 699.0, 620)
+    z = (alt - 328.1417365118308) / 58.5291669478399
+    den = 459807214778.7281 * np.exp(0.5 * (1.0 - z - np.exp(-z)))[None, :]
+    bmag = 5.126528885003856e-05 * ((6371.0 + alt[0])
+                                    / (6371.0 + alt[None, :])) ** 3
+    args = (np.array([5.5, 5.6, 5.7]), den, bmag,
+            np.full_like(den, 0.37950733828373884), alt)
+    out = {}
+    for np_dt in (np.float64, np.float32):
+        jx = [jnp.asarray(a, np_dt) for a in args]
+        tx = [torch.from_numpy(np.asarray(a, np_dt)) for a in args]
+        out[np_dt] = (
+            [np.asarray(JV.ionogram_pallas_gather(*jx, mode_mult=1.0,
+                                                  interpret=True)),
+             np.asarray(JV.ionogram_fast_xla(*jx, mode_mult=1.0))],
+            [TV.ionogram_pallas_gather(*tx, mode_mult=1.0).numpy(),
+             TV.ionogram_pallas(*tx, mode_mult=1.0).numpy()])
+    j64 = out[np.float64][0][0]
+    for p in out[np.float64][0] + out[np.float64][1]:
+        _assert_vh(p, j64)
+    for j in out[np.float32][0]:
+        err = np.abs(j.astype(np.float64) - j64)[0]
+        assert 0.5 < err[1] < 0.6
+        assert err[0] < 0.1 and err[2] < 0.1
+        for p in out[np.float32][1]:
+            _assert_vh(p.astype(np.float64), j.astype(np.float64), tol=1e-3)
+
+
+def test_gather_requires_uniform_grid():
+    freqs, den, bmag, bpsi, alt = _workload(B=2)
+    alt_nu = alt.copy()
+    alt_nu[1:] += np.linspace(0.0, 5.0, alt.size - 1) ** 2 * 0.01
+    with pytest.raises(ValueError, match="uniform"):
+        TV.ionogram_pallas_gather(*map(_t, (freqs, den, bmag, bpsi, alt_nu)),
+                                  mode_mult=1.0)
+
+
+def test_wrappers_raise_off_cpu_and_cuda():
+    """A wrapper never falls back: tensors on another device raise."""
+    args = [_t(a).to("meta") for a in _workload(B=2)]
+    with pytest.raises(ValueError, match="no ionogram kernel for device"):
+        TV.ionogram_pallas(*args, mode_mult=1.0)
+
+
+def test_launch_shape_covers_every_frequency():
+    for B, F in [(1, 1), (4, 33), (32, 175), (1024, 175), (10512, 175)]:
+        f_group, warps = TV.launch_shape(B, F, n_sm=132)
+        n_groups = -(-F // f_group)
+        assert f_group >= 1 and warps * 32 <= 256
+        assert (n_groups - 1) * f_group < F <= n_groups * f_group
+
+
+def test_osolve_razor_frequencies_match_host_solve():
+    """Frequencies exactly at a node's plasma frequency put X on a rounding
+    razor; the count + X-space ±1 correction must pick the crossing the
+    dense host solve picks (same heights to 1e-6 km, same NaN mask)."""
+    freqs, den, bmag, bpsi, alt = _two_peak()
+    cp = 8.97866275
+    nodes = [20, 40, 60, 75, 89]
+    razor = np.unique(np.concatenate(
+        [cp * np.sqrt(den[b, nodes]) / 1e6 for b in range(2)]))
+    t = [_t(a) for a in (razor, den, bmag, bpsi, alt)]
+    inv = TV.uniform_inv_dalt(t[4])
+    fused = TV.plain_ionogram(TV.prepare_kernel_args(
+        "gather_osolve", *t, 1.0, 200, inv))
+    host = TV.plain_ionogram(TV.prepare_kernel_args("gather", *t, 1.0, 200,
+                                                    inv))
+    _assert_vh(fused, host.numpy())
+
+
+def test_shadow_gate_disables_margin_under_e_peak():
+    """A frequency whose crossing segment starts in the valley under an E
+    peak: the lower node's X is cummax-shadowed (r0 != f0), so emax must be
+    0 there (dropping the gate costs ~99 km), and the result must still
+    match the JAX segment sweep."""
+    freqs, den, bmag, bpsi, alt = _two_peak()
+    cp = 8.97866275
+    e_peak = den[1, :40].max()
+    k0 = 40 + int(np.argmax(den[1, 40:] >= e_peak))   # valley's far side
+    thr = np.array([0.25, 0.5, 0.75]) * (den[1, k0] - e_peak) + e_peak
+    fr = cp * np.sqrt(thr) / 1e6
+    args = (fr, den, bmag, bpsi, alt)
+    t = [_t(a) for a in args]
+    a = TV.prepare_kernel_args("gather_osolve", *t, 1.0, 200,
+                               TV.uniform_inv_dalt(t[4]))
+    span, slope, emax, valid = TV._osolve_plain(a)
+    assert valid[1].all() and (slope[1] > 0).all()
+    assert (emax[1] == 0).all()                 # gated: shadowed lower node
+    assert (emax[0] > 0).all()                  # plain F layer: genuine
+    ref = JV.ionogram_fast_xla(*_j(args), mode_mult=1.0, n_points=200)
+    _assert_vh(TV.plain_ionogram(a), ref)
+
+
+def test_altitude_frame_is_relative():
+    """Shifting the whole grid by 1000 km shifts every vh by 1000 km: the
+    solve and resample run relative to alt[0], min(alt) is added last."""
+    args = _workload(B=2)
+    for fn, kw in ((TV.ionogram_pallas_gather, {}),
+                   (TV.ionogram_pallas, {})):
+        for mm in (1.0, -1.0):
+            base = fn(*map(_t, args), mode_mult=mm, **kw)
+            up = fn(*map(_t, args[:4]), _t(args[4] + 1000.0), mode_mult=mm,
+                    **kw)
+            _assert_vh(up - 1000.0, base.numpy(), tol=1e-9)
