@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's forward operator once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -30,11 +30,27 @@ failure:
    sweep's, and equal to a central finite difference of the kernel's
    forward (f64) along one density direction;
 6. timing: median of 10 launches after warm-up (CUDA events), kernel and
-   plain version at O-200 B=1024 and X-20k B=32;
-7. one JSON line of kernels, the card line, and the closing JSON line.
+   plain version at O-200 B=1024 and X-20k B=32, each beside its bound;
+7. the 2-D oblique ionogram (``csrc/fan2d.cu``): the main path, counters
+   zeroed first and read after — ``synthesize_oblique_ionogram_2d`` and
+   ``_fan_2d_fn`` with ``engine="auto"`` on f32 CUDA tensors, F=64 × E=128
+   × 2,000 steps, on the typical 512×32 slice (Cartesian and spherical),
+   the 621×800 field, X mode through a ground bounce, and a grid from
+   80 km through the free-space ladder with a lossy ground; the kernel
+   must have launched and no plain version may have run. Then the kernel,
+   launched through its wrapper ``fan_2d_pallas``, against its plain
+   version on the same fields, on the card: f64 (identical status codes
+   and landing masks, rtol 1e-8, atol 1e-10) on both geometries, 2-hop X
+   and the 621×800 field, and f32 on those and 621×800 spherical; the f32
+   kernel's landing mask against plain f64; the main path's fans equal to
+   those f32 launches; timing of the kernel, the whole fan call and the
+   plain version, each kernel time beside a bound that counts the table
+   bytes the rays of this run need;
+8. one JSON line of kernels, the card line, and the closing JSON line.
 
 Profiles are Chapman F2 (+ E above a valley for a quarter of them) from
-``numpy.random.default_rng(SEED)``.
+``numpy.random.default_rng(SEED)``; the fan scenes are the tilted Chapman
+slice of ``tools/bench_fan_pallas.py``.
 """
 
 import json
@@ -68,6 +84,93 @@ REPO_KERNELS = {
 }
 SOURCE = "pyrayhf_tpu_torch/csrc/ionogram.cu"
 CP, G_P = 8.97866275, 2.799249247e10
+
+# the card's published peaks (NVIDIA data sheet, H100 SXM, 700 W):
+# float32 and float64 outside the tensor cores, and device memory
+PEAK_OPS = {"float32": 67e12, "float64": 34e12}
+PEAK_BYTES = 3.35e12
+# operations per grid point of the ionogram kernels, counted from
+# csrc/ionogram.cu (each add, multiply, division, sqrt, sin, cos, floor and
+# comparison as one): the resample and mup_stable ~115, plus ~30 for the
+# sweep's binary search; the in-kernel solve adds ~1 (O) or ~10 (X) per
+# altitude node and frequency
+ION_OPS_POINT = {"gather_osolve": 115, "gather_xsolve": 115,
+                 "gather": 115, "sweep": 145}
+ION_OPS_NODE = {"gather_osolve": 1, "gather_xsolve": 10, "gather": 0,
+                "sweep": 0}
+
+# ---- the 2-D oblique fan (csrc/fan2d.cu) ----------------------------------
+# the fan of tools/bench_fan_pallas.py: F = 64 frequencies 4-30 MHz, E = 128
+# elevations 5-85 deg, 2,000 RK4 steps of 2 km
+FAN_F, FAN_E, FAN_STEP, FAN_SMAX = 64, 128, 2.0, 4000.0
+FAN_SOURCE = "pyrayhf_tpu_torch/csrc/fan2d.cu"
+FAN_REPLACES = "pyrayhf_tpu/pallas_ray.py:130"
+# f64 kernel vs f64 plain: the JAX package's own bound for the kernel
+# against the scan fan (tests/test_pallas_ray.py:58)
+FAN_RTOL, FAN_ATOL = 1e-8, 1e-10
+# f32 kernel vs f32 plain: the trajectories take the same operations in the
+# same order (identical status codes, landing masks, step counts and
+# ranges, measured on the H100), and only the four path sums add in
+# another order (sequential in the kernel, torch.nansum in the plain
+# version); 2,000 f32 terms give ~1e-5 relative at worst
+FAN_F32_RTOL = 1e-4
+# operations per ray step, counted from csrc/fan2d.cu as above: 4 RHS
+# evaluations (a locate ~24, 3 channel fetches of 7, the RHS ~11 / ~17),
+# the RK4 combination ~54, renormalisation 6, events and tests ~22, and
+# the midpoint quadrature (one locate + 3 fetches, or two locates in
+# spherical geometry) ~69 / ~100
+FAN_OPS_STEP = {"cartesian": 375, "spherical": 430}
+# (grid, geometry, mode, n_hops, ground range km, ground): the typical
+# 512 x 32 slice of tools/bench_fan_pallas.py:78 with its 15 % tilt; the
+# 621 x 800 node count of the reference gradient tutorials (BASELINE.md:12),
+# 1 km x 5 km; X mode through one ground bounce; a grid from 80 km whose
+# spacing divides 80, so that the free-space ladder to the ground runs,
+# with a lossy ground under its one bounce
+FAN_CASES = {
+    "typical_cart": ("typical", "cartesian", "O", 1, 1500.0, None),
+    "typical_sph": ("typical", "spherical", "O", 1, 1500.0, None),
+    "large_cart": ("large", "cartesian", "O", 1, 1500.0, None),
+    "x_2hop": ("typical", "cartesian", "X", 2, 3000.0, None),
+    "ladder_2hop": ("ladder", "cartesian", "O", 2, 1500.0, "medium"),
+}
+# the kernel against its plain version: f64 on both geometries, the field
+# the TPU refused, X mode through a bounce; f32 on those and the 621 x 800
+# field in spherical geometry too (timed below)
+CHECK_CASES = {**FAN_CASES,
+               "large_sph": ("large", "spherical", "O", 1, 1500.0, None)}
+F64_CASES = ("typical_cart", "typical_sph", "x_2hop", "large_cart")
+F32_CASES = F64_CASES + ("large_sph",)
+
+
+def fan_grid(kind):
+    """(z, x) host grids [km] of a fan scene."""
+    x = np.linspace(0.0, 3995.0, 32)
+    if kind == "typical":
+        return np.linspace(0.0, 638.75, 512), x
+    if kind == "large":
+        return np.linspace(0.0, 620.0, 621), np.linspace(0.0, 3995.0, 800)
+    return 80.0 + 1.25 * np.arange(448), x           # 80 .. 638.75 km
+
+
+def fan_scene(kind):
+    """The Chapman slice of tools/bench_fan_pallas.py on a grid:
+    (z, x, Ne, |B|, psi, nu(z))."""
+    z, x = fan_grid(kind)
+    h = (z[:, None] - 250.0) / 45.0
+    ne = (8.0e11 * (1.0 + 0.15 * (x[None, :] / x[-1] - 0.5))
+          * np.exp(0.5 * (1.0 - h - np.exp(-h))))
+    return (z, x, ne, np.full(ne.shape, 4.5e-5),
+            np.full(ne.shape, np.deg2rad(30.0)),
+            1e7 * np.exp(-(z - 70.0) / 8.0))
+
+
+def bound_ms(ops, nbytes, dtype_name):
+    """The least time the card could take: max(ops / peak, bytes / rate)
+    in ms, and which of the two bounds it."""
+    t_ops = ops / PEAK_OPS[dtype_name]
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
 
 
 def check(ok, what):
@@ -166,6 +269,288 @@ def compare(name, out, ref, tol, degenerate, masks_equal, excused=None):
               f"{name}: the values over {tol} km are not exactly those "
               f"where the plain f32 version is over {tol} km too")
     return err
+
+
+def fan_phase(torch, prt, dev, card):
+    """The 2-D oblique slice: main path (counted), kernel against plain
+    version, timing. Returns the kernels-line entry of ``fan_2d``."""
+    from pyrayhf_tpu_torch import oblique, profiling
+    from pyrayhf_tpu_torch import pallas_ray as pr
+
+    f0s = np.linspace(4e6, 30e6, FAN_F)
+    n_steps = int(round(FAN_SMAX / FAN_STEP))
+
+    def T(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    # ---- main path, counted --------------------------------------------
+    print(f"fan main path: synthesize_oblique_ionogram_2d and _fan_2d_fn, "
+          f"engine='auto', f32, F={FAN_F} x E={FAN_E} x {n_steps} steps",
+          flush=True)
+    torch.cuda.synchronize()
+    pr.reset_counters()
+    t0 = time.perf_counter()
+    outs = {}
+    for name, (kind, geom, mode, hops, rng_km, ground) in FAN_CASES.items():
+        z, x, ne, babs, bpsi, nu = fan_scene(kind)
+        syn = prt.synthesize_oblique_ionogram_2d(
+            f0s, rng_km, x, z, T(ne), T(babs), T(bpsi), mode=mode,
+            geometry=geom, n_elev=FAN_E, elev_min_deg=5.0, elev_max_deg=85.0,
+            step_km=FAN_STEP, s_max_km=FAN_SMAX, n_hops=hops, nu=nu,
+            ground=ground, engine="auto")
+        fan = None
+        if z[0] == 0.0:
+            fan = oblique._fan_2d_fn(z, x, mode, geom, FAN_E, n_steps, hops,
+                                     engine="auto")(
+                T(f0s), T([5.0, 85.0]), T(ne), T(babs), T(bpsi), T(nu),
+                T(FAN_STEP))
+        outs[name] = (syn, fan)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches, plain = dict(pr.LAUNCHES), dict(pr.PLAIN_CALLS)
+    print(f"fan main path: {main_s:.3f} s wall; kernel launches {launches}; "
+          f"plain-version calls {plain}", flush=True)
+    check(launches["fan_2d"] >= 9, f"fan kernel launches {launches}")
+    check(plain["fan_2d"] == 0, f"fan plain versions ran: {plain}")
+    for name, (syn, fan) in outs.items():
+        _, _, _, hops, rng_km, ground = FAN_CASES[name]
+        fr = syn["fan_range_km"].cpu().numpy()
+        lo = syn["delay_low_sec"].cpu().numpy()
+        el = syn["elev_low_deg"].cpu().numpy()
+        gl = syn["ground_loss_low_db"].cpu().numpy()
+        check(fr.shape == (FAN_F, FAN_E) and lo.shape == (FAN_F,)
+              and syn["fan_range_km"].dtype == torch.float32,
+              f"{name}: shapes {fr.shape} {lo.shape}")
+        landed = np.isfinite(fr)
+        hit = np.isfinite(lo)
+        print(f"  {name}: rays landed {int(landed.sum())}/{fr.size}, "
+              f"frequencies with a low ray {int(hit.sum())}/{FAN_F} (up to "
+              f"{f0s[hit].max() / 1e6 if hit.any() else float('nan'):.2f} "
+              f"MHz), low delay {np.nanmin(lo) * 1e3:.4f}.."
+              f"{np.nanmax(lo) * 1e3:.4f} ms, ground loss "
+              f"{np.nanmin(gl):.3f}..{np.nanmax(gl):.3f} dB", flush=True)
+        check(0.05 < landed.mean() < 1.0, f"{name}: landing fraction")
+        check(hit.any() and not hit.all(),
+              f"{name}: low rays at {hit.sum()} of {FAN_F} frequencies")
+        check(np.all(lo[hit] >= rng_km / 299792.458)
+              and np.all((el[hit] >= 5.0) & (el[hit] <= 85.0)),
+              f"{name}: delay below light time or elevation out of range")
+        check(np.all(gl[hit] > 0.0) if ground else np.all(gl[hit] == 0.0),
+              f"{name}: ground loss {gl[hit]}")
+        if fan is not None:
+            check(torch.equal(torch.nan_to_num(fan[0]),
+                              torch.nan_to_num(syn["fan_range_km"])),
+                  f"{name}: _fan_2d_fn and the synthesis fan differ")
+
+    # ---- the kernel, through its wrapper, against its plain version -----
+    def fields(kind, mode, dtype):
+        """Host grids, the [F, nz, nx] mu, mu', kappa of a scene, the launch
+        elevations and the step, on the card in ``dtype``."""
+        z, x, ne, babs, bpsi, nu = fan_scene(kind)
+        flds = oblique._fan_fields(T(f0s, dtype), T(ne, dtype),
+                                   T(babs, dtype), T(bpsi, dtype),
+                                   T(nu, dtype), mode)
+        elevs = oblique._linspace(T(5.0, dtype), T(85.0, dtype), FAN_E)
+        return z, x, flds, elevs, T(FAN_STEP, dtype)
+
+    def needed_bytes(geo, p, itemsize):
+        """Bytes of the table nodes this run's rays need: the 4 corners of
+        every cell that holds a step point or a segment midpoint (where the
+        RK4 stages and the quadrature read), 5 channels each, per
+        frequency."""
+        c0, c1 = (torch.cat([c, 0.5 * (c[..., :-1] + c[..., 1:])], -1)
+                  for c in (p["c0_path"], p["c1_path"]))
+        inside = (torch.isfinite(c0) & torch.isfinite(c1)
+                  & (c0 >= geo.c0_lo) & (c0 <= geo.c0_hi)
+                  & (c1 >= geo.c1_lo) & (c1 <= geo.c1_hi))
+        i0 = torch.floor((torch.where(inside, c0, geo.o0) - geo.o0)
+                         * geo.inv_d0).clamp(0, geo.nz - 2).long()
+        i1 = torch.floor((torch.where(inside, c1, geo.o1) - geo.o1)
+                         * geo.inv_d1).clamp(0, geo.nx - 2).long()
+        f = torch.arange(FAN_F, device=dev)[:, None, None]
+        key = ((f * geo.nz + i0) * geo.nx + i1)[inside]
+        touched = torch.zeros(FAN_F * geo.nz * geo.nx, dtype=torch.bool,
+                              device=dev)
+        for off in (0, 1, geo.nx, geo.nx + 1):
+            touched[key + off] = True
+        return int(touched.sum()) * pr._CHANNELS * itemsize
+
+    def run(name, dtype):
+        """The wrapper ``fan_2d_pallas`` (one kernel launch) and the plain
+        version on the tables it packs, on the same fields."""
+        kind, geom, mode, hops = CHECK_CASES[name][:4]
+        z, x, flds, elevs, ds = fields(kind, mode, dtype)
+        n0 = pr.LAUNCHES["fan_2d"]
+        k = pr.fan_2d_pallas(z, x, *flds, elevs, ds, geometry=geom,
+                             n_steps=n_steps, n_hops=hops)
+        check(pr.LAUNCHES["fan_2d"] == n0 + 1,
+              f"{name}: the wrapper did not launch the kernel")
+        geo = pr.fan_geometry(z, x, geom)
+        tab = pr.pack_tables(geo, *flds)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        p = pr.plain_fan(geo, tab, elevs, ds, n_steps=n_steps, n_hops=hops,
+                         paths=True)
+        end.record()
+        torch.cuda.synchronize()
+        info = dict(plain_ms=start.elapsed_time(end),
+                    needed_bytes=needed_bytes(geo, p, tab.element_size()),
+                    nan_mu=int(torch.isnan(tab[:, 0]).sum()), kernel=k)
+        return ({key: v.double().cpu().numpy() for key, v in k.items()},
+                {key: p[key].double().cpu().numpy() for key in pr.OUTPUTS},
+                info)
+
+    def diff(k, p):
+        """(status equal, landing equal, max |d range| km on rays landed in
+        both, max relative difference over every output, count over the
+        f64 bound, landed fraction)."""
+        st = np.array_equal(k["status_code"], p["status_code"])
+        lk = np.isfinite(k["ground_range_km"])
+        lp = np.isfinite(p["ground_range_km"])
+        both = lk & lp
+        dr = float(np.abs(k["ground_range_km"][both]
+                          - p["ground_range_km"][both]).max()) \
+            if both.any() else 0.0
+        rel, over = 0.0, 0
+        for key in pr.OUTPUTS:
+            a, b = k[key], p[key]
+            m = np.isfinite(a) & np.isfinite(b)
+            if m.any():
+                rel = max(rel, float((np.abs(a[m] - b[m])
+                                      / np.maximum(np.abs(b[m]), 1e-300))
+                                     .max()))
+            over += int((~np.isclose(a, b, rtol=FAN_RTOL, atol=FAN_ATOL,
+                                     equal_nan=True)).sum())
+        return st, bool(np.array_equal(lk, lp)), dr, rel, over, lk.mean()
+
+    print(f"fan kernel (through fan_2d_pallas) vs plain version on the card, "
+          f"f64 (identical status and landing masks, rtol {FAN_RTOL:g}, "
+          f"atol {FAN_ATOL:g})", flush=True)
+    err64, plain64 = [], {}
+    for name in F64_CASES:
+        k, p, info = run(name, torch.float64)
+        plain64[name] = p
+        st, lm, dr, rel, over, frac = diff(k, p)
+        frozen_bad = int(((p["status_code"] == 0)
+                          & (p["steps_taken"] < n_steps)).sum())
+        print(f"  {name}: status equal {st}, landing equal {lm} ({frac:.3f} "
+              f"landed), max|d range| {dr:.3e} km, max rel diff {rel:.3e}, "
+              f"{over} values over the bound; NaN-mu table nodes "
+              f"{info['nan_mu']}, rays frozen on a non-finite state "
+              f"{frozen_bad}; plain {info['plain_ms']:.1f} ms", flush=True)
+        check(st and lm and over == 0, f"{name}: f64 kernel vs plain")
+        check(info["nan_mu"] > 0, f"{name}: no evanescent (NaN-mu) region")
+        err64.append(dr)
+
+    print("fan kernel (through fan_2d_pallas) vs plain version on the card, "
+          "f32; the landing mask of the f32 kernel against plain f64; the "
+          "main path's fan against the same launch", flush=True)
+    f32, needed, plain32_ms = {}, {}, {}
+    for name in F32_CASES:
+        k, p, info = run(name, torch.float32)
+        needed[name], plain32_ms[name] = info["needed_bytes"], info["plain_ms"]
+        st, lm, dr, rel, _, _ = diff(k, p)
+        steps_eq = np.array_equal(k["steps_taken"], p["steps_taken"])
+        agree32 = float((k["status_code"] == p["status_code"]).mean())
+        row = dict(status_agree_f32=agree32, max_drange_f32=dr,
+                   max_rel_f32=rel)
+        note = ""
+        if name in plain64:
+            lk = np.isfinite(k["ground_range_km"])
+            lp64 = np.isfinite(plain64[name]["ground_range_km"])
+            both = lk & lp64
+            row.update(landing_agree_vs_f64=float((lk == lp64).mean()),
+                       max_drange_vs_f64=float(np.abs(
+                           k["ground_range_km"][both]
+                           - plain64[name]["ground_range_km"][both]).max()))
+            note = (f"; f32 kernel vs f64 plain: landing agreement "
+                    f"{row['landing_agree_vs_f64']:.5f}, max|d range| "
+                    f"{row['max_drange_vs_f64']:.4e} km")
+        main_fan = outs[name][1] if name in outs else None
+        if main_fan is not None:
+            same = all(torch.equal(torch.nan_to_num(a),
+                                   torch.nan_to_num(info["kernel"][key]))
+                       for a, key in zip(main_fan, pr.OUTPUTS[:5]))
+            check(same, f"{name}: the main path's fan differs from the "
+                  "checked launch on the same fields")
+            note += "; main path's fan identical to this launch"
+        f32[name] = row
+        print(f"  {name}: f32 kernel vs f32 plain: status agreement "
+              f"{agree32:.5f}, landing equal {lm}, steps equal {steps_eq}, "
+              f"max|d range| {dr:.4e} km on rays landed in both, max rel "
+              f"diff {rel:.3e} (bound {FAN_F32_RTOL:g}){note}; plain "
+              f"{info['plain_ms']:.1f} ms", flush=True)
+        check(st and lm and steps_eq and rel <= FAN_F32_RTOL,
+              f"{name}: f32 kernel vs f32 plain")
+
+    # ---- timing -------------------------------------------------------
+    print(f"fan timing: median of {TIMING_ITERS} launches after 3 warm-up "
+          f"launches, CUDA events, f32, F={FAN_F} E={FAN_E} {n_steps} "
+          f"steps; card: {card}", flush=True)
+    rows = {}
+    for name in ("typical_cart", "typical_sph", "large_cart", "large_sph"):
+        kind, geom = CHECK_CASES[name][:2]
+        z, x, flds, elevs, ds = fields(kind, "O", torch.float32)
+        geo = pr.fan_geometry(z, x, geom)
+        tab = pr.pack_tables(geo, *flds)
+
+        def launch():
+            return pr.launch_fan(geo, tab, elevs, ds, n_steps=n_steps)
+
+        ms, _ = profiling.time_launch(launch, iters=TIMING_ITERS)
+        out = launch()
+        steps = float(out["steps_taken"].double().sum())
+        ops = steps * FAN_OPS_STEP[geom]
+        nbytes = needed[name] + (elevs.numel() + len(pr.OUTPUTS) * FAN_F
+                                 * FAN_E) * 4
+        b_ms, b_by = bound_ms(ops, nbytes, "float32")
+        rows[name] = dict(ms=ms, rays_per_s=FAN_F * FAN_E / (ms * 1e-3),
+                          steps=steps, bound_ms=b_ms, bound_by=b_by,
+                          table_mb=tab.numel() * 4 / 1e6,
+                          needed_mb=needed[name] / 1e6)
+        print(f"  kernel {kind} {geom} O: {ms:.4f} ms "
+              f"({rows[name]['rays_per_s']:.4e} rays/s); steps taken "
+              f"{steps:.0f} of {FAN_F * FAN_E * n_steps} ({ops:.4e} ops), "
+              f"tables {rows[name]['table_mb']:.1f} MB of which the rays "
+              f"need {rows[name]['needed_mb']:.2f} MB, bound {b_ms:.4f} ms "
+              f"({b_by})", flush=True)
+    z, x, ne, babs, bpsi, nu = fan_scene("typical")
+    fan = oblique._fan_2d_fn(z, x, "O", "cartesian", FAN_E, n_steps, 1)
+    fan_args = (T(f0s), T([5.0, 85.0]), T(ne), T(babs), T(bpsi), T(nu),
+                T(FAN_STEP))
+    call_ms, _ = profiling.time_launch(fan, *fan_args, iters=TIMING_ITERS)
+    # the call's parts: the broadcast Appleton-Hartree fields, the table
+    # packing (gradients included), the kernel
+    fld_args = (T(f0s), T(ne), T(babs), T(bpsi), T(nu), "O")
+    fields_ms, _ = profiling.time_launch(oblique._fan_fields, *fld_args,
+                                         iters=TIMING_ITERS)
+    geo = pr.fan_geometry(z, x, "cartesian")
+    pack_ms, _ = profiling.time_launch(pr.pack_tables, geo,
+                                       *oblique._fan_fields(*fld_args),
+                                       iters=TIMING_ITERS)
+    plain_ms = plain32_ms["typical_cart"]
+    print(f"  whole _fan_2d_fn(auto) call, typical cartesian: {call_ms:.4f} "
+          f"ms ({FAN_F * FAN_E / (call_ms * 1e-3):.4e} rays/s), of which "
+          f"fields {fields_ms:.4f} ms and table packing {pack_ms:.4f} ms; "
+          f"plain version once (f32, above): {plain_ms:.1f} ms "
+          f"({FAN_F * FAN_E / (plain_ms * 1e-3):.4e} rays/s)", flush=True)
+    r = rows["typical_cart"]
+    return {
+        "name": "fan_2d", "route": "cuda", "source": FAN_SOURCE,
+        "replaces": FAN_REPLACES, "launches": launches["fan_2d"],
+        "max_abs_err": max(err64), "tol": {"rtol": FAN_RTOL,
+                                           "atol": FAN_ATOL},
+        "f32": f32, "ms": r["ms"], "plain_ms": plain_ms,
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None, "fan_2d_fn_ms": call_ms,
+        "fields_ms": fields_ms, "pack_ms": pack_ms,
+        "rays_per_s": r["rays_per_s"],
+        "timing": {k: {"ms": v["ms"], "bound_ms": v["bound_ms"],
+                       "bound_by": v["bound_by"],
+                       "needed_mb": v["needed_mb"]} for k, v in rows.items()},
+        "shape": f"F={FAN_F} E={FAN_E} steps={n_steps} 512x32 cartesian "
+                 f"f32"}
 
 
 def main():
@@ -471,13 +856,21 @@ def main():
                     *inp, mode_mult=mm, n_points=P,
                     x_in_kernel_solve=(kind != "gather"))
         w_ms, _ = profiling.time_launch(wrapper, iters=TIMING_ITERS)
+        C, N = a.tab.shape[1:]
+        ops = B * F * (P * ION_OPS_POINT[kind] + N * ION_OPS_NODE[kind])
+        nbytes = 4 * (a.tab.numel() + F + 3 * P + 1 + B * F)
+        if kind in ("gather", "sweep"):      # the host solve's [B, F] rows
+            nbytes += 13 * B * F
+        b_ms, b_by = bound_ms(ops, nbytes, "float32")
         row = {"shape": f"B={B} F={F} P={P} N={ta.shape[0]} f32 {label}",
                "kernel_ms": k_ms, "plain_ms": p_ms, "wrapper_ms": w_ms,
+               "bound_ms": b_ms, "bound_by": b_by,
                "kernel_vh_per_s": profiling.vh_evals_per_s(B, F, k_ms),
                "plain_vh_per_s": profiling.vh_evals_per_s(B, F, p_ms),
                "wrapper_vh_per_s": profiling.vh_evals_per_s(B, F, w_ms)}
         print(f"  {kind} {row['shape']}: kernel {k_ms:.4f} ms "
-              f"({row['kernel_vh_per_s']:.4e} vh/s), wrapper "
+              f"({row['kernel_vh_per_s']:.4e} vh/s; bound {b_ms:.4f} ms, "
+              f"{b_by}: {ops:.4e} ops, {nbytes:.4e} bytes), wrapper "
               f"{w_ms:.4f} ms ({row['wrapper_vh_per_s']:.4e} vh/s), plain "
               f"{p_ms:.4f} ms ({row['plain_vh_per_s']:.4e} vh/s)",
               flush=True)
@@ -500,7 +893,12 @@ def main():
     print(f"card state after timing (clocks.sm, power.draw, temp): "
           f"{card_state()}", flush=True)
 
-    # ---- 7. result lines ---------------------------------------------
+    # ---- 7. the 2-D oblique fan ----------------------------------------
+    fan_entry = fan_phase(torch, prt, dev, card)
+    print(f"card state after the fan phase (clocks.sm, power.draw, temp): "
+          f"{card_state()}", flush=True)
+
+    # ---- 8. result lines ---------------------------------------------
     kernels = []
     for k in pv.KERNELS:
         row = timing[k]
@@ -514,7 +912,10 @@ def main():
             **({"global_grid_f32_vs_f64": global_err[k]}
                if k in global_err else {}),
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
-            "wrapper_ms": row["wrapper_ms"], "shape": row["shape"]})
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "wrapper_ms": row["wrapper_ms"],
+            "shape": row["shape"]})
+    kernels.append(fan_entry)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,20 @@
-"""pyrayhf_tpu_torch — the vertical forward operator in PyTorch + CUDA.
+"""pyrayhf_tpu_torch — pyrayhf_tpu in PyTorch + CUDA.
 
-The PyTorch port of ``pyrayhf_tpu``'s forward-operator slice: profile
-stacks [B, N_alt] of electron density, |B| and ψ plus a frequency list in,
-O/X virtual-height ionograms [B, F] out (NaN where the ray escapes). The
-Pallas TPU kernels of that path are one hand-written CUDA kernel for
-Hopper (``csrc/ionogram.cu``), built with ``nvcc`` at first use; on CPU
-tensors every kernel wrapper runs its plain PyTorch version instead.
+The PyTorch port of ``pyrayhf_tpu``, slice by slice:
+
+* the vertical forward operator: profile stacks [B, N_alt] of electron
+  density, |B| and ψ plus a frequency list in, O/X virtual-height
+  ionograms [B, F] out (NaN where the ray escapes); its Pallas TPU kernels
+  are one hand-written CUDA kernel for Hopper (``csrc/ionogram.cu``);
+* the 2-D oblique ionogram: an [F, E] gradient-ODE ray fan through an
+  altitude × range slice, homed onto a link
+  (:func:`synthesize_oblique_ionogram_2d`); its ray-fan kernel is
+  ``csrc/fan2d.cu``.
+
+Kernels are built with ``nvcc`` at first use; on CPU tensors every kernel
+wrapper runs its plain PyTorch version instead. Host data (numpy arrays,
+lists, numbers) goes to the CUDA card unless the caller passes
+``device="cpu"`` (or CPU tensors).
 
 Module and function names mirror the JAX package. This package imports
 neither ``jax`` nor ``pyrayhf_tpu``.
@@ -23,7 +32,24 @@ from .pallas_vh import (ionogram_fast_xla, ionogram_pallas,
                         ionogram_pallas_gather, prepare_profile_tables)
 from .config import OperatorConfig
 from .io import load_input, profiles_to_torch, save_to_file
-from . import (config, cuda_ext, forward, grid, io, magnetoionic,
-               pallas_vh, profiling)
+from .fields import (RefractiveField, bilinear,
+                     build_mup_function,
+                     build_refractive_index_interpolator_cartesian,
+                     build_refractive_index_interpolator_spherical,
+                     eval_refractive_index_and_grad, grad_axis_ord2,
+                     gradient_ord2, make_n_and_grad, n_and_grad,
+                     n_and_grad_rphi, uniform_axis)
+from .absorption import (absorption_coefficient, collision_frequency,
+                         vertical_absorption_operator)
+from .ground import (GROUND_PRESETS, fresnel_coefficients,
+                     fresnel_coefficients_real, ground_reflection_loss_db,
+                     resolve_ground)
+from .gradient import (trace_rays_cartesian_gradient,
+                       trace_rays_spherical_gradient)
+from .pallas_ray import fan_2d_pallas, fan_2d_pallas_available
+from .oblique import synthesize_oblique_ionogram_2d
+from . import (absorption, config, cuda_ext, fields, forward, gradient, grid,
+               ground, io, magnetoionic, oblique, pallas_ray, pallas_vh,
+               profiling)
 
 __version__ = "0.1.0"

@@ -4,11 +4,29 @@ import numpy as np
 import torch
 
 
-def as_tensors(*xs, dtype=None):
+def resolve_device(device=None):
+    """Where host data (numpy arrays, lists, Python numbers) lands.
+
+    ``device`` if given; else the CUDA card. Without a card, and without an
+    explicit request for the CPU, this raises: an entry point never carries
+    on quietly on the CPU.
+    """
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: host data goes to the card by default. Pass "
+            'device="cpu" (or CPU tensors) to run on the CPU.')
+    return torch.device("cuda")
+
+
+def as_tensors(*xs, dtype=None, device=None):
     """Convert arguments to floating tensors of one dtype on one device.
 
-    The device is that of the tensor arguments (CPU when there are none);
-    tensors on different devices raise rather than being moved. Array-likes
+    The device is that of the tensor arguments; when there are none, it is
+    :func:`resolve_device` of ``device`` (the card unless the caller asks
+    for the CPU). Tensors on different devices, or on another device than
+    an explicit ``device``, raise rather than being moved. Array-likes
     (numpy arrays, lists, Python numbers) are host data and are created on
     that device. The dtype is ``dtype`` if given, else the promotion of the
     floating tensor arguments, else float64 (what the JAX package computes
@@ -19,7 +37,13 @@ def as_tensors(*xs, dtype=None):
     if len(devices) > 1:
         raise ValueError("inputs lie on different devices: "
                          f"{sorted(map(str, devices))}")
-    device = tensors[0].device if tensors else torch.device("cpu")
+    if tensors:
+        dev = tensors[0].device
+        if device is not None and torch.device(device).type != dev.type:
+            raise ValueError(f"device={device!r} but the tensor inputs lie "
+                             f"on {dev}")
+    else:
+        dev = resolve_device(device)
     if dtype is None:
         dtype = torch.float64
         floats = [t.dtype for t in tensors if t.is_floating_point()]
@@ -29,15 +53,23 @@ def as_tensors(*xs, dtype=None):
                 dtype = torch.promote_types(dtype, d)
     return [x.to(dtype) if isinstance(x, torch.Tensor)
             else torch.as_tensor(np.asarray(x, dtype=np.float64),
-                                 device=device).to(dtype) for x in xs]
+                                 device=dev).to(dtype) for x in xs]
 
 
-def profile_tensors(freq_mhz, den, bmag, bpsi, alt):
+def profile_tensors(freq_mhz, den, bmag, bpsi, alt, device=None):
     """(freq_mhz, den, bmag, bpsi, alt) as tensors in den's dtype and device.
 
     Like the JAX package, every operand is cast to the density's dtype.
+    Host data goes where :func:`as_tensors` puts it.
     """
-    (den,) = as_tensors(den)
+    if not isinstance(den, torch.Tensor):
+        # the device of any tensor argument decides where den lands
+        like = [x for x in (freq_mhz, bmag, bpsi, alt)
+                if isinstance(x, torch.Tensor)]
+        (den,) = as_tensors(den, dtype=torch.float64,
+                            device=like[0].device if like else device)
+    else:
+        (den,) = as_tensors(den, device=device)
     freq_mhz, bmag, bpsi, alt, _ = as_tensors(freq_mhz, bmag, bpsi, alt, den,
                                               dtype=den.dtype)
     return freq_mhz, den, bmag, bpsi, alt
@@ -52,3 +84,10 @@ def clip(x, lo, hi):
     lo_t = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
     hi_t = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
     return torch.minimum(torch.maximum(x, lo_t), hi_t)
+
+
+def host_f64(a):
+    """A 1-D host grid as a float64 numpy array (tensors are copied)."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().double().numpy()
+    return np.asarray(a, dtype=np.float64)

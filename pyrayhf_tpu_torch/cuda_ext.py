@@ -2,7 +2,9 @@
 
 The kernels have a plain C interface and are compiled by ``nvcc`` into a
 shared library for ``sm_90a`` (Hopper), loaded with ``ctypes``: no PyTorch
-headers, so a build takes seconds. The library is built at first use into
+headers, so a build takes seconds. Each source compiles in its own
+``nvcc`` process, all started together, and one more links them. The
+library is built at first use into
 ``build/pyrayhf_tpu_torch/`` beside the package (a directory git ignores),
 keyed by a hash of the sources and flags, so a changed source rebuilds
 and an unchanged one loads at once. Nothing here runs at import time.
@@ -27,9 +29,9 @@ __all__ = ["build", "load", "find_nvcc", "error_string", "build_log",
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
     "pyrayhf_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
-              "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+              "-fmad=false", "-Xptxas", "-v")
 # dynamic shared memory one block may use on Hopper (227 KB)
 MAX_SMEM_BYTES = 232448
 
@@ -62,8 +64,8 @@ def _library_path():
     for src in sorted(SRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libpyrayhf_ionogram_{h.hexdigest()[:16]}.so"
+    h.update(" ".join(NVCC_FLAGS + ARCH_FLAGS).encode())
+    return BUILD_DIR / f"libpyrayhf_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build():
@@ -78,18 +80,37 @@ def build():
         return so, 0.0
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [str(nvcc), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    tag = f"{so.stem}.{os.getpid()}"
+    tmp = BUILD_DIR / f"{tag}.tmp.so"
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []                       # one compile per source, in parallel
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [str(nvcc), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, errors = [], []
+    for cmd, _, proc in jobs:
+        out, err = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            errors.append(f"{cmd[-1]}: exit code {proc.returncode}:\n"
+                          f"{err[-6000:]}")
+    if not errors:
+        cmd = [str(nvcc), *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + r.stdout + r.stderr)
+        if r.returncode != 0:
+            errors.append(f"link: exit code {r.returncode}:\n"
+                          f"{r.stderr[-6000:]}")
     dt = time.perf_counter() - t0
-    so.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
-        if tmp.exists():
-            tmp.unlink()
-        raise RuntimeError(f"nvcc failed with exit code {r.returncode}:\n"
-                           f"{r.stderr[-6000:]}")
+    so.with_suffix(".log").write_text("".join(log))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if errors:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     os.replace(tmp, so)
     return so, dt
 
@@ -116,6 +137,12 @@ def load():
                 p, p, p, p,            # span, slope, emax, valid
                 p, d, p, p]            # alt_min, inv_dalt, out, stream
             lib.pyrayhf_ionogram.restype = ctypes.c_int
+            lib.pyrayhf_fan2d.argtypes = [
+                i, i, p, i, i, i,      # dtype, spherical, tab, F, nz, nx
+                p, p, i, i, i,         # va0, vb0, E, n_steps, max_bounces
+                ctypes.POINTER(d),     # 16 scalars (see csrc/fan2d.cu)
+                p, i, p]               # out, block, stream
+            lib.pyrayhf_fan2d.restype = ctypes.c_int
             lib.pyrayhf_error_string.argtypes = [ctypes.c_int]
             lib.pyrayhf_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -42,7 +42,7 @@ def find_vh(X, Y, bpsi, dh, alt_min, mode, arithmetic="stable"):
     documented deviation; f64 results are unaffected).
     """
     _, mup = find_mu_mup(X, Y, bpsi, mode, arithmetic=arithmetic)
-    (dh,) = as_tensors(dh, dtype=mup.dtype)
+    dh, _ = as_tensors(dh, mup, dtype=mup.dtype)
     mup = torch.where((mup > 0.0) & (mup <= _MUP_CEILING), mup, float("nan"))
     ih = torch.nansum(mup * dh, dim=-1)
     ih = torch.where(ih == 0.0, float("nan"), ih)
@@ -64,14 +64,16 @@ def _forward_core(freq_hz, den, bmag, bpsi, alt, mode_mult, n_points,
 
 def vertical_forward_operator(freq, den, bmag, bpsi, alt,
                               mode=None, n_points=None, arithmetic="stable",
-                              config=None):
+                              config=None, device=None):
     """Reference-parity API: virtual height [km] per frequency [MHz].
 
     Parameters match ref library.py:459-509 (freq in MHz, den in m^-3,
     bmag in T, bpsi in deg, alt in km; mode 'O'/'X' default 'O'; n_points
     default 200). Mismatched profile shapes are logged, not raised, like
     the reference. ``config`` (an :class:`OperatorConfig`) supplies
-    mode/n_points when they are not passed explicitly.
+    mode/n_points when they are not passed explicitly. Host arrays go to
+    the CUDA card unless ``device`` says otherwise (``device="cpu"``);
+    tensors keep their device.
     """
     mode = resolve(config, "mode", mode, "O")
     n_points = resolve(config, "n_points", n_points, 200)
@@ -79,7 +81,8 @@ def vertical_forward_operator(freq, den, bmag, bpsi, alt,
     if len(shapes) > 1:
         logger.error(
             "Error: freq, den, bmag, bpsi, alt should have same size")
-    freq, den, bmag, bpsi, alt = profile_tensors(freq, den, bmag, bpsi, alt)
+    freq, den, bmag, bpsi, alt = profile_tensors(freq, den, bmag, bpsi, alt,
+                                                 device=device)
     return _forward_core(freq * 1e6, den, bmag, bpsi, alt,
                          mode_mult=mode_multiplier(mode), n_points=n_points,
                          arithmetic=arithmetic)
@@ -97,7 +100,7 @@ def _resolve_engine(den, alt, shared_grid):
 
 def vertical_forward_operator_batch(freq, den, bmag, bpsi, alt,
                                     mode=None, n_points=None, config=None,
-                                    engine="auto"):
+                                    engine="auto", device=None):
     """Batched operator: profiles [B, N_alt] → ionograms [B, N_freq].
 
     ``alt`` may be [N_alt] (shared grid) or [B, N_alt]. ``engine``:
@@ -119,12 +122,15 @@ def vertical_forward_operator_batch(freq, den, bmag, bpsi, alt,
     The kernel engines run their hand-written CUDA kernel on CUDA tensors
     and their plain PyTorch version on CPU tensors. Fast engines agree
     with parity to < 1e-6 km in f64. The resolved engine is logged
-    (DEBUG, once per distinct choice).
+    (DEBUG, once per distinct choice). Host arrays go to the CUDA card
+    unless ``device`` says otherwise (``device="cpu"``); without a card
+    and without that request the call raises.
     """
     mode = resolve(config, "mode", mode, "O")
     n_points = resolve(config, "n_points", n_points, 200)
     mm = mode_multiplier(mode)
-    freq, den, bmag, bpsi, alt = profile_tensors(freq, den, bmag, bpsi, alt)
+    freq, den, bmag, bpsi, alt = profile_tensors(freq, den, bmag, bpsi, alt,
+                                                 device=device)
     shared_grid = alt.ndim == 1
     inv_dalt = None
     if engine == "auto":
@@ -183,29 +189,33 @@ def _phase_core(freq_hz, den, bmag, bpsi, alt, mode_mult, n_points):
 
 
 def vertical_phase_operator(freq, den, bmag, bpsi, alt, mode=None,
-                            n_points=None, config=None):
+                            n_points=None, config=None, device=None):
     """Phase height h_p(f) = alt_min + ∫ μ dh [km] per frequency [MHz].
 
     Companion to :func:`vertical_forward_operator` (which integrates the
     group index μ'); same regrid discretisation, arguments and NaN-escape
-    semantics, so h_p(f) ≤ true reflection height ≤ h'(f).
+    semantics, so h_p(f) ≤ true reflection height ≤ h'(f). ``device``:
+    as for :func:`vertical_forward_operator`.
     """
     mode = resolve(config, "mode", mode, "O")
     n_points = resolve(config, "n_points", n_points, 200)
-    freq, den, bmag, bpsi, alt = profile_tensors(freq, den, bmag, bpsi, alt)
+    freq, den, bmag, bpsi, alt = profile_tensors(freq, den, bmag, bpsi, alt,
+                                                 device=device)
     return _phase_core(freq * 1e6, den, bmag, bpsi, alt,
                        mode_mult=mode_multiplier(mode), n_points=n_points)
 
 
-def vh_and_mask(freq_mhz, den, bmag, bpsi, alt, mode_mult=1.0, n_points=200):
+def vh_and_mask(freq_mhz, den, bmag, bpsi, alt, mode_mult=1.0, n_points=200,
+                device=None):
     """Gradient-safe forward operator: (vh, valid) with finite vh everywhere.
 
     ``vh`` equals the parity operator where ``valid``; escaped rays carry
     ``valid=False`` and vh = alt_min (a finite placeholder). Autograd
-    through ``torch.where(valid, vh, 0)`` is finite.
+    through ``torch.where(valid, vh, 0)`` is finite. ``device``: as for
+    :func:`vertical_forward_operator`.
     """
     freq_mhz, den, bmag, bpsi, alt = profile_tensors(freq_mhz, den, bmag,
-                                                     bpsi, alt)
+                                                     bpsi, alt, device=device)
     rg = regrid_core(freq_mhz * 1e6, den, bmag, bpsi, alt,
                       mode_mult=mode_mult, n_points=n_points, masked=True)
     aX = find_X(rg["den"], rg["freq"])

@@ -14,6 +14,7 @@ import pickle
 import numpy as np
 import torch
 
+from ._util import resolve_device
 from .config import OperatorConfig
 
 __all__ = ["save_to_file", "load_input", "profiles_to_torch",
@@ -35,12 +36,14 @@ def load_input(file_path):
         return pickle.load(f)
 
 
-def profiles_to_torch(inp, device="cpu", dtype=torch.float64, config=None):
+def profiles_to_torch(inp, device=None, dtype=torch.float64, config=None):
     """Reference-format profile dict (+ config) → the port's tensors/config.
 
     ``inp``: dict holding ``den``, ``bmag``, ``bpsi`` and ``alt`` as array-
     likes (other keys are copied unchanged). Returns a new dict whose
-    profile keys are ``dtype`` tensors on ``device``. When ``config`` is
+    profile keys are ``dtype`` tensors on ``device``: the CUDA card unless
+    the caller asks for the CPU (``device="cpu"``); without a card and
+    without that request it raises. When ``config`` is
     given (the JAX package's ``OperatorConfig`` or any object with the
     same fields), the result also holds the port's :class:`OperatorConfig`
     with the same field values under ``"config"``.
@@ -49,6 +52,7 @@ def profiles_to_torch(inp, device="cpu", dtype=torch.float64, config=None):
     if missing:
         raise KeyError(f"profile dict lacks {missing}")
     out = dict(inp)
+    device = resolve_device(device)
     for k in PROFILE_KEYS:
         out[k] = torch.as_tensor(np.asarray(inp[k], dtype=np.float64),
                                  device=device).to(dtype)

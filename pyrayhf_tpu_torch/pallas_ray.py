@@ -1,0 +1,286 @@
+"""2-D gradient-ray fan kernel for Hopper: host prep, plain version, wrapper.
+
+Port of ``pyrayhf_tpu.pallas_ray``. The TPU kernel (``_fan_kernel``)
+integrates a whole [F, E] (frequency × elevation) fan of gradient-ODE rays
+with fixed-step RK4 inside one Pallas program, its field tables resident
+in VMEM. Here it is ``csrc/fan2d.cu``: one CUDA thread per ray, the
+per-frequency tables in device memory (channel-major [F, 5, nz, nx]:
+μ, ∂μ/∂c0, ∂μ/∂c1, μ', κ), read through the read-only cache.
+
+* :func:`pack_tables` builds those tables from the [F, nz, nx] fields, the
+  gradients taken on the uniform axes rebuilt from origin and spacing, as
+  the JAX host side does;
+* :func:`plain_fan` is the kernel's plain PyTorch version: the batched
+  fixed-step fan of :mod:`.gradient` over the same packed tables;
+* :func:`launch_fan` launches the kernel;
+* :func:`fan_2d_pallas` (the JAX signature) runs the kernel on CUDA
+  tensors and the plain version on CPU tensors, and raises otherwise.
+
+``LAUNCHES`` and ``PLAIN_CALLS`` count kernel launches and plain calls.
+The kernel has no backward (the TPU kernel had no autodiff rule either):
+inputs that require grad raise; ``engine="xla"`` of the oblique fan is
+differentiable through autograd. Unlike the TPU engine, no table-size
+gate applies: a table set that does not fit the card's memory raises the
+allocator's ``torch.cuda.OutOfMemoryError``.
+"""
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from ._util import host_f64
+from .constants import R_E
+from .fields import RefractiveField, _mup_function, gradient_ord2, \
+    uniform_axis
+
+__all__ = ["fan_2d_pallas", "fan_2d_pallas_available", "plain_fan",
+           "launch_fan", "pack_tables", "fan_geometry", "OUTPUTS",
+           "LAUNCHES", "PLAIN_CALLS", "reset_counters"]
+
+KERNELS = ("fan_2d",)
+LAUNCHES = dict.fromkeys(KERNELS, 0)
+PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
+
+# the kernel's output rows, in order; ``steps_taken`` (port only) counts
+# the steps each ray integrated before it froze
+OUTPUTS = ("ground_range_km", "group_delay_sec", "absorption_db",
+           "group_path_km", "phase_path_km", "status_code", "x_final_km",
+           "z_final_km", "steps_taken")
+_CHANNELS = 5                    # μ, ∂μ/∂c0, ∂μ/∂c1, μ', κ
+_BLOCK = 128                     # rays (threads) per block
+
+
+def reset_counters():
+    """Set every launch and plain-call count to 0."""
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+        PLAIN_CALLS[k] = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class FanGeometry:
+    """Host-side description of a uniform fan domain (all float64).
+
+    Native field coordinates c0/c1 are (z, x) [km] for ``cartesian`` and
+    (r, φ) = (R_E + z, x/R_E) for ``spherical``; ``o``/``inv_d`` give the
+    direct cell locate, ``lo``/``hi`` the domain test. The four event
+    offsets are those of the gradient cores: ground, top, low and high
+    bound in the state's own coordinates.
+    """
+    geometry: str
+    z: np.ndarray
+    x: np.ndarray
+    nz: int
+    nx: int
+    o0: float
+    inv_d0: float
+    o1: float
+    inv_d1: float
+    c0_lo: float
+    c0_hi: float
+    c1_lo: float
+    c1_hi: float
+    ground: float        # z_ground, or R_E + z_ground
+    top: float           # z_max, or R_E + z_max
+    lo: float            # x_min, or x_min / R_E
+    hi: float            # x_max, or x_max / R_E
+    re: float
+
+
+def fan_2d_pallas_available(z_np, x_np):
+    """True when the kernel can run this geometry: uniform z and x grids
+    (the locate is index arithmetic). No table-size gate applies."""
+    return uniform_axis(host_f64(z_np)) and uniform_axis(host_f64(x_np))
+
+
+def fan_geometry(z_np, x_np, geometry):
+    """:class:`FanGeometry` of the grids; raises on non-uniform grids.
+
+    Domain bounds follow the 2-D oblique fan: ground at z[0], top at
+    z[-1], lateral bounds at x[0] and x[-1].
+    """
+    if geometry not in ("cartesian", "spherical"):
+        raise ValueError("geometry must be 'cartesian' or 'spherical'")
+    z64, x64 = host_f64(z_np), host_f64(x_np)
+    if not fan_2d_pallas_available(z64, x64):
+        raise ValueError("the fan kernel requires uniform z/x grids; use "
+                         "engine='xla' for this geometry")
+    re = float(R_E)
+    if geometry == "cartesian":
+        c0, c1 = z64, x64
+        ev = (float(z64[0]), float(z64[-1]), float(x64[0]), float(x64[-1]))
+    else:
+        c0, c1 = re + z64, x64 / re
+        ev = (re + float(z64[0]), re + float(z64[-1]), float(x64[0]) / re,
+              float(x64[-1]) / re)
+    nz, nx = len(z64), len(x64)
+    return FanGeometry(
+        geometry, z64, x64, nz, nx,
+        float(c0[0]), float((nz - 1) / (c0[-1] - c0[0])),
+        float(c1[0]), float((nx - 1) / (c1[-1] - c1[0])),
+        float(c0[0]), float(c0[-1]), float(c1[0]), float(c1[-1]),
+        *ev, re)
+
+
+def pack_tables(geo, mu_f, mup_f, kappa_f):
+    """[F, nz, nx] fields → contiguous [F, 5, nz, nx] kernel tables.
+
+    The gradient channels are ``gradient_ord2`` of μ on the uniform native
+    axes rebuilt as o + i/inv_d in the working dtype, as the JAX host side
+    builds them.
+    """
+    kw = dict(dtype=mu_f.dtype, device=mu_f.device)
+    c0_ax = (torch.tensor(geo.o0, **kw) + torch.arange(geo.nz, **kw)
+             / torch.tensor(geo.inv_d0, **kw))
+    c1_ax = (torch.tensor(geo.o1, **kw) + torch.arange(geo.nx, **kw)
+             / torch.tensor(geo.inv_d1, **kw))
+    g0, g1 = gradient_ord2(mu_f, c0_ax, c1_ax)
+    return torch.stack([mu_f, g0, g1, mup_f, kappa_f], dim=1).contiguous()
+
+
+def plain_fan(geo, tab, elevs, ds, *, n_steps, n_hops=1, x0=0.0, z0=None,
+              paths=False):
+    """The kernel's plain PyTorch version on the packed tables.
+
+    The batched fixed-step fan of :mod:`.gradient` (its integrator and
+    metrics), with fields read from ``tab`` [F, 5, nz, nx] through the
+    uniform locate. ``elevs`` [E] deg, ``ds`` a 0-d tensor (km). Returns
+    the dict of :data:`OUTPUTS`, each [F, E], on any device; with
+    ``paths`` also ``c0_path`` and ``c1_path`` [F, E, n_steps + 1], the
+    rays' step points in the tables' native coordinates.
+    """
+    from .gradient import _cart_gradient_core, _sph_gradient_core
+    PLAIN_CALLS["fan_2d"] += 1
+    z0 = float(geo.z[0]) if z0 is None else float(z0)
+    F, E = tab.shape[0], elevs.shape[0]
+
+    def field(c, grads=None):
+        return RefractiveField(geo.z, geo.x, tab[:, c], geometry=geo.geometry,
+                               grads=grads)
+
+    mu = field(0, grads=(tab[:, 1], tab[:, 2]))
+    mupf = _mup_function(field(3))
+    kapf = _mup_function(field(4))
+    el = elevs.expand(F, E)
+    x0 = float(x0)
+    if geo.geometry == "cartesian":
+        def nag(x, z):
+            n, dndz, dndx = mu.value_and_grad(z, x)
+            return n, dndx, dndz
+        nag.field = mu
+        out = _cart_gradient_core(nag, mupf, x0, z0, el, ds, n_steps,
+                                  geo.ground, geo.top, geo.lo, geo.hi,
+                                  n_hops=n_hops, kappa_func=kapf)
+        x_fin, z_fin = out["x"][..., -1], out["z"][..., -1]
+        c0, c1 = out["z"], out["x"]
+    else:
+        def nag(phi, r):
+            return mu.value_and_grad(r, phi)
+        nag.field = mu
+        out = _sph_gradient_core(nag, mupf, x0, z0, el, ds, n_steps, geo.re,
+                                 float(geo.z[0]), geo.top, geo.lo, geo.hi,
+                                 n_hops=n_hops, kappa_func=kapf)
+        x_fin = geo.re * out["phi"][..., -1]
+        z_fin = out["r"][..., -1] - geo.re
+        c0, c1 = out["r"], out["phi"]
+    dt = tab.dtype
+    res = {"ground_range_km": out["ground_range_km"],
+           "group_delay_sec": out["group_delay_sec"],
+           "absorption_db": out["absorption_db"],
+           "group_path_km": out["group_path_km"],
+           "phase_path_km": out["phase_path_km"],
+           "status_code": out["status_code"].to(dt),
+           "x_final_km": x_fin, "z_final_km": z_fin,
+           "steps_taken": out["alive"][..., :-1].sum(-1).to(dt)}
+    if paths:
+        res.update(c0_path=c0, c1_path=c1)
+    return res
+
+
+def launch_fan(geo, tab, elevs, ds, *, n_steps, n_hops=1, x0=0.0, z0=None):
+    """Launch ``csrc/fan2d.cu`` on prepared tables; returns the output dict.
+
+    Checks device, dtype, shape and contiguity, launches on the current
+    stream and raises on any CUDA error the launch reports.
+    """
+    from . import cuda_ext
+    from .gradient import _launch_direction
+
+    dtype, dev = tab.dtype, tab.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"unsupported dtype {dtype}")
+    F = tab.shape[0]
+    E = elevs.shape[0]
+    if (tuple(tab.shape) != (F, _CHANNELS, geo.nz, geo.nx)
+            or not tab.is_contiguous()):
+        raise ValueError(f"tables must be contiguous [F, {_CHANNELS}, "
+                         f"{geo.nz}, {geo.nx}], got {tuple(tab.shape)}")
+    if (elevs.dtype != dtype or elevs.device != dev or elevs.dim() != 1
+            or not elevs.is_contiguous()):
+        raise ValueError("elevations must be a contiguous 1-D tensor in the "
+                         "tables' dtype and device")
+    if F == 0 or E == 0 or geo.nz < 3 or geo.nx < 3 or n_steps < 0:
+        raise ValueError(f"degenerate launch F={F} E={E} nz={geo.nz} "
+                         f"nx={geo.nx} n_steps={n_steps}")
+    if F > 65535:
+        raise ValueError(f"F={F} exceeds the launch grid's y extent")
+    z0 = float(geo.z[0]) if z0 is None else float(z0)
+    sph = geo.geometry == "spherical"
+    # the launch state, formed as the plain version's cores form it: the
+    # position in float64 on the host, the direction by the same torch ops
+    a0, b0 = (geo.re + z0, float(x0) / geo.re) if sph else (float(x0), z0)
+    va0, vb0 = (v.contiguous() for v in _launch_direction(elevs, sph))
+    scalars = (ctypes.c_double * 16)(
+        float(ds), a0, b0, geo.o0, geo.inv_d0, geo.o1, geo.inv_d1,
+        geo.c0_lo, geo.c0_hi, geo.c1_lo, geo.c1_hi,
+        geo.ground, geo.top, geo.lo, geo.hi, geo.re)
+    out = torch.empty((len(OUTPUTS), F, E), dtype=dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = cuda_ext.load().pyrayhf_fan2d(
+            0 if dtype == torch.float32 else 1, int(sph),
+            tab.data_ptr(), F, geo.nz, geo.nx, va0.data_ptr(),
+            vb0.data_ptr(), E, int(n_steps), int(n_hops) - 1, scalars,
+            out.data_ptr(), _BLOCK, stream)
+    if err != 0:
+        raise RuntimeError(f"fan kernel launch failed: "
+                           f"{cuda_ext.error_string(err)} ({err})")
+    LAUNCHES["fan_2d"] += 1
+    return dict(zip(OUTPUTS, out.unbind(0)))
+
+
+def fan_2d_pallas(z_np, x_np, mu_f, mup_f, kappa_f, elevs, ds, *,
+                  geometry="cartesian", n_steps, n_hops=1, x0=0.0,
+                  z0=None, interpret=False):
+    """Trace an [F, E] gradient-ODE ray fan with the fan kernel.
+
+    ``z_np``/``x_np``: uniform host grids (km); ``mu_f``/``mup_f``/
+    ``kappa_f``: [F, nz, nx] fields; ``elevs``: [E] launch elevations
+    (deg); ``ds``: step (km). Returns a dict of [F, E] tensors (see
+    :data:`OUTPUTS`). Runs the CUDA kernel on CUDA tensors and
+    :func:`plain_fan` on CPU tensors (``interpret`` has no meaning for a
+    CUDA kernel and raises there); any other device raises.
+    """
+    dev = mu_f.device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"no fan kernel for device {dev}")
+    if dev.type == "cuda" and interpret:
+        raise ValueError("interpret=True has no meaning for a CUDA kernel; "
+                         "pass CPU tensors to run the plain version")
+    if any(isinstance(t, torch.Tensor) and t.requires_grad
+           for t in (mu_f, mup_f, kappa_f, elevs, ds)):
+        raise ValueError("the fan kernel has no backward; use engine='xla' "
+                         "of the oblique fan for gradients")
+    geo = fan_geometry(z_np, x_np, geometry)
+    dtype = mu_f.dtype
+    elevs = torch.as_tensor(elevs).to(dtype=dtype, device=dev).contiguous()
+    ds = torch.as_tensor(ds).to(dtype=dtype, device=dev)
+    tab = pack_tables(geo, mu_f, mup_f.to(dtype), kappa_f.to(dtype))
+    kw = dict(n_steps=int(n_steps), n_hops=int(n_hops), x0=x0, z0=z0)
+    if dev.type == "cuda":
+        return launch_fan(geo, tab, elevs, ds, **kw)
+    return plain_fan(geo, tab, elevs, ds, **kw)

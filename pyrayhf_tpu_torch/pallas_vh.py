@@ -335,18 +335,19 @@ def _grid_tensors(n_points, like):
 
 
 def ionogram_fast_xla(freq_mhz, den, bmag, bpsi, alt, mode_mult=1.0,
-                      n_points=200):
+                      n_points=200, device=None):
     """Gather-free segment sweep of the fused kernel, in plain PyTorch.
 
     The public ``"xla"`` engine, the plain version of the sweep kernel and
     the gradient path of every kernel. Same math as the JAX
     ``ionogram_fast_xla``: a loop over the profile's N−1 segments adds
     each saturated hat weight to [B, F, P] accumulators. Runs on any
-    device and is differentiable by autograd.
+    device and is differentiable by autograd. Host arrays go to the CUDA
+    card unless ``device`` says otherwise (``device="cpu"``).
     """
     PLAIN_CALLS["sweep"] += 1
     freq_mhz, den, bmag, bpsi, alt = profile_tensors(freq_mhz, den, bmag,
-                                                     bpsi, alt)
+                                                     bpsi, alt, device=device)
     freq_hz = freq_mhz * 1e6
     B, N = den.shape
 
@@ -695,7 +696,7 @@ def _mode_mult(mode_mult, config):
 def ionogram_pallas_gather(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
                            n_points=None, p_chunk=None, interpret=False,
                            f_tile=None, b_tile=4, config=None,
-                           x_in_kernel_solve=True):
+                           x_in_kernel_solve=True, device=None):
     """Gather-kernel ionogram synthesis: [B, N_alt] profiles → [B, F] vh.
 
     The main-path engine (``engine="pallas_gather"``, and ``"auto"`` on
@@ -707,17 +708,19 @@ def ionogram_pallas_gather(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
     Requires a uniformly spaced shared altitude grid (raises otherwise).
     ``p_chunk``, ``f_tile`` and ``b_tile`` are the TPU kernel's tiling
     knobs, accepted for signature compatibility and unused.
-    Differentiable through :class:`_PallasAD`.
+    Differentiable through :class:`_PallasAD`. Host arrays go to the CUDA
+    card unless ``device`` says otherwise (``device="cpu"``).
     """
     return _ionogram_gather(freq_mhz, den, bmag, bpsi, alt,
                             _mode_mult(mode_mult, config),
                             resolve(config, "n_points", n_points, 200),
                             uniform_inv_dalt(alt), x_in_kernel_solve,
-                            interpret)
+                            interpret, device)
 
 
 def _ionogram_gather(freq_mhz, den, bmag, bpsi, alt, mode_mult, n_points,
-                     inv_dalt, x_in_kernel_solve=True, interpret=False):
+                     inv_dalt, x_in_kernel_solve=True, interpret=False,
+                     device=None):
     """:func:`ionogram_pallas_gather` with 1/Δalt already read from ``alt``
     (``engine="auto"`` reads it while routing: one host sync per call)."""
     if inv_dalt is None:
@@ -730,12 +733,12 @@ def _ionogram_gather(freq_mhz, den, bmag, bpsi, alt, mode_mult, n_points,
     cfg = dict(kind=kind, mode_mult=mode_mult, n_points=n_points,
                inv_dalt=inv_dalt, interpret=bool(interpret))
     return _PallasAD.apply(cfg, *profile_tensors(freq_mhz, den, bmag, bpsi,
-                                                 alt))
+                                                 alt, device=device))
 
 
 def ionogram_pallas(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
                     n_points=None, p_chunk=None, interpret=False, f_tile=32,
-                    b_tile=4, config=None):
+                    b_tile=4, config=None, device=None):
     """Sweep-kernel ionogram synthesis: [B, N_alt] profiles → [B, F] vh.
 
     Same discretisation as :func:`pyrayhf_tpu_torch.forward
@@ -745,11 +748,12 @@ def ionogram_pallas(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
     ``config`` supplies mode (as ±1 mode_mult) and n_points when not
     explicit. ``p_chunk``, ``f_tile`` and ``b_tile`` are accepted for
     signature compatibility and unused. Differentiable through
-    :class:`_PallasAD`.
+    :class:`_PallasAD`. Host arrays go to the CUDA card unless ``device``
+    says otherwise (``device="cpu"``).
     """
     mode_mult = _mode_mult(mode_mult, config)
     n_points = resolve(config, "n_points", n_points, 200)
     cfg = dict(kind="sweep", mode_mult=mode_mult, n_points=n_points,
                inv_dalt=None, interpret=bool(interpret))
     return _PallasAD.apply(cfg, *profile_tensors(freq_mhz, den, bmag, bpsi,
-                                                 alt))
+                                                 alt, device=device))

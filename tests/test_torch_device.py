@@ -1,0 +1,97 @@
+"""Where the port's entry points put host data.
+
+Host array-likes (numpy arrays, lists, Python numbers) go to the CUDA card
+unless the caller asks for the CPU with ``device="cpu"``; tensors keep
+their device. Without a card, and without that request, an entry point
+raises with a message naming ``device="cpu"``: it never carries on
+quietly on the CPU. These tests hide any card (``torch.cuda.is_available``
+returns False), so they run the same everywhere.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import pyrayhf_tpu_torch as prt
+from pyrayhf_tpu_torch import io as TIO
+
+
+def _profile(B=None):
+    alt = np.linspace(90.0, 550.0, 120)
+    den = 2e12 * np.exp(-((alt - 300.0) / 55.0) ** 2)
+    if B:
+        den = np.stack([den * (1.0 + 0.1 * b) for b in range(B)])
+    return (np.arange(2.0, 12.0, 1.0), den, np.full_like(den, 3.2e-5),
+            np.full_like(den, 65.0), alt)
+
+
+def _slice():
+    z = np.linspace(0.0, 400.0, 41)
+    x = np.linspace(0.0, 2000.0, 9)
+    h = (z[:, None] - 250.0) / 45.0
+    ne = 8e11 * np.exp(0.5 * (1.0 - h - np.exp(-h))) * np.ones((1, 9))
+    return dict(f0s_hz=[6e6], ground_range_km=800.0, x_grid_km=x,
+                z_grid_km=z, Ne2d=ne, Babs2d=np.full(ne.shape, 4.5e-5),
+                bpsi2d=np.full(ne.shape, 30.0), n_elev=6, step_km=20.0,
+                s_max_km=400.0)
+
+
+ENTRY_POINTS = {
+    "vertical_forward_operator": lambda **kw: prt.vertical_forward_operator(
+        *_profile(), **kw),
+    "vertical_forward_operator_batch":
+        lambda **kw: prt.vertical_forward_operator_batch(*_profile(2), **kw),
+    "vertical_phase_operator": lambda **kw: prt.vertical_phase_operator(
+        *_profile(), **kw),
+    "vh_and_mask": lambda **kw: prt.vh_and_mask(*_profile(), **kw)[0],
+    "ionogram_pallas": lambda **kw: prt.ionogram_pallas(
+        *_profile(2), mode_mult=1.0, **kw),
+    "ionogram_pallas_gather": lambda **kw: prt.ionogram_pallas_gather(
+        *_profile(2), mode_mult=-1.0, **kw),
+    "ionogram_fast_xla": lambda **kw: prt.ionogram_fast_xla(
+        *_profile(2), **kw),
+    "profiles_to_torch": lambda **kw: TIO.profiles_to_torch(
+        dict(zip(("den", "bmag", "bpsi", "alt"), _profile()[1:])),
+        **kw)["den"],
+    "vertical_absorption_operator":
+        lambda **kw: prt.vertical_absorption_operator(*_profile(), **kw),
+    "collision_frequency": lambda **kw: prt.collision_frequency(
+        [70.0, 90.0], **kw),
+    "ground_reflection_loss_db": lambda **kw: prt.ground_reflection_loss_db(
+        [5e6, 9e6], [10.0, 30.0], **kw),
+    "synthesize_oblique_ionogram_2d":
+        lambda **kw: prt.synthesize_oblique_ionogram_2d(
+            **_slice(), **kw)["fan_range_km"],
+}
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_host_data_without_a_card_raises(no_card, name):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        ENTRY_POINTS[name]()
+
+
+@pytest.mark.parametrize("name", list(ENTRY_POINTS))
+def test_host_data_goes_where_the_caller_asks(no_card, name):
+    out = ENTRY_POINTS[name](device="cpu")
+    assert isinstance(out, torch.Tensor) and out.device.type == "cpu"
+    assert out.dtype == torch.float64
+
+
+def test_tensors_keep_their_device(no_card):
+    """CPU tensors need no request; an explicit device that contradicts
+    them raises instead of moving them."""
+    t = [torch.from_numpy(np.asarray(a)) for a in _profile()]
+    assert prt.vertical_forward_operator(*t).device.type == "cpu"
+    with pytest.raises(ValueError, match="tensor inputs lie"):
+        prt.vertical_forward_operator(*t, device="cuda")
+    # a tensor among host arrays decides where the host arrays go
+    freqs, den, bmag, bpsi, alt = _profile(2)
+    vh = prt.vertical_forward_operator_batch(freqs, den, bmag, bpsi,
+                                             torch.from_numpy(alt))
+    assert vh.device.type == "cpu"

@@ -4,7 +4,8 @@ Marked ``gpu``: they need a CUDA device and ``nvcc`` (the kernels are
 built at first use) and skip without a card. Run them on the card with
 ``python -m pytest tests/test_torch_gpu_kernels.py -q -m gpu``.
 Tolerances: f64 identical NaN masks and ≤ 1e-6 km; f32 within 0.1 km of
-the f64 plain result (the accuracy contract).
+the f64 plain result (the accuracy contract). The ray-fan kernel: f64
+identical status codes and landing masks, rtol 1e-8, atol 1e-10.
 """
 
 import numpy as np
@@ -100,3 +101,78 @@ def test_sweep_kernel_nonuniform_grid(cuda):
     assert np.array_equal(np.isnan(k), np.isnan(ref))
     m = np.isfinite(ref)
     assert np.abs(k[m] - ref[m]).max() <= 1e-6
+
+
+def test_numpy_lands_on_the_card(cuda):
+    """Host arrays with no device request go to the card, and the
+    ``auto`` forward operator then launches its kernel."""
+    from pyrayhf_tpu_torch.forward import vertical_forward_operator_batch
+    TV.reset_counters()
+    vh = vertical_forward_operator_batch(*_case(False), mode="O")
+    assert vh.device.type == "cuda" and vh.dtype == torch.float64
+    assert TV.LAUNCHES["gather_osolve"] == 1
+    assert sum(TV.PLAIN_CALLS.values()) == 0
+
+
+def _fan_case(mode):
+    """tests/test_pallas_ray.py's small scene, as packed kernel tables."""
+    from pyrayhf_tpu_torch import oblique
+    z = np.linspace(0.0, 400.0, 101)
+    x = np.linspace(0.0, 2000.0, 17)
+    h = (z[:, None] - 250.0) / 45.0
+    ne = 8.0e11 * (1.0 + 0.15 * (x[None, :] / x[-1] - 0.5)) * np.exp(
+        0.5 * (1.0 - h - np.exp(-h)))
+    nu = 1e7 * np.exp(-(z - 70.0) / 8.0)
+    t = [torch.as_tensor(a, dtype=torch.float64, device="cuda")
+         for a in ([5e6, 9e6], ne, np.full(ne.shape, 4.5e-5),
+                   np.full(ne.shape, np.deg2rad(30.0)), nu)]
+    return z, x, oblique._fan_fields(*t, mode)
+
+
+@pytest.mark.parametrize("geometry,mode,n_hops", [("cartesian", "O", 1),
+                                                  ("spherical", "O", 1),
+                                                  ("cartesian", "X", 2)])
+def test_fan_kernel_matches_plain(cuda, geometry, mode, n_hops):
+    """f64: identical status codes, landing masks and step counts; every
+    output within rtol 1e-8, atol 1e-10 (tests/test_pallas_ray.py:58)."""
+    import pyrayhf_tpu_torch.pallas_ray as TR
+    z, x, fields = _fan_case(mode)
+    geo = TR.fan_geometry(z, x, geometry)
+    tab = TR.pack_tables(geo, *fields)
+    elevs = torch.linspace(8.0, 60.0, 160, dtype=torch.float64, device=cuda)
+    ds = torch.tensor(10.0, dtype=torch.float64, device=cuda)
+    TR.reset_counters()
+    k = TR.launch_fan(geo, tab, elevs, ds, n_steps=400, n_hops=n_hops)
+    torch.cuda.synchronize()
+    p = TR.plain_fan(geo, tab, elevs, ds, n_steps=400, n_hops=n_hops)
+    assert TR.LAUNCHES["fan_2d"] == 1
+    for key in ("status_code", "steps_taken"):
+        assert torch.equal(k[key], p[key]), key
+    assert torch.equal(torch.isnan(k["ground_range_km"]),
+                       torch.isnan(p["ground_range_km"]))
+    for key in TR.OUTPUTS:
+        assert torch.allclose(k[key], p[key], rtol=1e-8, atol=1e-10,
+                              equal_nan=True), key
+
+
+def test_fan_wrapper_on_the_card(cuda):
+    """The wrapper launches on CUDA tensors, refuses gradients and
+    interpret mode, and numpy slices land on the card."""
+    import pyrayhf_tpu_torch.pallas_ray as TR
+    from pyrayhf_tpu_torch import synthesize_oblique_ionogram_2d
+    z, x, (mu, mup, kap) = _fan_case("O")
+    elevs = torch.linspace(8.0, 60.0, 24, dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="no backward"):
+        TR.fan_2d_pallas(z, x, mu.clone().requires_grad_(True), mup, kap,
+                         elevs, 10.0, n_steps=10)
+    with pytest.raises(ValueError, match="interpret"):
+        TR.fan_2d_pallas(z, x, mu, mup, kap, elevs, 10.0, n_steps=10,
+                         interpret=True)
+    h = (z[:, None] - 250.0) / 45.0
+    ne = 8.0e11 * np.exp(0.5 * (1.0 - h - np.exp(-h))) * np.ones((1, 17))
+    TR.reset_counters()
+    out = synthesize_oblique_ionogram_2d(
+        [6e6, 8e6], 800.0, x, z, ne, np.full(ne.shape, 4.5e-5),
+        np.full(ne.shape, 30.0), n_elev=24, step_km=10.0, s_max_km=2500.0)
+    assert out["fan_range_km"].device.type == "cuda"
+    assert TR.LAUNCHES["fan_2d"] == 1 and TR.PLAIN_CALLS["fan_2d"] == 0

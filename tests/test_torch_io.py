@@ -37,7 +37,7 @@ def test_profiles_to_torch_round_trips_arrays_and_config():
     assert out["lat"] == inp["lat"] and out["label"] == inp["label"]
     assert isinstance(out["config"], TC.OperatorConfig)
     assert dataclasses.asdict(out["config"]) == dataclasses.asdict(cfg)
-    f32 = TIO.profiles_to_torch(inp, dtype=torch.float32)
+    f32 = TIO.profiles_to_torch(inp, device="cpu", dtype=torch.float32)
     assert f32["den"].dtype == torch.float32 and "config" not in f32
     assert np.array_equal(f32["alt"].numpy(), inp["alt"].astype(np.float32))
     with pytest.raises(KeyError, match="bpsi"):
@@ -68,7 +68,10 @@ def test_operator_config_copy_matches_jax():
 def test_import_does_not_pull_in_jax():
     """The port imports torch and numpy, never jax nor pyrayhf_tpu."""
     code = ("import sys, pyrayhf_tpu_torch, pyrayhf_tpu_torch.cuda_ext, "
-            "pyrayhf_tpu_torch.profiling\n"
+            "pyrayhf_tpu_torch.profiling, pyrayhf_tpu_torch.fields, "
+            "pyrayhf_tpu_torch.absorption, pyrayhf_tpu_torch.ground, "
+            "pyrayhf_tpu_torch.gradient, pyrayhf_tpu_torch.pallas_ray, "
+            "pyrayhf_tpu_torch.oblique\n"
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'pyrayhf_tpu.'))"
             " or m == 'pyrayhf_tpu']\n"

@@ -1,0 +1,130 @@
+"""PyTorch port vs the JAX package: the ray-fan kernel's module.
+
+The kernel's plain PyTorch version (what ``fan_2d_pallas`` runs on CPU
+tensors) is held against the JAX ``fan_2d_pallas`` in interpret mode, as
+``tests/test_pallas_ray.py`` runs it, on the same numpy fields: that
+test's small scene (101×17 uniform grid, F=2, E=24), Cartesian and
+spherical, and X mode through a ground bounce. Tolerance: rtol 1e-8,
+atol 1e-10 with equal NaN positions (``tests/test_pallas_ray.py:58``).
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import pyrayhf_tpu.magnetoionic as JM
+import pyrayhf_tpu.absorption as JA
+import pyrayhf_tpu.pallas_ray as JR
+import pyrayhf_tpu_torch.pallas_ray as TR
+
+RTOL, ATOL = 1e-8, 1e-10
+JAX_KEYS = ("ground_range_km", "group_delay_sec", "absorption_db",
+            "group_path_km", "phase_path_km", "status_code", "x_final_km",
+            "z_final_km")
+
+
+def _scene(nz=101, nx=17, tilt=0.15):
+    """tests/test_pallas_ray.py's uniform-grid tilted Chapman slice."""
+    z = np.linspace(0.0, 400.0, nz)
+    x = np.linspace(0.0, 2000.0, nx)
+    h = (z[:, None] - 250.0) / 45.0
+    nmf2 = 8.0e11 * (1.0 + tilt * (x[None, :] / x[-1] - 0.5))
+    ne = nmf2 * np.exp(0.5 * (1.0 - h - np.exp(-h)))
+    babs = np.full((nz, nx), 4.5e-5)
+    bpsi = np.full((nz, nx), np.deg2rad(30.0))
+    nu_z = 1e7 * np.exp(-(z - 70.0) / 8.0)
+    return z, x, ne, babs, bpsi, nu_z
+
+
+def _fields(mode, f0s=(5.0e6, 9.0e6)):
+    """[F, nz, nx] μ, μ', κ in numpy f64, as the fan makes them."""
+    z, x, ne, babs, bpsi, nu_z = _scene()
+    f = np.asarray(f0s)[:, None, None]
+    X = JM.find_X(ne[None], f)
+    Y = JM.find_Y(f, babs[None])
+    mu, mup = JM.find_mu_mup(X, Y, bpsi[None], mode)
+    kap = JA.absorption_coefficient(ne[None], nu_z[None, :, None], f,
+                                    babs[None], bpsi[None], mu, mode)
+    kap = np.where(np.isfinite(kap), kap, 0.0)
+    return z, x, np.array(mu), np.array(mup), kap
+
+
+CASES = {"cartesian": ("cartesian", "O", 1, 250),
+         "spherical": ("spherical", "O", 1, 250),
+         "x_2hop": ("cartesian", "X", 2, 400)}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_plain_fan_matches_jax_interpret(case):
+    geometry, mode, n_hops, n_steps = CASES[case]
+    z, x, mu, mup, kap = _fields(mode)
+    elevs = np.linspace(8.0, 60.0, 24)
+    ref = JR.fan_2d_pallas(z, x, jnp.asarray(mu), jnp.asarray(mup),
+                           jnp.asarray(kap), jnp.asarray(elevs), 10.0,
+                           geometry=geometry, n_steps=n_steps,
+                           n_hops=n_hops, interpret=True)
+    TR.reset_counters()
+    port = TR.fan_2d_pallas(z, x, torch.from_numpy(mu),
+                            torch.from_numpy(mup), torch.from_numpy(kap),
+                            torch.from_numpy(elevs), 10.0,
+                            geometry=geometry, n_steps=n_steps,
+                            n_hops=n_hops)
+    assert TR.PLAIN_CALLS["fan_2d"] == 1 and TR.LAUNCHES["fan_2d"] == 0
+    for k in JAX_KEYS:
+        p, r = port[k].numpy(), np.asarray(ref[k])
+        assert p.shape == r.shape == (2, 24), k
+        assert np.allclose(p, r, rtol=RTOL, atol=ATOL, equal_nan=True), k
+    land = np.isfinite(port["ground_range_km"].numpy())
+    assert land.any() and (~land).any()
+    st = port["status_code"].numpy()
+    assert np.array_equal(land, st == 1)
+    assert (port["steps_taken"] <= n_steps).all()
+
+
+def test_fan_wrapper_raises():
+    """No backward, no meaning for interpret on a card, no other device,
+    no non-uniform grid — and never a quiet fallback."""
+    z, x, mu, mup, kap = _fields("O")
+    args = [torch.from_numpy(a) for a in (mu, mup, kap)]
+    elevs = torch.linspace(8.0, 60.0, 4, dtype=torch.float64)
+    with pytest.raises(ValueError, match="no backward"):
+        TR.fan_2d_pallas(z, x, args[0].clone().requires_grad_(True),
+                         *args[1:], elevs, 10.0, n_steps=5)
+    with pytest.raises(ValueError, match="no fan kernel for device"):
+        TR.fan_2d_pallas(z, x, *[a.to("meta") for a in args], elevs, 10.0,
+                         n_steps=5)
+    z_nu = np.concatenate([z[:50], z[50:] + np.linspace(0.0, 3.0, 51)])
+    with pytest.raises(ValueError, match="uniform"):
+        TR.fan_2d_pallas(z_nu, x, *args, elevs, 10.0, n_steps=5)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        geo = TR.fan_geometry(z, x, "cartesian")
+        TR.launch_fan(geo, TR.pack_tables(geo, *args), elevs,
+                      torch.tensor(10.0, dtype=torch.float64), n_steps=5)
+
+
+def test_no_table_size_gate():
+    """The 621×800 field of the reference tutorials: refused by the TPU
+    engine's VMEM gate, admitted here (only uniformity is required)."""
+    z, x = np.linspace(0.0, 620.0, 621), np.linspace(0.0, 3995.0, 800)
+    assert not JR.fan_2d_pallas_available(z, x, 128)
+    assert TR.fan_2d_pallas_available(z, x)
+    geo = TR.fan_geometry(z, x, "spherical")
+    assert (geo.nz, geo.nx) == (621, 800)
+    assert geo.ground == 6371.0 and geo.hi == 3995.0 / 6371.0
+
+
+def test_pack_tables_layout():
+    """Channel-major [F, 5, nz, nx]: μ, ∂μ/∂c0, ∂μ/∂c1, μ', κ."""
+    z, x, mu, mup, kap = _fields("O")
+    geo = TR.fan_geometry(z, x, "cartesian")
+    tab = TR.pack_tables(geo, *[torch.from_numpy(a) for a in (mu, mup, kap)])
+    assert tab.shape == (2, 5, 101, 17) and tab.is_contiguous()
+    assert torch.equal(torch.nan_to_num(tab[:, 0]),
+                       torch.nan_to_num(torch.from_numpy(mu)))
+    assert torch.equal(tab[:, 4], torch.from_numpy(kap))
+    g0 = np.gradient(np.nan_to_num(mu[0], nan=0.0), z, axis=0, edge_order=2)
+    fin = np.isfinite(tab[0, 1].numpy())
+    # interior nodes away from the NaN region: np.gradient's values
+    assert np.allclose(tab[0, 1].numpy()[fin][:500], g0[fin][:500],
+                       rtol=1e-9, atol=1e-12)
