@@ -46,7 +46,27 @@ failure:
    those f32 launches; timing of the kernel, the whole fan call and the
    plain version, each kernel time beside a bound that counts the table
    bytes the rays of this run need;
-8. one JSON line of kernels, the card line, and the closing JSON line.
+8. the tensor-core one-hot kernel (``csrc/ionogram_mxu.cu``): its main
+   path, counters zeroed first and read after — ``vertical_forward_
+   operator_batch(engine="pallas_mxu")`` O and X, f32, at O-200 B=1024
+   (2 launches, no plain call); its outputs against the plain version in
+   f32 (≤ 1e-3 km) and, through the same entry point in f64, in f64
+   (≤ 1e-6 km), f32 against plain f64 (≤ 0.1 km, phase 4's rule), and the
+   f64 kernel against kernel 3 (``gather``) on the same prepared inputs
+   (≤ 1e-9 km, identical masks); the same at P=2,000 on the B=64 check
+   set; autograd through ``ionogram_pallas_mxu`` against the plain
+   sweep's and a central difference; timing of the kernel, its wrapper,
+   its plain version and kernel 3 beside the bound;
+9. the inversions on the card: ``retrieve_gradient_batch`` on a
+   station-day of B=288 O-mode ionograms (25 LM steps, f64 and f32,
+   per-sample |B| and ψ), ``minimize_parameters(method="brute")`` on one
+   of them and ``retrieve_profile_batch`` on B=64 Chapman ionograms,
+   each against its truths at the JAX package's test thresholds, and the
+   card's f64 LM fits of the first 8 ionograms against the same call on
+   the CPU (a second process, started with the phase, runs while the card
+   works); measured and printed, not checked: the LM on a wider day and
+   with the golden F1 ledge;
+10. one JSON line of kernels, the card line, and the closing JSON line.
 
 Profiles are Chapman F2 (+ E above a valley for a quarter of them) from
 ``numpy.random.default_rng(SEED)``; the fan scenes are the tilted Chapman
@@ -54,9 +74,11 @@ slice of ``tools/bench_fan_pallas.py``.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -86,8 +108,10 @@ SOURCE = "pyrayhf_tpu_torch/csrc/ionogram.cu"
 CP, G_P = 8.97866275, 2.799249247e10
 
 # the card's published peaks (NVIDIA data sheet, H100 SXM, 700 W):
-# float32 and float64 outside the tensor cores, and device memory
+# float32 and float64 outside the tensor cores, the tensor cores (dense
+# TF32, and FP64), and device memory
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}
+PEAK_TENSOR = {"float32": 495e12, "float64": 67e12}
 PEAK_BYTES = 3.35e12
 # operations per grid point of the ionogram kernels, counted from
 # csrc/ionogram.cu (each add, multiply, division, sqrt, sin, cos, floor and
@@ -98,6 +122,49 @@ ION_OPS_POINT = {"gather_osolve": 115, "gather_xsolve": 115,
                  "gather": 115, "sweep": 145}
 ION_OPS_NODE = {"gather_osolve": 1, "gather_xsolve": 10, "gather": 0,
                 "sweep": 0}
+
+# ---- the tensor-core one-hot kernel (csrc/ionogram_mxu.cu) ----------------
+MXU_SOURCE = "pyrayhf_tpu_torch/csrc/ionogram_mxu.cu"
+MXU_REPLACES = "pyrayhf_tpu/pallas_vh.py:456"
+# the f64 kernel against kernel 3 on the same prepared inputs: the JAX
+# package's own MXU-vs-sweep bound (tests/test_pallas.py:247)
+TOL_MXU_K3 = 1e-9
+
+# ---- the inversions on the card ---------------------------------------------
+# one station-day at 5-minute cadence; golden layer parameters of
+# tests/test_edp_retrieval.py:19-36
+LM_B, LM_STEPS, LM_CPU_B = 288, 25, 8
+TH_B = 64
+# the checked population: the JAX batch test's hmF2 and B_bot ranges
+# (tests/test_edp_retrieval.py:432-435); the wider day (hmF2 260-400 km,
+# B_bot 25-60 km) and the golden F1 ledge are measured too, not checked
+LM_POP = {"hm": (280.0, 360.0), "B_bot": (38.0, 55.0)}
+LM_POP_WIDE = {"hm": (260.0, 400.0), "B_bot": (25.0, 60.0)}
+LM_INFO_B = 64
+GOLDEN = {"F2": {"Nm": 1.17848165e+12, "hm": 365.13828931,
+                 "B_top": 32.52487907, "B_bot": 41.26005561},
+          "F1": {"Nm": 7.80902301e+11, "P": 0.91422852,
+                 "hm": 219.26637887},
+          "E": {"Nm": 1.2846662e+11, "hm": 110.0, "B_bot": 5.0,
+                "B_top": 7.0}}
+# the inversions' scene drops the golden F1 ledge (P = 0, the night-time
+# shape of the continuous builder): with it (P = 0.914) the LM of either
+# package stalls in local minima for a large share of the samples (phase 9
+# measures the share; PERF.md, ROADMAP Queue 3)
+LM_F1 = dict(GOLDEN["F1"], P=0.0)
+# recovery thresholds of the JAX package's own tests:
+# tests/test_edp_retrieval.py:444-447 (f64 LM: hmF2 2%, B_bot 5%, vh
+# 5 km), :374-377 (f32 LM: 1%, 2%, 5 km), :176-180 (brute: 4 km, 2.5 km),
+# tests/test_true_height.py:45-62 (rms 0.2 km, top knot 1 km, all 25 km)
+LM_TOL = {"float64": (0.02, 0.05, 5.0), "float32": (0.01, 0.02, 5.0)}
+BRUTE_TOL = (4.0, 2.5)
+BRUTE_SIGMA = 20.0         # percent: the reference's default grid
+# the card's f64 LM fits against the CPU's: every sample takes the same
+# accept decisions, and the sweep, the Jacobian and the normal equations
+# sum in another order (tests/test_torch_edp_retrieval.py holds the port
+# to the JAX package at the same rtol)
+LM_CPU_RTOL = 1e-8
+WORK_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke"
 
 # ---- the 2-D oblique fan (csrc/fan2d.cu) ----------------------------------
 # the fan of tools/bench_fan_pallas.py: F = 64 frequencies 4-30 MHz, E = 128
@@ -553,6 +620,551 @@ def fan_phase(torch, prt, dev, card):
                  f"f32"}
 
 
+def mxu_phase(torch, prt, dev, card, freqs, alt, main_prof, check_prof,
+              u_dir):
+    """The tensor-core one-hot kernel: main path (counted), against its
+    plain version and kernel 3, gradient, timing. Returns its kernels-line
+    entry."""
+    from pyrayhf_tpu_torch import pallas_vh as pv, profiling
+
+    inv = pv.uniform_inv_dalt(alt)
+    vfo = prt.vertical_forward_operator_batch
+    no_rows = np.zeros((1, 1), dtype=bool)
+
+    def T(a, dtype=torch.float32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    def args(kind, prof, mm, P, dtype):
+        return pv.prepare_kernel_args(
+            kind, *[T(a, dtype) for a in (freqs, *prof, alt)], mm, P, inv)
+
+    # ---- main path, counted ------------------------------------------
+    main_in = [T(a) for a in (freqs, *main_prof, alt)]
+    torch.cuda.synchronize()
+    pv.reset_counters()
+    t0 = time.perf_counter()
+    out = {m: vfo(*main_in, mode=m, n_points=P_MAIN, engine="pallas_mxu")
+           for m in ("O", "X")}
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches, plain = dict(pv.LAUNCHES), dict(pv.PLAIN_CALLS)
+    print(f"mxu main path: vertical_forward_operator_batch(engine="
+          f"'pallas_mxu') O and X, f32, B={B_MAIN} F={F_MAIN} P={P_MAIN}: "
+          f"{main_s:.3f} s wall; kernel launches {launches}; plain-version "
+          f"calls {plain}", flush=True)
+    check(launches["mxu"] == 2 and sum(launches.values()) == 2,
+          f"mxu main path launches {launches}")
+    check(sum(plain.values()) == 0, f"plain versions ran: {plain}")
+    for mode, vh in out.items():
+        v = vh.cpu().numpy()
+        check(vh.dtype == torch.float32 and v.shape == (B_MAIN, F_MAIN)
+              and np.isfinite(v).mean() > 0.15, f"mxu {mode}: output")
+
+    # ---- against the plain version and kernel 3 ------------------------
+    errs, errs32, errs_k3, k3_f32 = [], [], [], []
+    print(f"mxu kernel vs its plain version (f32 ≤ {TOL_F32_PLAIN:g} km, "
+          f"f64 ≤ {TOL_F64:g} km, f32 vs plain f64 ≤ {TOL_F32:g} km) and vs "
+          f"kernel 3 on the same prepared inputs (f64 ≤ {TOL_MXU_K3:g} km)",
+          flush=True)
+
+    def against(prof, mm, P, tag, vh32=None):
+        name = f"mxu {'O' if mm > 0 else 'X'} P={P} {tag}"
+        degen = degenerate_rows(freqs, prof[0], prof[1], mm)
+        a32, a64 = (args("mxu", prof, mm, P, dt)
+                    for dt in (torch.float32, torch.float64))
+        p32, p64 = pv.plain_ionogram(a32), pv.plain_ionogram(a64)
+        if vh32 is None:
+            vh32 = pv.launch_mxu(a32)
+            vh64 = pv.launch_mxu(a64)
+        else:       # the main path's output, and its entry point in f64
+            vh64 = vfo(*[T(a, torch.float64) for a in (freqs, *prof, alt)],
+                       mode="O" if mm > 0 else "X", n_points=P,
+                       engine="pallas_mxu")
+        compare(f"{name} f32 vs plain f32", vh32, p32, TOL_F32_PLAIN,
+                no_rows, True)
+        errs.append(compare(f"{name} f64 vs plain f64", vh64, p64, TOL_F64,
+                            no_rows, True))
+        errs32.append(compare(
+            f"{name} f32 vs plain f64", vh32, p64, TOL_F32, degen, False,
+            excused=over_tol(p32, p64, TOL_F32) & ~degen))
+        k3 = {dt: pv.launch_kernel(args("gather", prof, mm, P, dt))
+              for dt in (torch.float32, torch.float64)}
+        errs_k3.append(compare(f"{name} f64 vs kernel 3 f64", vh64,
+                               k3[torch.float64], TOL_MXU_K3, no_rows, True))
+        d32 = np.abs(vh32.double().cpu().numpy()
+                     - k3[torch.float32].double().cpu().numpy())
+        k3_f32.append(float(np.nanmax(d32)))
+        print(f"  {name} f32 vs kernel 3 f32: max|dvh| = {k3_f32[-1]:.3e} "
+              f"km, NaN masks equal "
+              f"{torch.equal(torch.isnan(vh32), torch.isnan(k3[torch.float32]))}",
+              flush=True)
+
+    for mode, mm in (("O", 1.0), ("X", -1.0)):
+        against(main_prof, mm, P_MAIN, f"B={B_MAIN} (main path)", out[mode])
+        against(check_prof, mm, 2000, f"B={B_CHECK}")
+
+    # ---- gradient ---------------------------------------------------------
+    print(f"mxu gradient (f64): autograd vs the plain sweep's (rtol 1e-10) "
+          f"and a central difference along phase 5's direction (step "
+          f"{FD_STEP:g}·den·u, rtol {FD_RTOL:g})", flush=True)
+    g_in = [T(a[:8] if np.ndim(a) == 2 else a, torch.float64)
+            for a in (freqs, *main_prof, alt)]
+
+    def loss_of(vh):
+        return torch.where(torch.isfinite(vh), vh, 0.0).sum()
+
+    grads = []
+    for f in (prt.ionogram_pallas_mxu, pv.ionogram_fast_xla):
+        d = g_in[1].clone().requires_grad_(True)
+        vh = f(g_in[0], d, *g_in[2:], mode_mult=1.0, n_points=P_MAIN)
+        grads.append(torch.autograd.grad(loss_of(vh), d)[0])
+    g, gp = grads
+    n0 = pv.LAUNCHES["mxu"]
+    with torch.no_grad():
+        vp, vm = (prt.ionogram_pallas_mxu(
+            g_in[0], g_in[1] + sgn * FD_STEP * u_dir, *g_in[2:],
+            mode_mult=1.0, n_points=P_MAIN) for sgn in (1.0, -1.0))
+    check(pv.LAUNCHES["mxu"] == n0 + 2, "mxu central difference launches")
+    check(torch.equal(torch.isnan(vp), torch.isnan(vm)),
+          "mxu: NaN mask moved within the step")
+    fd = float((loss_of(vp) - loss_of(vm)) / (2.0 * FD_STEP))
+    ad = float((g * u_dir).sum())
+    rel = float(((g - gp).abs().max() / gp.abs().max()).item())
+    print(f"  ionogram_pallas_mxu: max rel diff vs plain sweep {rel:.2e}; "
+          f"directional derivative autograd {ad:.10e}, central difference "
+          f"{fd:.10e}, rel diff {abs(fd - ad) / abs(ad):.2e}", flush=True)
+    check(bool(torch.isfinite(g).all()) and torch.allclose(
+        g, gp, rtol=1e-10, atol=0), "mxu gradient differs from the sweep's")
+    check(abs(fd - ad) / abs(ad) <= FD_RTOL, "mxu central difference")
+
+    # ---- timing -----------------------------------------------------------
+    print(f"mxu timing: median of {TIMING_ITERS} launches after 3 warm-up "
+          f"launches, CUDA events, O-200 B={B_MAIN}; card: {card}",
+          flush=True)
+    rows = {}
+    for dt in (torch.float32, torch.float64):
+        dname = str(dt).split(".")[-1]
+        inp = [T(a, dt) for a in (freqs, *main_prof, alt)]
+        a = pv.prepare_kernel_args("mxu", *inp, 1.0, P_MAIN, inv)
+        a3 = pv.prepare_kernel_args("gather", *inp, 1.0, P_MAIN, inv)
+        k_ms, _ = profiling.time_launch(pv.launch_mxu, a, iters=TIMING_ITERS)
+        k3_ms, _ = profiling.time_launch(pv.launch_kernel, a3,
+                                         iters=TIMING_ITERS)
+        p_ms, _ = profiling.time_launch(lambda: pv.plain_ionogram(a),
+                                        iters=TIMING_ITERS)
+        w_ms, _ = profiling.time_launch(
+            lambda: prt.ionogram_pallas_mxu(*inp, mode_mult=1.0,
+                                            n_points=P_MAIN),
+            iters=TIMING_ITERS)
+        B, R, K1 = a.tab.shape
+        K1P = -(-K1 // 8) * 8
+        chunks = B_MAIN * F_MAIN * (-(-P_MAIN // 32))
+        # tensor-core flops of the one-hot products as implemented: per 32
+        # points 16 N-tiles × K1P/8 K-steps × 2 M-tiles × 3 parts of
+        # m16n8k8 (2,048 flops), or 16 × K1P/4 × 4 m8n8k4 (512 flops)
+        tflops = chunks * (16 * (K1P // 8) * 2 * 3 * 2048
+                           if dt == torch.float32
+                           else 16 * (K1P // 4) * 4 * 512)
+        ops = B_MAIN * F_MAIN * P_MAIN * ION_OPS_POINT["gather"]
+        nbytes = a.tab.element_size() * (a.tab.numel() + F_MAIN + 3 * P_MAIN
+                                         + 1 + 4 * B_MAIN * F_MAIN) \
+            + B_MAIN * F_MAIN
+        t_ops = max(ops / PEAK_OPS[dname], tflops / PEAK_TENSOR[dname])
+        t_bytes = nbytes / PEAK_BYTES
+        b_ms = 1e3 * max(t_ops, t_bytes)
+        b_by = "operations" if t_ops >= t_bytes else "bytes"
+        rows[dname] = dict(ms=k_ms, plain_ms=p_ms, wrapper_ms=w_ms,
+                           same_function_kernel_ms=k3_ms, bound_ms=b_ms,
+                           bound_by=b_by, tensor_flops=tflops,
+                           scalar_ops=ops, bytes=nbytes)
+        print(f"  mxu {dname}: kernel {k_ms:.4f} ms ("
+              f"{profiling.vh_evals_per_s(B_MAIN, F_MAIN, k_ms):.4e} vh/s; "
+              f"bound {b_ms:.4f} ms, {b_by}: {tflops:.4e} tensor-core "
+              f"flops at {PEAK_TENSOR[dname]:.3g}/s, {ops:.4e} scalar ops, "
+              f"{nbytes:.4e} bytes), wrapper {w_ms:.4f} ms, plain "
+              f"{p_ms:.4f} ms; kernel 3 (gather) on the same inputs "
+              f"{k3_ms:.4f} ms", flush=True)
+    r = rows["float32"]
+    return {"name": "mxu", "route": "cuda", "source": MXU_SOURCE,
+            "replaces": MXU_REPLACES, "launches": launches["mxu"],
+            "max_abs_err": max(errs), "tol": TOL_F64,
+            "max_abs_err_f32_vs_f64": max(errs32), "tol_f32": TOL_F32,
+            "max_abs_err_vs_kernel3_f64": max(errs_k3),
+            "tol_vs_kernel3": TOL_MXU_K3,
+            "max_abs_err_vs_kernel3_f32": max(k3_f32),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "wrapper_ms": r["wrapper_ms"],
+            "same_function_kernel_ms": r["same_function_kernel_ms"],
+            "f64": rows["float64"],
+            "shape": f"B={B_MAIN} F={F_MAIN} P={P_MAIN} N={N_ALT} f32 O"}
+
+
+def lm_scene(rng, alt, freqs, B, pop):
+    """B O-mode truths: hmF2 and B_bot uniform over ``pop``'s ranges [km],
+    NmF2 within ±20% of the golden — set to freq2den(f)·1.001 at the
+    sounded frequency f nearest its foF2, so that f reflects on the 1-km
+    grid (its peak truncation costs ≤ 1e-3 of the peak) and the NmF2 pin
+    from it (× 1.0001) is within 0.1% of the truth — and per-sample |B| (a
+    dipole-like fall-off) and ψ."""
+    fo = CP * np.sqrt(GOLDEN["F2"]["Nm"] * rng.uniform(0.8, 1.2, B)) / 1e6
+    f_top = freqs[np.abs(freqs[None, :] - fo[:, None]).argmin(axis=1)]
+    truth = {"hm": rng.uniform(*pop["hm"], B),
+             "B_bot": rng.uniform(*pop["B_bot"], B),
+             "Nm": (f_top * 1e6 / CP) ** 2 * 1.001}
+    b0 = rng.uniform(2.5e-5, 6.5e-5, B)
+    bmag = b0[:, None] * ((6371.0 + alt[0]) / (6371.0 + alt[None, :])) ** 3
+    bpsi = np.broadcast_to(rng.uniform(20.0, 80.0, B)[:, None],
+                           bmag.shape).copy()
+    return truth, bmag, bpsi
+
+
+def lm_observe(prt, truth, bmag, bpsi, alt, freqs, F1, device):
+    """The truths' ionograms [B, F] by one batched model_VH call (f64)."""
+    import torch
+    B = bmag.shape[0]
+
+    def T(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=device)
+
+    F2 = dict(GOLDEN["F2"], **{k: T(v)[:, None] for k, v in truth.items()})
+    return prt.model_VH(F2, F1, GOLDEN["E"], T(freqs), T(alt).expand(B, -1),
+                        T(bmag), T(bpsi))[0].cpu().numpy()
+
+
+def lm_prepare(prt):
+    """Phase 9's scenes, made on the CPU in f64, and the CPU side of its LM
+    comparison started on them in a second process, which runs while the
+    card works: the station-day (LM_B ionograms of LM_POP) and LM_INFO_B
+    ionograms of the wider day, both with LM_F1."""
+    rng = np.random.default_rng(SEED + 9)
+    alt = np.linspace(80.0, 699.0, N_ALT)
+    freqs = np.arange(2.0, 11.51, 0.25)
+    lm = {"rng": rng, "alt": alt, "freqs": freqs}
+    for key, B, pop in (("day", LM_B, LM_POP),
+                        ("wide", LM_INFO_B, LM_POP_WIDE)):
+        truth, bmag, bpsi = lm_scene(rng, alt, freqs, B, pop)
+        lm[key] = dict(truth=truth, bmag=bmag, bpsi=bpsi, obs=lm_observe(
+            prt, truth, bmag, bpsi, alt, freqs, LM_F1, "cpu"))
+    day = lm["day"]
+    WORK_DIR.mkdir(parents=True, exist_ok=True)
+    path_in, lm["path_out"] = WORK_DIR / "lm_in.npz", WORK_DIR / "lm_cpu.npz"
+    lm["path_out"].unlink(missing_ok=True)
+    np.savez(path_in, hm0=day["truth"]["hm"] * 0.95,
+             bb0=day["truth"]["B_bot"] * 1.1, freqs=freqs, obs=day["obs"],
+             alt=alt, bmag=day["bmag"], bpsi=day["bpsi"], n=LM_CPU_B,
+             steps=LM_STEPS)
+    lm["proc"] = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--lm-cpu",
+         str(path_in), str(lm["path_out"])], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lm["t_start"] = time.perf_counter()
+    return lm
+
+
+def lm_cpu(path_in, path_out):
+    """The CPU side of phase 9 (a second process): the f64 LM on the first
+    ``n`` ionograms, as the card runs it."""
+    import torch
+    from pyrayhf_tpu_torch import retrieval
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 1))
+    z = np.load(path_in)
+    n = int(z["n"])
+    guess = dict(GOLDEN["F2"], hm=z["hm0"][:n], B_bot=z["bb0"][:n])
+    vh, edp, fit, hist = retrieval.retrieve_gradient_batch(
+        guess, LM_F1, GOLDEN["E"], z["freqs"], z["obs"][:n],
+        z["alt"], z["bmag"][:n], z["bpsi"][:n], steps=int(z["steps"]),
+        chunk_size=None, device="cpu")
+    np.savez(path_out, hm=fit["hm"], B_bot=fit["B_bot"], Nm=fit["Nm"],
+             hist=hist, vh=vh.numpy())
+
+
+def band_err(vh, obs, freqs, nm):
+    """Per ionogram, max |vh_fit − obs| [km] below 0.995·foF2 of the truth.
+
+    The band the LM fits (``crit_margin``): the top sounded frequency lies
+    within 0.1% of foF2, where vh diverges, and the fit's NmF2 pin (0.09%
+    below the truth) moves it by up to hundreds of km.
+    """
+    band = freqs[None, :] < 0.995 * CP * np.sqrt(nm)[:, None] / 1e6
+    d = np.abs(vh.double().cpu().numpy() - obs)
+    return np.nanmax(np.where(band, d, 0.0), axis=1)
+
+
+def recovered(fit, vh, obs, freqs, truth, th):
+    """[B] bool: hmF2 and B_bot within the relative thresholds and vh
+    within the km threshold below 0.995·foF2; and the three errors."""
+    e_hm = np.abs(fit["hm"] / truth["hm"] - 1)
+    e_bb = np.abs(fit["B_bot"] / truth["B_bot"] - 1)
+    e_vh = band_err(vh, obs, freqs, truth["Nm"])
+    return (e_hm < th[0]) & (e_bb < th[1]) & (e_vh < th[2]), e_hm, e_bb, e_vh
+
+
+def retrieval_phase(torch, prt, dev, card, lm):
+    """The inversions on the card (phase 9). Returns a summary dict."""
+    alt, freqs, day, wide = lm["alt"], lm["freqs"], lm["day"], lm["wide"]
+    truth, bmag, bpsi, obs = (day[k] for k in ("truth", "bmag", "bpsi",
+                                               "obs"))
+    summary = {}
+
+    def T(a, dtype=torch.float64):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    fin = np.isfinite(obs)
+    f_top = freqs[np.argmax(np.where(fin, freqs[None, :], -1.0), axis=1)]
+    check(np.allclose((f_top * 1e6 / CP) ** 2 * 1.001, truth["Nm"],
+                      rtol=1e-12),
+          "a truth's pin frequency does not reflect on the grid")
+    print(f"inversions on the card; card: {card}", flush=True)
+    print(f"  station-day: B={LM_B} O-mode ionograms (hmF2 U{LM_POP['hm']} "
+          f"km, B_bot U{LM_POP['B_bot']} km, P = {LM_F1['P']}), F="
+          f"{freqs.size} ({freqs[0]}..{freqs[-1]} MHz), N_alt={N_ALT}, "
+          f"finite {fin.sum(1).min()}..{fin.sum(1).max()} per ionogram; "
+          f"the f64 run also fits {LM_INFO_B} ionograms of the wider day "
+          f"(hmF2 U{LM_POP_WIDE['hm']} km, B_bot U{LM_POP_WIDE['B_bot']} "
+          f"km), measured, not checked", flush=True)
+
+    # ---- batched LM, f64 (with the wider day appended) and f32 ---------
+    # the LM loop itself (_lm_batch_core) runs in the sync debug mode
+    # "error": any host sync inside it raises
+    from pyrayhf_tpu_torch import retrieval
+    lm_core = retrieval._lm_batch_core
+
+    def strict_core(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return lm_core(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    retrieval._lm_batch_core = strict_core
+    try:
+        fits = lm_runs(torch, prt, dev, lm, summary)
+    finally:
+        retrieval._lm_batch_core = lm_core
+    print("  the LM loops made no host sync (sync debug mode \"error\")",
+          flush=True)
+
+    # ---- measured, not checked: the golden F1 ledge ----------------------
+    summary["golden_f1_recovered"] = lm_golden_f1(torch, prt, dev, lm)
+
+    # ---- brute search on one ionogram --------------------------------
+    summary.update(brute_phase(torch, prt, dev, truth, bmag, bpsi,
+                               freqs[fin[0]].max(), truth["hm"][0] * 0.95,
+                               truth["B_bot"][0] * 1.1))
+
+    # ---- true height on B=64 Chapman ionograms ----------------------
+    summary.update(true_height_phase(torch, prt, dev, lm["rng"]))
+
+    # ---- the card's f64 LM fits against the CPU's ----------------------
+    log, _ = lm["proc"].communicate(timeout=900)
+    cpu_s = time.perf_counter() - lm["t_start"]
+    check(lm["proc"].returncode == 0, f"CPU LM process: exit "
+          f"{lm['proc'].returncode}:\n{log[-3000:]}")
+    z = np.load(lm["path_out"])
+    n = LM_CPU_B
+    worst = max(float(np.max(np.abs(fits["float64"][k][:n] / z[k] - 1)))
+                for k in ("hm", "B_bot", "Nm"))
+    print(f"  card f64 LM fits of the first {n} ionograms vs the same call "
+          f"on the CPU (a second process started with the phase, done "
+          f"{cpu_s:.1f} s after its start): max relative difference "
+          f"{worst:.3e} (rtol {LM_CPU_RTOL:g})", flush=True)
+    check(worst <= LM_CPU_RTOL, "card vs CPU LM fits")
+    summary["lm_cpu_vs_card_rel"] = worst
+    return summary
+
+
+def lm_runs(torch, prt, dev, lm, summary):
+    """The batched LM on the station-day, f64 (with the wider day appended,
+    measured, not checked) and f32, checked at the JAX thresholds. Returns
+    the fits by dtype name."""
+    from pyrayhf_tpu_torch import pallas_vh as pv
+
+    freqs, alt, day, wide = lm["freqs"], lm["alt"], lm["day"], lm["wide"]
+    truth, obs = day["truth"], day["obs"]
+
+    def T(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    fits = {}
+    for dt in (torch.float64, torch.float32):
+        dname = str(dt).split(".")[-1]
+        parts = [day, wide] if dt == torch.float64 else [day]
+
+        def cat(key, parts=parts):
+            return np.concatenate([q[key] for q in parts])
+
+        def cat_truth(key, parts=parts):
+            return np.concatenate([q["truth"][key] for q in parts])
+
+        guess = dict(GOLDEN["F2"], hm=cat_truth("hm") * 0.95,
+                     B_bot=cat_truth("B_bot") * 1.1)
+        torch.cuda.synchronize()
+        pv.reset_counters()
+        t0 = time.perf_counter()
+        vh, edp, fit, hist = prt.retrieve_gradient_batch(
+            guess, LM_F1, GOLDEN["E"], T(freqs, dt), T(cat("obs"), dt),
+            T(alt, dt), T(cat("bmag"), dt), T(cat("bpsi"), dt),
+            steps=LM_STEPS, chunk_size=None, dtype=dt)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        B_all = vh.shape[0]
+        fits[dname] = fit
+        th = LM_TOL[dname]
+        sel = slice(0, LM_B)
+        ok, e_hm, e_bb, e_vh = recovered(
+            {k: fit[k][sel] for k in ("hm", "B_bot")}, vh[sel], obs, freqs,
+            truth, th)
+        step_up = float(np.max(np.diff(hist, axis=0)
+                               / np.maximum(hist[:-1], 1.0)))
+        print(f"  retrieve_gradient_batch {dname}: B={B_all}, {LM_STEPS} "
+              f"steps: {wall:.3f} s wall ({B_all / wall:.2f} ionograms/s); "
+              f"plain sweep calls {pv.PLAIN_CALLS['sweep']}; station-day: "
+              f"{int(ok.sum())} of {LM_B} within the thresholds, max "
+              f"|hmF2/truth - 1| {e_hm.max():.3e} (tol {th[0]}), max "
+              f"|B_bot/truth - 1| {e_bb.max():.3e} (tol {th[1]}), max "
+              f"|vh_fit - obs| below 0.995 foF2 {e_vh.max():.3e} km (tol "
+              f"{th[2]}); final cost median {np.median(hist[-1, sel]):.3e}, "
+              f"max {hist[-1, sel].max():.3e}; largest relative cost rise "
+              f"{step_up:.2e}", flush=True)
+        check(vh.dtype == dt and vh.device.type == dev.type,
+              f"LM {dname}: output dtype/device")
+        check(ok.all(), f"LM {dname}: recovery")
+        check(step_up <= (1e-9 if dname == "float64" else 1e-6),
+              f"LM {dname}: the cost history rose")
+        summary[f"lm_{dname}_s"] = wall
+        if len(parts) > 1:
+            sw = slice(LM_B, None)
+            ok_w = recovered({k: fit[k][sw] for k in ("hm", "B_bot")},
+                             vh[sw], wide["obs"], freqs, wide["truth"],
+                             th)[0]
+            print(f"  measured, not checked: the wider day, {int(ok_w.sum())}"
+                  f" of {LM_INFO_B} within the f64 thresholds; final cost "
+                  f"above the retry cost (10 km²) for "
+                  f"{int((hist[-1, sw] > 10.0).sum())}", flush=True)
+            summary["wide_day_recovered"] = int(ok_w.sum())
+
+    return fits
+
+
+def lm_golden_f1(torch, prt, dev, lm):
+    """The f64 LM on LM_INFO_B station-day truths with the golden F1 ledge
+    (printed, not checked): how many recover at the f64 thresholds."""
+    alt, freqs = lm["alt"], lm["freqs"]
+    truth, bmag, bpsi = lm_scene(lm["rng"], alt, freqs, LM_INFO_B, LM_POP)
+    F1 = GOLDEN["F1"]
+    obs = lm_observe(prt, truth, bmag, bpsi, alt, freqs, F1, dev)
+
+    def T(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64, device=dev)
+
+    guess = dict(GOLDEN["F2"], hm=truth["hm"] * 0.95,
+                 B_bot=truth["B_bot"] * 1.1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vh, _, fit, hist = prt.retrieve_gradient_batch(
+        guess, F1, GOLDEN["E"], T(freqs), T(obs), T(alt), T(bmag), T(bpsi),
+        steps=LM_STEPS, chunk_size=None)
+    torch.cuda.synchronize()
+    ok = recovered(fit, vh, obs, freqs, truth, LM_TOL["float64"])[0]
+    print(f"  measured, not checked: the golden F1 ledge (P = {F1['P']}), "
+          f"B={LM_INFO_B} station-day truths, f64: {int(ok.sum())} of "
+          f"{LM_INFO_B} within the thresholds; final cost above the retry "
+          f"cost (10 km²) for {int((hist[-1] > 10.0).sum())}, median "
+          f"{np.median(hist[-1]):.3e}; {time.perf_counter() - t0:.3f} s "
+          f"wall", flush=True)
+    return int(ok.sum())
+
+
+def brute_phase(torch, prt, dev, truth, bmag, bpsi, f_top, hm0, bb0):
+    """minimize_parameters(method="brute") on the station-day's first
+    ionogram, its truths re-made on the 0.25-km grid of the JAX brute test
+    (tests/test_edp_retrieval.py:146-178): there the peak truncation costs
+    ≤ 1e-4 of the peak, so NmF2 = freq2den(f_top)·1.0001 keeps f_top
+    reflecting and the pin closes the model family (the brute cost, unlike
+    the LM's, counts the top frequency)."""
+    alt = np.arange(80.0, 700.0, 0.25)
+    freqs = np.arange(2.0, f_top + 1e-9, 0.25)
+    bm = bmag[0, 0] * ((6371.0 + alt[0]) / (6371.0 + alt)) ** 3
+    bp = np.full(alt.size, bpsi[0, 0])
+
+    def T(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64, device=dev)
+
+    F2 = dict(GOLDEN["F2"], Nm=(f_top * 1e6 / CP) ** 2 * 1.0001,
+              hm=truth["hm"][0], B_bot=truth["B_bot"][0])
+    obs = prt.model_VH(F2, LM_F1, GOLDEN["E"], T(freqs), T(alt),
+                       T(bm), T(bp))[0].cpu().numpy()
+    check(np.isfinite(obs).all(), "brute: the pin frequency escapes")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, fit = prt.minimize_parameters(
+        dict(F2, hm=hm0, B_bot=bb0), LM_F1, GOLDEN["E"], freqs, obs,
+        T(alt), T(bm), T(bp), method="brute", percent_sigma=BRUTE_SIGMA)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    G = np.prod([np.arange(v - v * BRUTE_SIGMA / 100.0,
+                           v + v * BRUTE_SIGMA / 100.0, 1.0).size
+                 for v in (hm0, bb0)])
+    d_hm = abs(float(fit["hm"]) - truth["hm"][0])
+    d_bb = abs(float(fit["B_bot"]) - truth["B_bot"][0])
+    print(f"  minimize_parameters(brute): {G} forward operators (F="
+          f"{freqs.size}, N_alt={alt.size}) in one batched call, {wall:.3f} "
+          f"s wall; |hmF2 - truth| {d_hm:.3f} km (tol {BRUTE_TOL[0]}), "
+          f"|B_bot - truth| {d_bb:.3f} km (tol {BRUTE_TOL[1]})", flush=True)
+    check(d_hm <= BRUTE_TOL[0] and d_bb <= BRUTE_TOL[1], "brute recovery")
+    return {"brute_s": wall, "brute_grid": int(G)}
+
+
+def true_height_phase(torch, prt, dev, rng):
+    """retrieve_profile_batch on B=64 Chapman O-mode ionograms (the scene
+    of tests/test_true_height.py, hmF2 drawn per ionogram from U(260, 340)
+    km on the grid's nodes, as the test's 300 km is: an off-node peak moves
+    the top knot's start-model bias by ±0.15 km around the test scene's
+    0.83 km, across its 1.0 km threshold), checked at that test's
+    thresholds."""
+    alt = np.arange(80.0, 600.0, 0.5)
+    hm = np.round(rng.uniform(260.0, 340.0, TH_B) * 2.0) / 2.0
+    z = (alt[None, :] - hm[:, None]) / 45.0
+    den = (9e6 / CP) ** 2 * np.exp(0.5 * (1 - z - np.exp(-z)))
+    bmag, bpsi = np.full(alt.size, 4.5e-5), np.full(alt.size, 35.0)
+    freqs = np.linspace(2.0, 8.8, 16)
+
+    def T(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=dev)
+
+    vh = prt.vertical_forward_operator_batch(
+        T(freqs), T(den), T(bmag).expand(TH_B, -1),
+        T(bpsi).expand(TH_B, -1), T(alt), mode="O", engine="parity")
+    check(bool(torch.isfinite(vh).all()), "true height: escaped traces")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = prt.retrieve_profile_batch(freqs, vh, T(alt), T(bmag), T(bpsi),
+                                     mode="O")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    h = out["h_knots_km"].cpu().numpy()
+    ne = out["ne_knots_m3"].cpu().numpy()
+    rms = out["rms_km"].cpu().numpy()
+    vh_n = vh.cpu().numpy()
+    err = np.stack([h[b] - np.interp(ne[b], den[b][alt <= hm[b]],
+                                     alt[alt <= hm[b]])
+                    for b in range(TH_B)])
+    print(f"  retrieve_profile_batch: B={TH_B} Chapman O-mode ionograms, "
+          f"K={freqs.size}, N_alt={alt.size}: {wall:.3f} s wall; rms "
+          f"{rms.max():.3e} km max (tol 0.2), top-knot error "
+          f"{np.abs(err[:, -1]).max():.3f} km max (tol 1.0), knot error "
+          f"{np.abs(err).max():.3f} km max (tol 25)", flush=True)
+    check(out["den_fit"].device.type == dev.type, "true height on the card")
+    check(rms.max() < 0.2 and np.all(np.diff(h, axis=1) > 0)
+          and np.all(np.diff(ne, axis=1) > 0) and np.all(h < vh_n + 1e-9)
+          and np.abs(err[:, -1]).max() < 1.0 and np.abs(err).max() < 25.0,
+          "true height recovery")
+    return {"true_height_s": wall}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -581,6 +1193,17 @@ def main():
           f"{time.perf_counter() - t0:.2f} s; ptxas: "
           f"{'; '.join(sorted(set(regs)))}", flush=True)
 
+    lm = {}                 # phase 9's scenes and its CPU process
+    try:
+        phases(torch, prt, pv, profiling, dev, card, lm)
+    finally:
+        if "proc" in lm and lm["proc"].poll() is None:
+            lm["proc"].kill()
+            lm["proc"].communicate()
+
+
+def phases(torch, prt, pv, profiling, dev, card, lm):
+    """Phases 2-10 (see the module docstring); phase 9 fills ``lm``."""
     rng = np.random.default_rng(SEED)
     alt = np.linspace(80.0, 699.0, N_ALT)
     freqs = np.round(np.arange(1, F_MAIN + 1) * 0.1, 10)
@@ -623,7 +1246,8 @@ def main():
     plain = dict(pv.PLAIN_CALLS)
     print(f"main path: {main_s:.3f} s wall; kernel launches {launches}; "
           f"plain-version calls {plain}", flush=True)
-    check(all(launches[k] > 0 for k in pv.KERNELS),
+    check(all(launches[k] > 0 for k in REPO_KERNELS)
+          and launches["mxu"] == 0,
           f"a kernel of the path never launched: {launches}")
     check(sum(plain.values()) == 0, f"plain versions ran: {plain}")
     # the kernel behind each output, its mode, inputs and points
@@ -697,7 +1321,7 @@ def main():
             *f64_in["O"], mode_mult=-1.0, n_points=P_MAIN,
             x_in_kernel_solve=False),
     }
-    check(all(pv.LAUNCHES[k] > 0 for k in pv.KERNELS)
+    check(all(pv.LAUNCHES[k] > 0 for k in REPO_KERNELS)
           and sum(pv.PLAIN_CALLS.values()) == 0,
           f"f64 entry points: launches {pv.LAUNCHES}, plain "
           f"{pv.PLAIN_CALLS}")
@@ -898,9 +1522,22 @@ def main():
     print(f"card state after the fan phase (clocks.sm, power.draw, temp): "
           f"{card_state()}", flush=True)
 
-    # ---- 8. result lines ---------------------------------------------
+    # ---- 8. the tensor-core one-hot kernel ------------------------------
+    mxu_entry = mxu_phase(torch, prt, dev, card, freqs, alt,
+                          (den, bmag, bpsi), (cden, cbmag, cbpsi), u_dir)
+    print(f"card state after the mxu phase (clocks.sm, power.draw, temp): "
+          f"{card_state()}", flush=True)
+
+    # ---- 9. the inversions ------------------------------------------------
+    # the CPU side of the LM comparison starts here, after every timed
+    # kernel phase, so that it shares no host cores with their timing
+    lm.update(lm_prepare(prt))
+    inv_summary = retrieval_phase(torch, prt, dev, card, lm)
+    print(f"inversions: {json.dumps(inv_summary)}", flush=True)
+
+    # ---- 10. result lines --------------------------------------------------
     kernels = []
-    for k in pv.KERNELS:
+    for k in REPO_KERNELS:
         row = timing[k]
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCE,
@@ -915,6 +1552,7 @@ def main():
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "wrapper_ms": row["wrapper_ms"],
             "shape": row["shape"]})
+    kernels.append(mxu_entry)
     kernels.append(fan_entry)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
@@ -924,4 +1562,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--lm-cpu"]:
+        lm_cpu(*sys.argv[2:4])
+    else:
+        main()

@@ -9,7 +9,13 @@ The PyTorch port of ``pyrayhf_tpu``, slice by slice:
 * the 2-D oblique ionogram: an [F, E] gradient-ODE ray fan through an
   altitude × range slice, homed onto a link
   (:func:`synthesize_oblique_ionogram_2d`); its ray-fan kernel is
-  ``csrc/fan2d.cu``.
+  ``csrc/fan2d.cu``;
+* the inversions: the parametric EDP model and its retrievals
+  (:func:`model_VH`, :func:`minimize_parameters`, Levenberg–Marquardt by
+  forward-mode AD in :func:`retrieve_gradient_batch`) and the true-height
+  lamination (:func:`retrieve_profile` and its batch and joint O+X forms);
+  the tensor-core one-hot resample kernel (``csrc/ionogram_mxu.cu``) is the
+  ``engine="pallas_mxu"`` forward operator.
 
 Kernels are built with ``nvcc`` at first use; on CPU tensors every kernel
 wrapper runs its plain PyTorch version instead. Host data (numpy arrays,
@@ -29,9 +35,20 @@ from .forward import (find_vh, vertical_forward_operator,
                       vertical_forward_operator_batch, vertical_phase_operator,
                       vh_and_mask)
 from .pallas_vh import (ionogram_fast_xla, ionogram_pallas,
-                        ionogram_pallas_gather, prepare_profile_tables)
-from .config import OperatorConfig
-from .io import load_input, profiles_to_torch, save_to_file
+                        ionogram_pallas_gather, ionogram_pallas_mxu,
+                        prepare_profile_tables)
+from .interp import interp_exact
+from .edp import (derive_dependent_F1_parameters, epstein_layer,
+                  f2_bottom_b0b1, f2_bottom_thickness, f2_topside,
+                  reconstruct_density_1level, reconstruct_density_continuous,
+                  valley_transition)
+from .retrieval import (minimize_parameters, model_VH, residual_VH,
+                        retrieve_gradient, retrieve_gradient_batch)
+from .true_height import (retrieve_profile, retrieve_profile_batch,
+                          retrieve_profile_joint)
+from .config import OperatorConfig, RetrievalConfig
+from .io import (load_checkpoint, load_input, profiles_to_torch,
+                 save_checkpoint, save_to_file)
 from .fields import (RefractiveField, bilinear,
                      build_mup_function,
                      build_refractive_index_interpolator_cartesian,
@@ -48,8 +65,8 @@ from .gradient import (trace_rays_cartesian_gradient,
                        trace_rays_spherical_gradient)
 from .pallas_ray import fan_2d_pallas, fan_2d_pallas_available
 from .oblique import synthesize_oblique_ionogram_2d
-from . import (absorption, config, cuda_ext, fields, forward, gradient, grid,
-               ground, io, magnetoionic, oblique, pallas_ray, pallas_vh,
-               profiling)
+from . import (absorption, config, cuda_ext, edp, fields, forward, gradient,
+               grid, ground, interp, io, magnetoionic, oblique, pallas_ray,
+               pallas_vh, profiling, retrieval, true_height)
 
 __version__ = "0.1.0"

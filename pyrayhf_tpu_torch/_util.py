@@ -1,5 +1,7 @@
 """Tensor plumbing shared by the port's modules."""
 
+import functools
+
 import numpy as np
 import torch
 
@@ -75,15 +77,32 @@ def profile_tensors(freq_mhz, den, bmag, bpsi, alt, device=None):
     return freq_mhz, den, bmag, bpsi, alt
 
 
+def scalar_like(v, like):
+    """``v`` as a 0-d tensor in ``like``'s dtype and device.
+
+    A number becomes a cached tensor filled on the device: building it with
+    ``torch.as_tensor`` would copy from host memory, and on the card that
+    copy waits for the stream, a host sync inside every loop that calls it.
+    """
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype=like.dtype, device=like.device)
+    return _scalar(float(v), like.dtype, like.device)
+
+
+@functools.lru_cache(maxsize=1024)
+def _scalar(v, dtype, device):
+    with torch.inference_mode(False):
+        return torch.full((), v, dtype=dtype, device=device)
+
+
 def clip(x, lo, hi):
     """``jnp.clip`` semantics: min(max(x, lo), hi), NaN-propagating.
 
     Built from ``torch.maximum``/``torch.minimum`` so that, like JAX, the
     gradient at a tie is split between the two arguments.
     """
-    lo_t = torch.as_tensor(lo, dtype=x.dtype, device=x.device)
-    hi_t = torch.as_tensor(hi, dtype=x.dtype, device=x.device)
-    return torch.minimum(torch.maximum(x, lo_t), hi_t)
+    return torch.minimum(torch.maximum(x, scalar_like(lo, x)),
+                         scalar_like(hi, x))
 
 
 def host_f64(a):

@@ -1,15 +1,15 @@
-"""Frozen operator configuration (a copy of ``pyrayhf_tpu.config``'s).
+"""Frozen configurations (a copy of ``pyrayhf_tpu.config``'s).
 
 The port cannot import the JAX package's module (its package ``__init__``
-imports jax), so the forward-operator part of it is copied here unchanged:
-:class:`OperatorConfig` and :func:`resolve`. Resolution order: an
-explicitly passed kwarg wins over the config field, which wins over the
-built-in default.
+imports jax), so the parts the ported slices use are copied here
+unchanged: :class:`OperatorConfig`, :class:`RetrievalConfig` and
+:func:`resolve`. Resolution order: an explicitly passed kwarg wins over
+the config field, which wins over the built-in default.
 """
 
 import dataclasses
 
-__all__ = ["OperatorConfig", "UNSET", "resolve"]
+__all__ = ["OperatorConfig", "RetrievalConfig", "UNSET", "resolve"]
 
 
 class _Unset:
@@ -54,3 +54,16 @@ class OperatorConfig:
     sharpness: float = 10.0          # stretched-grid exponent (ref :363)
     dh_backoff_km: float = 1e-6      # reflection backoff (ref :378)
     p_chunk: int = 512               # TPU point-axis chunk (accepted, unused)
+
+
+@dataclasses.dataclass(frozen=True)
+class RetrievalConfig:
+    """minimize_parameters / retrieve_gradient knobs (ref :672-717)."""
+    method: str = "brute"
+    percent_sigma: float = 20.0
+    step: float = 1.0
+    mode: str = "O"
+    n_points: int = 200
+    bottom_type: str = "B_bot"
+    lm_steps: int = 25
+    crit_margin: float = 0.995

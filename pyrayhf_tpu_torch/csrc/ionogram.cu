@@ -6,7 +6,8 @@
 //   <T, X, SOLVE, UNIFORM>         _kernel_gather_xsolve :839 (+ _xsolve_tile :788)
 //   <T, O|X, !SOLVE, UNIFORM>      _kernel_gather :583 (solve on the host)
 //   <T, O|X, !SOLVE, !UNIFORM>     _kernel :354 (segment sweep, any grid)
-//   mup_stable<T, MODE>            _mu_mup_stable_tile :229 (shared device fn)
+//   mup_stable<T, MODE>            _mu_mup_stable_tile :229 (ionogram_common.cuh,
+//                                  shared with ionogram_mxu.cu)
 //
 // What it computes, per (profile b, frequency f): the reflection-height
 // solve on the flat-extended profile (or its result from the host), the
@@ -34,17 +35,10 @@
 // version's does; sums are warp trees, so f64 agreement is to ~1e-12
 // relative, not bitwise.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "ionogram_common.cuh"
 
 namespace {
 
-constexpr double kCP = 8.97866275;      // plasma-frequency constant
-constexpr double kGP = 2.799249247e10;  // gyrofrequency constant [Hz/T]
-constexpr double kPI = 3.14159265358979323846;
-constexpr double kDH = 1e-6;            // reflection backoff [km]
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxThreads = 256;
 
 template <typename T>
@@ -67,118 +61,12 @@ struct Params {
 };
 
 template <typename T>
-__device__ __forceinline__ T clip01(T x) {  // jnp.clip: NaN propagates
-  x = x < T(0) ? T(0) : x;
-  return x > T(1) ? T(1) : x;
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-template <typename T>
 __device__ __forceinline__ T warp_max(T v) {
   for (int o = 16; o > 0; o >>= 1) {
     T w = __shfl_xor_sync(kFull, v, o);
     v = w > v ? w : v;
   }
   return v;
-}
-
-// mu' with the near-reflection small quantity supplied analytically:
-// expression for expression pallas_vh._mu_mup_stable_tile. Returns mu'
-// (0 where not ok) and sets ok.
-template <typename T, int MODE>
-__device__ __forceinline__ T mup_stable(T X, T Y, T psi_deg, T eps_crit,
-                                        T eps_max, bool& ok_out) {
-  const bool use_an = (eps_crit < T(1e-3)) && (eps_crit <= eps_max);
-  const T psi = psi_deg * T(kPI / 180.0);
-  const T sinp = sin(psi);
-  const T cosp = cos(psi);
-  const T YT = Y * sinp;
-  const T YL = Y * cosp;
-
-  T Xm1, eps_u = T(0);
-  if (MODE > 0) {
-    Xm1 = use_an ? eps_crit : T(1) - X;
-  } else {
-    eps_u = use_an ? eps_crit : T(1) - X - Y;
-    Xm1 = use_an ? Y + eps_u : T(1) - X;
-  }
-
-  const T YT2 = YT * YT;
-  const T YL2 = YL * YL;
-  const T beta = sqrt(T(0.25) * (YT2 * YT2) + YL2 * (Xm1 * Xm1));
-  const T bsum = beta + T(0.5) * YT2;
-  const bool b_ok = bsum > T(0);
-  const T bsum_safe = b_ok ? bsum : T(1);
-  const T s_term = b_ok ? YL2 * (Xm1 * Xm1) / bsum_safe : T(0);
-  const T conj = Xm1 * Xm1 + s_term;
-
-  T D_safe, under;
-  bool d_ok;
-  if (MODE > 0) {
-    const T D = Xm1 + s_term;
-    d_ok = D != T(0);
-    D_safe = d_ok ? D : T(1);
-    under = conj / D_safe;
-  } else {
-    const T D = Xm1 - T(0.5) * YT2 - beta;
-    d_ok = D != T(0);
-    D_safe = d_ok ? D : T(1);
-    const T conj_safe = conj > T(0) ? conj : T(1);
-    const T under_an =
-        (Xm1 * Xm1) * eps_u * (Xm1 + Y) / (conj_safe * D_safe);
-    under = use_an ? under_an : T(1) - X * Xm1 / D_safe;
-    d_ok = d_ok && (!use_an || conj > T(0));
-  }
-
-  const bool u_ok = (under >= T(0)) && d_ok;
-  const T mu = u_ok ? sqrt(under) : T(1);
-  const bool bb_ok = beta > T(0);
-  const T beta_safe = bb_ok ? beta : T(1);
-  const bool m_ok = u_ok && bb_ok && (mu > T(0)) && (mu <= T(1));
-  const T mu_safe = m_ok ? mu : T(1);
-
-  T Xm1_nv = Xm1, D_nv = D_safe, mu_nv = mu_safe;
-  if (MODE > 0 && use_an) {
-    Xm1_nv = T(1);
-    D_nv = T(1);
-    mu_nv = T(1);
-  }
-  const T mm = T(MODE);
-  const T dbetadX = -YL2 * Xm1_nv / beta_safe;
-  const T dDdX = T(-1) + mm * dbetadX;
-  const T dalphadY = YT * YT2 * sinp + T(2) * YL * (Xm1_nv * Xm1_nv) * cosp;
-  const T dbetadY = T(0.5) * dalphadY / beta_safe;
-  const T dDdY = -YT * sinp + mm * dbetadY;
-  T dmudY = (X * Xm1_nv * dDdY) / (T(2) * mu_nv * (D_nv * D_nv));
-  T dmudX = (T(1) / (T(2) * mu_nv * D_nv)) *
-            (T(2) * X - T(1) + X * Xm1_nv / D_nv * dDdX);
-  if (MODE > 0 && use_an) {
-    // cancellation-free expansions with X == 1 - Xm1 (see the JAX source)
-    const T cfac = b_ok ? YL2 / bsum_safe : T(0);
-    const T onepr = T(1) + cfac * Xm1;
-    const T T_st = T(-1) + cfac * (T(1) - T(2) * Xm1) -
-                   YL2 / beta_safe * (T(1) - Xm1);
-    dmudX = T_st / (T(2) * mu_safe * (onepr * onepr));
-    const T q_st = cosp - YT * sinp * YL / bsum_safe;
-    dmudY = X * YL * Xm1 * q_st /
-            (T(2) * mu_safe * beta_safe * (onepr * onepr));
-  }
-  T mup = mu - (T(2) * X * dmudX + Y * dmudY);
-  bool ok = m_ok && isfinite(mup);
-
-  // per-element isotropic fallback for unmagnetised samples
-  const bool iso_ok = Xm1 > T(0);
-  const T iso_mup = T(1) / sqrt(iso_ok ? Xm1 : T(1));
-  const bool unmag = fabs(Y) < T(1e-12);
-  mup = unmag ? (iso_ok ? iso_mup : T(0)) : (ok ? mup : T(0));
-  ok = (unmag && iso_ok) || (!unmag && ok);
-  ok_out = ok && (mup > T(0)) && (mup <= T(1e7));
-  return mup;
 }
 
 template <typename T>
@@ -299,8 +187,6 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int lane = threadIdx.x & 31;
   const int nwarps = blockDim.x >> 5;
   const T amin = *p.alt_min;
-  const T cp2 = T(kCP * kCP);
-  const T gp = T(kGP);
 
   for (int fi = f_begin + (threadIdx.x >> 5); fi < f_end; fi += nwarps) {
     const T f = p.freq[fi];
@@ -322,12 +208,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       int i0;
       T frac;
       if constexpr (UNIFORM) {
-        const T pos = span * (p.mult[q] * p.inv_dalt);
-        T fl = floor(pos);
-        fl = fl < T(0) ? T(0) : fl;
-        fl = fl > T(N - 2) ? T(N - 2) : fl;
-        i0 = (int)fl;
-        frac = clip01(pos - T(i0));
+        i0 = uniform_index(span * (p.mult[q] * p.inv_dalt), N, frac);
       } else {
         // upper_bound(alt, x) - 1, clamped to a segment [0, N-2]
         const T x = span * p.mult[q];
@@ -342,13 +223,8 @@ __global__ void __launch_bounds__(kMaxThreads)
       const T d = den[i0] + frac * dden[i0];
       const T bmv = bmg[i0] + frac * dbm[i0];
       const T bpv = bps[i0] + frac * dbp[i0];
-      const T dh = (q == p.P - 1) ? T(kDH) : span * p.dmult[q];
-      const T X = d * cp2 / ff;
-      const T Y = bmv * gp / f;
-      const T eps = sv.slope * (span * p.omm[q] + T(kDH));
-      bool ok;
-      const T mup = mup_stable<T, MODE>(X, Y, bpv, eps, sv.emax, ok);
-      acc += ok ? mup * dh : T(0);
+      acc += quad_term<T, MODE>(d, bmv, bpv, span, sv.slope, sv.emax, f, ff,
+                                p.dmult[q], p.omm[q], q, p.P);
     }
     acc = warp_sum(acc);
     if (lane == 0) p.out[o] = (sv.valid && acc != T(0)) ? acc + amin : T(NAN);

@@ -137,6 +137,13 @@ def load():
                 p, p, p, p,            # span, slope, emax, valid
                 p, d, p, p]            # alt_min, inv_dalt, out, stream
             lib.pyrayhf_ionogram.restype = ctypes.c_int
+            lib.pyrayhf_ionogram_mxu.argtypes = [
+                i, i, p, i, i, i,      # dtype, mode, tab, B, N, K1
+                p, p, p, i,            # mult, omm, dmult, P
+                p, i, i, i,            # freq, F, f_group, warps
+                p, p, p, p,            # span, slope, emax, valid
+                p, d, p, p]            # alt_min, inv_dalt, out, stream
+            lib.pyrayhf_ionogram_mxu.restype = ctypes.c_int
             lib.pyrayhf_fan2d.argtypes = [
                 i, i, p, i, i, i,      # dtype, spherical, tab, F, nz, nx
                 p, p, i, i, i,         # va0, vb0, E, n_steps, max_bounces

@@ -113,7 +113,8 @@ def vertical_forward_operator_batch(freq, den, bmag, bpsi, alt,
       in the kernel (shared, uniformly spaced grid);
     * ``"xla"`` — the plain PyTorch segment sweep (shared grid; any
       device; the gradient path of the kernels);
-    * ``"pallas_mxu"`` — not ported (raises NotImplementedError);
+    * ``"pallas_mxu"`` — the tensor-core one-hot resample kernel (shared,
+      uniformly spaced grid; same result as the host-solve gather);
     * ``"auto"`` (default) — on CUDA tensors with a shared grid:
       ``"pallas_gather"`` when the grid is uniform (f32 and f64 alike),
       else ``"pallas"``; ``"parity"`` on CPU tensors and for per-profile
@@ -140,23 +141,20 @@ def vertical_forward_operator_batch(freq, den, bmag, bpsi, alt,
             _auto_logged.add(key)
             logger.debug("engine='auto' resolved to %r (device=%s, "
                          "shared_grid=%s)", *key)
-    if engine == "pallas_mxu":
-        raise NotImplementedError(
-            "engine='pallas_mxu' (pallas_vh._kernel_mxu) is not ported yet: "
-            "ROADMAP.md Queue 2, item 6. Use engine='pallas_gather' or "
-            "'pallas'.")
-    if engine in ("pallas", "pallas_gather", "xla"):
+    if engine in ("pallas", "pallas_gather", "pallas_mxu", "xla"):
         if not shared_grid:
             raise ValueError(
                 f"engine={engine!r} requires a shared 1-D altitude grid "
                 "(per-profile [B, N_alt] grids need engine='parity')")
         from .pallas_vh import (_ionogram_gather, ionogram_fast_xla,
-                                ionogram_pallas, ionogram_pallas_gather)
+                                ionogram_pallas, ionogram_pallas_gather,
+                                ionogram_pallas_mxu)
         if inv_dalt is not None:
             return _ionogram_gather(freq, den, bmag, bpsi, alt, mm, n_points,
                                     inv_dalt)
         impl = {"pallas": ionogram_pallas,
                 "pallas_gather": ionogram_pallas_gather,
+                "pallas_mxu": ionogram_pallas_mxu,
                 "xla": ionogram_fast_xla}[engine]
         return impl(freq, den, bmag, bpsi, alt, mode_mult=mm,
                     n_points=n_points)

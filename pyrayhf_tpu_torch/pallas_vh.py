@@ -18,6 +18,12 @@ kernel (counter name) ← replaced TPU kernel; its plain PyTorch version:
 * ``sweep`` ← ``_kernel`` (solve on the host, any grid: binary-search
   index); :func:`ionogram_fast_xla`.
 
+A fifth kernel, ``mxu`` ← ``_kernel_mxu`` (``csrc/ionogram_mxu.cu``),
+computes what ``gather`` computes but does the resample as one-hot matrix
+products on the tensor cores (``mma.sync``), as the TPU kernel did on its
+matrix unit; its plain version ``_resample_mxu_plain`` does the same
+products with ``torch.matmul``.
+
 Each wrapper runs the kernel on CUDA tensors and the plain version on CPU
 tensors, and only there; on any other device it raises. ``LAUNCHES``
 counts kernel launches and ``PLAIN_CALLS`` calls of the plain versions, so
@@ -30,25 +36,26 @@ discretisation; the TPU kernels had no backward kernel either.
 """
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ._util import clip, profile_tensors
+from ._util import clip, profile_tensors, scalar_like
 from .config import resolve
 from .constants import CP, G_P
 
-__all__ = ["ionogram_pallas", "ionogram_pallas_gather", "ionogram_fast_xla",
-           "prepare_profile_tables", "uniform_inv_dalt", "LAUNCHES",
-           "PLAIN_CALLS", "reset_counters"]
+__all__ = ["ionogram_pallas", "ionogram_pallas_gather", "ionogram_pallas_mxu",
+           "ionogram_fast_xla", "prepare_profile_tables", "uniform_inv_dalt",
+           "LAUNCHES", "PLAIN_CALLS", "reset_counters"]
 
 _DH_BACKOFF = 1e-6
 _NAN = float("nan")
 _DEG2RAD = np.pi / 180.0
 
 # kernel launches / plain-version calls, by kernel name
-KERNELS = ("gather_osolve", "gather_xsolve", "gather", "sweep")
+KERNELS = ("gather_osolve", "gather_xsolve", "gather", "sweep", "mxu")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
@@ -150,7 +157,7 @@ def prepare_profile_tables(freq_hz, den, bmag, bpsi, alt, mode_mult):
     """
     B, N = den.shape
     dtype = den.dtype
-    cp2 = torch.as_tensor(CP * CP, dtype=dtype, device=den.device)
+    cp2 = scalar_like(CP * CP, den)
 
     den_t, bmag_t, bpsi_t, alt_t = _flat_extend(den, bmag, bpsi, alt)
 
@@ -330,8 +337,21 @@ def _stretched_grid_tables(n_points):
 
 def _grid_tensors(n_points, like):
     """(mult, 1−mult, Δmult) as [P] tensors in ``like``'s dtype/device."""
-    return tuple(torch.as_tensor(a, dtype=like.dtype, device=like.device)
-                 for a in _stretched_grid_tables(n_points))
+    return _grid_tensors_on(n_points, like.dtype, like.device)
+
+
+@functools.lru_cache(maxsize=64)
+def _grid_tensors_on(n_points, dtype, device):
+    # kept per (P, dtype, device), so that a loop of forward calls (the LM
+    # retrieval) copies nothing from the host; the one copy to the card
+    # goes from pinned memory without waiting for the stream
+    out = []
+    for a in _stretched_grid_tables(n_points):
+        t = torch.from_numpy(a).to(dtype)
+        if device.type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out.append(t.to(device))
+    return tuple(out)
 
 
 def ionogram_fast_xla(freq_mhz, den, bmag, bpsi, alt, mode_mult=1.0,
@@ -396,7 +416,9 @@ class KernelArgs:
     :func:`_pack_segment_table`, plus cummax(den) as channel 8 for the
     O-mode in-kernel solve). ``span``/``slope``/``emax``/``valid`` [B, F]
     are set when the solve runs outside the kernel. ``inv_dalt`` selects
-    the arithmetic index (uniform grid); None the binary search.
+    the arithmetic index (uniform grid); None the binary search. For
+    ``kind="mxu"``, ``tab`` is the one-hot table [B, 128, K1] of
+    :func:`_mxu_table` and ``n_alt`` the number of altitude nodes.
     """
     kind: str
     mode_mult: float
@@ -411,6 +433,7 @@ class KernelArgs:
     slope: Optional[torch.Tensor] = None
     emax: Optional[torch.Tensor] = None
     valid: Optional[torch.Tensor] = None
+    n_alt: Optional[int] = None
 
 
 def prepare_kernel_args(kind, freq_mhz, den, bmag, bpsi, alt, mode_mult,
@@ -431,7 +454,9 @@ def prepare_kernel_args(kind, freq_mhz, den, bmag, bpsi, alt, mode_mult,
         return KernelArgs(tab=torch.cat(chans, dim=1).contiguous(), **common)
     seg, crit, valid, slope, emax = prepare_profile_tables(
         freq_hz, den, bmag, bpsi, alt, mode_mult)
-    return KernelArgs(tab=seg.transpose(1, 2).contiguous(),
+    tab = (_mxu_table(seg) if kind == "mxu"
+           else seg.transpose(1, 2).contiguous())
+    return KernelArgs(tab=tab, n_alt=den.shape[1],
                       span=(crit - alt[0]).contiguous(),
                       slope=slope.contiguous(), emax=emax.contiguous(),
                       valid=valid.to(torch.uint8).contiguous(), **common)
@@ -446,7 +471,7 @@ def _osolve_plain(a):
     tab, f = a.tab, a.freq_hz[None, :]
     B, _, N = tab.shape
     alt_rel, den, dmax = tab[:, 0], tab[:, 2], tab[:, 8]
-    cp2 = torch.as_tensor(CP * CP, dtype=tab.dtype, device=tab.device)
+    cp2 = scalar_like(CP * CP, tab)
     inv_f2 = 1.0 / (f * f)
     thr = (f * f) / cp2
 
@@ -483,8 +508,8 @@ def _xsolve_plain(a):
     tab, f = a.tab, a.freq_hz[None, :, None]
     B, _, N = tab.shape
     alt_rel, den, bm = tab[:, 0], tab[:, 2], tab[:, 4]
-    cp2 = torch.as_tensor(CP * CP, dtype=tab.dtype, device=tab.device)
-    gp = torch.as_tensor(G_P, dtype=tab.dtype, device=tab.device)
+    cp2 = scalar_like(CP * CP, tab)
+    gp = scalar_like(G_P, tab)
     inv_f2 = 1.0 / (f * f)
     # same op ORDER as the dense path: X = (den·cp²)/f², Y = (|B|·g_p)/f
     s = den[:, None, :] * cp2 * inv_f2 + bm[:, None, :] * gp / f  # [B,F,N]
@@ -504,6 +529,30 @@ def _xsolve_plain(a):
     return span, slope, emax, valid
 
 
+def _uniform_index(pos, n_alt):
+    """Segment index and fraction on a uniform grid: ``i0 = clamp(floor(
+    pos), 0, N−2)`` (int64) and ``frac = clip(pos − i0, 0, 1)``."""
+    i0 = torch.clamp(torch.floor(pos), 0, n_alt - 2)
+    return i0.to(torch.int64), clip(pos - i0, 0.0, 1.0)
+
+
+def _quad_sum(a, sp, d, bm, bp, slope, emax):
+    """The kernels' tail on resampled [b, F, P] rows: μ' + Σ μ'·dh → [b, F].
+
+    ``sp`` is span [b, F, 1]; ``slope``/``emax`` are [b, F].
+    """
+    P = a.mult.shape[0]
+    f = a.freq_hz[None, :, None]
+    is_last = torch.arange(P, device=d.device) == P - 1
+    dh = torch.where(is_last, _DH_BACKOFF, sp * a.dmult)
+    X = d * (CP * CP) / (f * f)
+    Y = bm * G_P / f
+    eps = slope[:, :, None] * (sp * a.omm + _DH_BACKOFF)
+    mup, ok = _mu_mup_stable_tile(X, Y, bp, a.mode_mult, eps,
+                                  emax[:, :, None])
+    return torch.sum(torch.where(ok, mup * dh, 0.0), dim=2)
+
+
 def _resample_plain(a, span, slope, emax):
     """Gather resample + μ' + Σ μ'·dh on the uniform grid → ih [B, F].
 
@@ -515,31 +564,80 @@ def _resample_plain(a, span, slope, emax):
     B, _, N = tab.shape
     F, P = a.freq_hz.shape[0], a.mult.shape[0]
     mi = a.mult * a.inv_dalt
-    f = a.freq_hz[None, :, None]
-    is_last = torch.arange(P, device=tab.device) == P - 1
     step = max(1, (1 << 25) // max(1, F * P))
     out = []
     for b0 in range(0, B, step):
         sl = slice(b0, b0 + step)
         sp = span[sl][:, :, None]
-        pos = sp * mi                                        # [b, F, P]
-        i0 = torch.clamp(torch.floor(pos), 0, N - 2)
-        frac = clip(pos - i0, 0.0, 1.0)
-        idx = i0.to(torch.int64).reshape(pos.shape[0], F * P)
+        i0, frac = _uniform_index(sp * mi, N)                # [b, F, P]
+        idx = i0.reshape(i0.shape[0], F * P)
 
         def gat(c):
-            return torch.gather(tab[sl, c], 1, idx).reshape(pos.shape)
+            return torch.gather(tab[sl, c], 1, idx).reshape(i0.shape)
 
         d = gat(2) + frac * gat(3)
         bm = gat(4) + frac * gat(5)
         bp = gat(6) + frac * gat(7)
-        dh = torch.where(is_last, _DH_BACKOFF, sp * a.dmult)
-        X = d * (CP * CP) / (f * f)
-        Y = bm * G_P / f
-        eps = slope[sl][:, :, None] * (sp * a.omm + _DH_BACKOFF)
-        mup, ok = _mu_mup_stable_tile(X, Y, bp, a.mode_mult, eps,
-                                      emax[sl][:, :, None])
-        out.append(torch.sum(torch.where(ok, mup * dh, 0.0), dim=2))
+        out.append(_quad_sum(a, sp, d, bm, bp, slope[sl], emax[sl]))
+    return torch.cat(out, dim=0)
+
+
+_K2 = 16        # segment offsets per one-hot column of the mxu table
+
+
+def _mxu_table(seg):
+    """Segment table [B, N, 8] → the mxu kernel's one-hot table [B, 128, K1].
+
+    Rows are padded with zeros to K1·K2 (K1 = ⌈N/16⌉, K2 = 16), then laid
+    out so that ``T[b, q, a] = seg[b, a·16 + q//8, q%8]``: column ``a``
+    holds the 16 segment rows a·16 … a·16+15, 8 channels each (the TPU
+    kernel's pre-transposed [K2·8, K1] operand).
+    """
+    B, N, C = seg.shape
+    K1 = -(-N // _K2)
+    pad = seg.new_zeros((B, K1 * _K2 - N, C))
+    return (torch.cat([seg, pad], dim=1).reshape(B, K1, _K2 * C)
+            .transpose(1, 2).contiguous())
+
+
+def _resample_mxu_plain(a, span, slope, emax):
+    """Factorised one-hot resample + μ' + Σ μ'·dh → ih [B, F].
+
+    The mxu kernel's own way, as ``pallas_vh._kernel_mxu`` does it: with
+    ``i0 = a·16 + bb``, ``U = T[b]·onehot(a)`` ([128, K1]·[K1, F·P],
+    ``torch.matmul``), the rows of U outside the bb-th 8-row group masked
+    to zero, then the [8, 128] fold to the 8 channels of segment ``i0``.
+    Every product sums one 1·T term with zeros, so the rows are exact (on
+    the card, with TF32 matmul off). Profiles are processed in chunks so
+    that the [b, 128, F·P] products stay near 2**25 elements.
+    """
+    tab = a.tab
+    B, R, K1 = tab.shape
+    F, P = a.freq_hz.shape[0], a.mult.shape[0]
+    dev, dtype = tab.device, tab.dtype
+    mi = a.mult * a.inv_dalt
+    iota_a = torch.arange(K1, device=dev)[:, None]            # [K1, 1]
+    row_b = torch.arange(R, device=dev)[:, None] // 8          # [R, 1]
+    fold = (torch.arange(R, device=dev)[None, :] % 8
+            == torch.arange(8, device=dev)[:, None]).to(dtype)  # [8, R]
+    step = max(1, (1 << 25) // max(1, R * F * P))
+    out = []
+    for b0 in range(0, B, step):
+        sl = slice(b0, b0 + step)
+        sp = span[sl][:, :, None]
+        i0, frac = _uniform_index(sp * mi, a.n_alt)          # [b, F, P]
+        nb = i0.shape[0]
+        i0 = i0.reshape(nb, 1, F * P)
+        ai = torch.div(i0, _K2, rounding_mode="floor")
+        bi = i0 - ai * _K2
+        onehot = (iota_a == ai).to(dtype)                     # [b, K1, FP]
+        U = torch.matmul(tab[sl], onehot)                     # [b, R, FP]
+        w = (row_b == bi).to(dtype)
+        out8 = torch.matmul(fold, w * U).reshape(nb, 8, F, P)
+        d = out8[:, 2] + frac * out8[:, 3]
+        bm = out8[:, 4] + frac * out8[:, 5]
+        bp = out8[:, 6] + frac * out8[:, 7]
+        out.append(_quad_sum(a, sp, d, bm, bp, slope[sl], emax[sl]))
     return torch.cat(out, dim=0)
 
 
@@ -554,12 +652,13 @@ def plain_ionogram(a):
         span, slope, emax, valid = _osolve_plain(a)
     elif a.kind == "gather_xsolve":
         span, slope, emax, valid = _xsolve_plain(a)
-    elif a.kind == "gather":
+    elif a.kind in ("gather", "mxu"):
         span, slope, emax, valid = a.span, a.slope, a.emax, a.valid != 0
     else:
         raise ValueError(f"no prepared-args plain version for {a.kind!r} "
                          "(the sweep's plain version is ionogram_fast_xla)")
-    ih = _resample_plain(a, span, slope, emax)
+    resample = _resample_mxu_plain if a.kind == "mxu" else _resample_plain
+    ih = resample(a, span, slope, emax)
     return torch.where(valid & (ih != 0.0), ih + a.alt_min, _NAN)
 
 
@@ -637,6 +736,70 @@ def launch_kernel(a):
     return out
 
 
+def mxu_smem_bytes(K1, itemsize, warps=_WARPS):
+    """Dynamic shared memory of one ``csrc/ionogram_mxu.cu`` block: the
+    [128, K1P + 4] table (three TF32 parts in f32, one plane in f64,
+    K1P = K1 rounded up to 8) and 6 × 32 values of scratch per warp."""
+    K1P = -(-K1 // 8) * 8
+    parts = 3 if itemsize == 4 else 1
+    return itemsize * (parts * 8 * _K2 * (K1P + 4) + warps * 6 * 32)
+
+
+def launch_mxu(a):
+    """Launch ``csrc/ionogram_mxu.cu`` for prepared mxu args; returns vh
+    [B, F].
+
+    Checks device, dtype, contiguity and the shared memory of one block,
+    launches on the current stream, and raises on any CUDA error the launch
+    reports.
+    """
+    from . import cuda_ext
+
+    tab = a.tab
+    dtype, dev = tab.dtype, tab.device
+    if a.kind != "mxu":
+        raise ValueError(f"launch_mxu needs mxu args, got {a.kind!r}")
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"unsupported dtype {dtype}")
+    if a.inv_dalt is None:
+        raise ValueError("the mxu kernel needs a uniform grid")
+    B, R, K1 = tab.shape
+    N = a.n_alt
+    F, P = a.freq_hz.shape[0], a.mult.shape[0]
+    if R != 8 * _K2 or K1 != -(-N // _K2) or N < 2 or F == 0 or B == 0:
+        raise ValueError(f"bad mxu table {tuple(tab.shape)} for N={N}, "
+                         f"B={B}, F={F}")
+    for t in (tab, a.freq_hz, a.mult, a.omm, a.dmult, a.alt_min, a.span,
+              a.slope, a.emax):
+        if t.dtype != dtype or t.device != dev or not t.is_contiguous():
+            raise ValueError("kernel operands must share dtype and device "
+                             "and be contiguous")
+    smem = mxu_smem_bytes(K1, tab.element_size())
+    if smem > cuda_ext.MAX_SMEM_BYTES:
+        raise ValueError(f"mxu table of {smem} bytes exceeds the "
+                         f"{cuda_ext.MAX_SMEM_BYTES}-byte shared memory of "
+                         "one block (N_alt too large)")
+    out = torch.empty((B, F), dtype=dtype, device=dev)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    f_group, warps = launch_shape(B, F, n_sm)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = cuda_ext.load().pyrayhf_ionogram_mxu(
+            0 if dtype == torch.float32 else 1,
+            1 if a.mode_mult > 0 else -1, tab.data_ptr(), B, N, K1,
+            a.mult.data_ptr(), a.omm.data_ptr(), a.dmult.data_ptr(), P,
+            a.freq_hz.data_ptr(), F, f_group, warps, a.span.data_ptr(),
+            a.slope.data_ptr(), a.emax.data_ptr(), a.valid.data_ptr(),
+            a.alt_min.data_ptr(), float(a.inv_dalt), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"mxu ionogram kernel launch failed: "
+                           f"{cuda_ext.error_string(err)} ({err})")
+    LAUNCHES["mxu"] += 1
+    return out
+
+
 # --------------------------------------------------------------------------
 # Public wrappers and the autograd rule
 # --------------------------------------------------------------------------
@@ -656,7 +819,9 @@ def _run(cfg, freq_mhz, den, bmag, bpsi, alt):
     inv_dalt = None if kind == "sweep" else cfg["inv_dalt"]
     a = prepare_kernel_args(kind, freq_mhz, den, bmag, bpsi, alt, mm, P,
                             inv_dalt)
-    return launch_kernel(a) if dev == "cuda" else plain_ionogram(a)
+    if dev == "cpu":
+        return plain_ionogram(a)
+    return launch_mxu(a) if kind == "mxu" else launch_kernel(a)
 
 
 class _PallasAD(torch.autograd.Function):
@@ -755,5 +920,34 @@ def ionogram_pallas(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
     n_points = resolve(config, "n_points", n_points, 200)
     cfg = dict(kind="sweep", mode_mult=mode_mult, n_points=n_points,
                inv_dalt=None, interpret=bool(interpret))
+    return _PallasAD.apply(cfg, *profile_tensors(freq_mhz, den, bmag, bpsi,
+                                                 alt, device=device))
+
+
+def ionogram_pallas_mxu(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
+                        n_points=None, p_chunk=None, interpret=False,
+                        f_tile=32, b_tile=4, config=None, device=None):
+    """Tensor-core one-hot ionogram synthesis: [B, N_alt] → [B, F] vh.
+
+    ``engine="pallas_mxu"``. Same discretisation and result as the host-
+    solve gather (:func:`ionogram_pallas_gather` with
+    ``x_in_kernel_solve=False``), but the resample of each grid point's
+    segment row runs as factorised one-hot matrix products on the tensor
+    cores (``csrc/ionogram_mxu.cu``, kernel ``mxu``), the counterpart of the
+    JAX package's MXU kernel; on CPU tensors its plain version does the
+    same products with ``torch.matmul``. Requires a uniformly spaced shared
+    altitude grid (raises otherwise). ``config`` supplies mode (as ±1
+    mode_mult) and n_points when not explicit; ``p_chunk``, ``f_tile`` and
+    ``b_tile`` are the TPU kernel's tiling knobs, accepted and unused.
+    Differentiable through :class:`_PallasAD`. Host arrays go to the CUDA
+    card unless ``device`` says otherwise (``device="cpu"``).
+    """
+    inv_dalt = uniform_inv_dalt(alt)
+    if inv_dalt is None:
+        raise ValueError("ionogram_pallas_mxu requires a uniformly spaced "
+                         "altitude grid (use ionogram_pallas)")
+    cfg = dict(kind="mxu", mode_mult=_mode_mult(mode_mult, config),
+               n_points=resolve(config, "n_points", n_points, 200),
+               inv_dalt=inv_dalt, interpret=bool(interpret))
     return _PallasAD.apply(cfg, *profile_tensors(freq_mhz, den, bmag, bpsi,
                                                  alt, device=device))

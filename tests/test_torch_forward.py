@@ -178,8 +178,10 @@ def test_kernel_engines_on_cpu_run_plain_versions():
 
 def test_engine_errors():
     args = [_t(a) for a in _workload(B=2)]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2"):
-        TF.vertical_forward_operator_batch(*args, engine="pallas_mxu")
+    alt_nu = args[4] + 0.01 * torch.linspace(0.0, 5.0, args[4].shape[0]) ** 2
+    with pytest.raises(ValueError, match="uniform"):
+        TF.vertical_forward_operator_batch(*args[:4], alt_nu,
+                                           engine="pallas_mxu")
     alt_b = args[4].expand(2, -1)
     with pytest.raises(ValueError, match="shared 1-D altitude grid"):
         TF.vertical_forward_operator_batch(*args[:4], alt_b,

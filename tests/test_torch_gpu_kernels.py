@@ -4,8 +4,9 @@ Marked ``gpu``: they need a CUDA device and ``nvcc`` (the kernels are
 built at first use) and skip without a card. Run them on the card with
 ``python -m pytest tests/test_torch_gpu_kernels.py -q -m gpu``.
 Tolerances: f64 identical NaN masks and ≤ 1e-6 km; f32 within 0.1 km of
-the f64 plain result (the accuracy contract). The ray-fan kernel: f64
-identical status codes and landing masks, rtol 1e-8, atol 1e-10.
+the f64 plain result (the accuracy contract); the mxu kernel against
+kernel 3 ≤ 1e-9 km in f64. The ray-fan kernel: f64 identical status codes
+and landing masks, rtol 1e-8, atol 1e-10.
 """
 
 import numpy as np
@@ -112,6 +113,77 @@ def test_numpy_lands_on_the_card(cuda):
     assert vh.device.type == "cuda" and vh.dtype == torch.float64
     assert TV.LAUNCHES["gather_osolve"] == 1
     assert sum(TV.PLAIN_CALLS.values()) == 0
+
+
+@pytest.mark.parametrize("mode_mult", [1.0, -1.0])
+@pytest.mark.parametrize("n_points", [200, 2000])
+@pytest.mark.parametrize("two_peak", [False, True])
+def test_mxu_kernel_matches_plain_and_kernel3(cuda, mode_mult, n_points,
+                                              two_peak):
+    """The tensor-core one-hot kernel against its plain version (f64
+    identical NaN masks and ≤ 1e-6 km; f32 within 0.1 km of plain f64) and
+    against kernel 3 (``gather``, the same function by a direct load) on
+    the same prepared inputs: identical masks, ≤ 1e-9 km in f64."""
+    args = _case(two_peak)
+    inv = TV.uniform_inv_dalt(args[4])
+
+    def prep(kind, dtype):
+        t = [torch.as_tensor(a, dtype=dtype, device=cuda) for a in args]
+        return TV.prepare_kernel_args(kind, *t, mode_mult, n_points, inv)
+
+    TV.reset_counters()
+    a64 = prep("mxu", torch.float64)
+    k64 = TV.launch_mxu(a64).cpu().numpy()
+    k32 = TV.launch_mxu(prep("mxu", torch.float32)).double().cpu().numpy()
+    assert TV.LAUNCHES["mxu"] == 2
+    ref = TV.plain_ionogram(a64).cpu().numpy()
+    g64 = TV.launch_kernel(prep("gather", torch.float64)).cpu().numpy()
+    assert np.array_equal(np.isnan(k64), np.isnan(ref))
+    assert np.array_equal(np.isnan(k64), np.isnan(g64))
+    m = np.isfinite(ref)
+    m[:, 0] = False                        # sub-gyro row: NaN pattern only
+    assert np.abs(k64[m] - ref[m]).max() <= 1e-6
+    assert np.abs(k64[m] - g64[m]).max() <= 1e-9
+    m32 = m & np.isfinite(k32)
+    assert np.abs(k32[m32] - ref[m32]).max() <= 0.1
+
+
+def test_engine_pallas_mxu_launches_on_numpy_input(cuda):
+    """numpy input with ``engine="pallas_mxu"`` lands on the card and
+    launches the mxu kernel; no plain version runs."""
+    from pyrayhf_tpu_torch.forward import vertical_forward_operator_batch
+    TV.reset_counters()
+    vh = vertical_forward_operator_batch(*_case(True), mode="X",
+                                         engine="pallas_mxu")
+    assert vh.device.type == "cuda" and vh.dtype == torch.float64
+    assert TV.LAUNCHES["mxu"] == 1
+    assert sum(TV.PLAIN_CALLS.values()) == 0
+
+
+def test_lm_retrieval_on_the_card_equals_the_cpu(cuda):
+    """A short batched LM retrieval (f64) on the card equals the same call
+    on the CPU: the fits within rtol 1e-8 (the same accept decisions; the
+    sweep and the normal equations sum in another order)."""
+    from pyrayhf_tpu_torch.retrieval import retrieve_gradient_batch
+    alt = np.linspace(80.0, 699.0, 310)
+    freq = np.arange(2.0, 12.01, 0.5)
+    F1 = {"Nm": 7.80902301e+11, "P": 0.91422852, "hm": 219.26637887}
+    E = {"Nm": 1.2846662e+11, "hm": 110.0, "B_bot": 5.0, "B_top": 7.0}
+    bmag, bpsi = np.full(alt.size, 3e-5), np.full(alt.size, 70.0)
+    from pyrayhf_tpu_torch.retrieval import model_VH
+    truths = [(340.0, 42.0), (360.0, 47.0)]
+    obs = np.stack([model_VH({"Nm": 1.5e12, "hm": h, "B_bot": b,
+                              "B_top": 40.0}, F1, E, freq, alt, bmag, bpsi,
+                             device="cpu")[0].numpy() for h, b in truths])
+    guess = {"Nm": 1.5e12, "hm": np.array([330.0, 350.0]),
+             "B_bot": np.array([45.0, 44.0]), "B_top": 40.0}
+    fits = [retrieve_gradient_batch(guess, F1, E, freq, obs, alt, bmag,
+                                    bpsi, steps=3, retries=0, device=dev)
+            for dev in ("cpu", cuda)]
+    assert fits[1][0].device.type == "cuda"
+    for k in ("hm", "B_bot", "Nm"):
+        np.testing.assert_allclose(fits[1][2][k], fits[0][2][k], rtol=1e-8)
+    np.testing.assert_allclose(fits[1][3], fits[0][3], rtol=1e-8)
 
 
 def _fan_case(mode):
