@@ -41,11 +41,14 @@ failure:
    launched through its wrapper ``fan_2d_pallas``, against its plain
    version on the same fields, on the card: f64 (identical status codes
    and landing masks, rtol 1e-8, atol 1e-10) on both geometries, 2-hop X
-   and the 621×800 field, and f32 on those and 621×800 spherical; the f32
-   kernel's landing mask against plain f64; the main path's fans equal to
-   those f32 launches; timing of the kernel, the whole fan call and the
-   plain version, each kernel time beside a bound that counts the table
-   bytes the rays of this run need;
+   and the 621×800 field, and f32 on those and 621×800 spherical, which
+   runs both of the kernel's paths (512×32 f32 tables in shared memory,
+   the others from global memory); the f32 kernel's landing mask against
+   plain f64; the main path's fans equal to those f32 launches; timing of
+   the kernel, the whole fan call and the plain version, each kernel time
+   beside a bound that counts the table bytes the rays of this run need,
+   with the fan's maximum and mean steps taken and the time per step of
+   the longest ray;
 8. the tensor-core one-hot kernel (``csrc/ionogram_mxu.cu``): its main
    path, counters zeroed first and read after — ``vertical_forward_
    operator_batch(engine="pallas_mxu")`` O and X, f32, at O-200 B=1024
@@ -462,7 +465,9 @@ def fan_phase(torch, prt, dev, card):
         torch.cuda.synchronize()
         info = dict(plain_ms=start.elapsed_time(end),
                     needed_bytes=needed_bytes(geo, p, tab.element_size()),
-                    nan_mu=int(torch.isnan(tab[:, 0]).sum()), kernel=k)
+                    nan_mu=int(torch.isnan(
+                        pr.table_views(geo, tab)[0][..., 0]).sum()),
+                    path=pr.fan_path(geo, dtype), kernel=k)
         return ({key: v.double().cpu().numpy() for key, v in k.items()},
                 {key: p[key].double().cpu().numpy() for key in pr.OUTPUTS},
                 info)
@@ -500,7 +505,8 @@ def fan_phase(torch, prt, dev, card):
         st, lm, dr, rel, over, frac = diff(k, p)
         frozen_bad = int(((p["status_code"] == 0)
                           & (p["steps_taken"] < n_steps)).sum())
-        print(f"  {name}: status equal {st}, landing equal {lm} ({frac:.3f} "
+        print(f"  {name} ({info['path']} path): status equal {st}, landing "
+              f"equal {lm} ({frac:.3f} "
               f"landed), max|d range| {dr:.3e} km, max rel diff {rel:.3e}, "
               f"{over} values over the bound; NaN-mu table nodes "
               f"{info['nan_mu']}, rays frozen on a non-finite state "
@@ -512,15 +518,16 @@ def fan_phase(torch, prt, dev, card):
     print("fan kernel (through fan_2d_pallas) vs plain version on the card, "
           "f32; the landing mask of the f32 kernel against plain f64; the "
           "main path's fan against the same launch", flush=True)
-    f32, needed, plain32_ms = {}, {}, {}
+    f32, needed, plain32_ms, paths32 = {}, {}, {}, set()
     for name in F32_CASES:
         k, p, info = run(name, torch.float32)
+        paths32.add(info["path"])
         needed[name], plain32_ms[name] = info["needed_bytes"], info["plain_ms"]
         st, lm, dr, rel, _, _ = diff(k, p)
         steps_eq = np.array_equal(k["steps_taken"], p["steps_taken"])
         agree32 = float((k["status_code"] == p["status_code"]).mean())
         row = dict(status_agree_f32=agree32, max_drange_f32=dr,
-                   max_rel_f32=rel)
+                   max_rel_f32=rel, path=info["path"])
         note = ""
         if name in plain64:
             lk = np.isfinite(k["ground_range_km"])
@@ -542,13 +549,16 @@ def fan_phase(torch, prt, dev, card):
                   "checked launch on the same fields")
             note += "; main path's fan identical to this launch"
         f32[name] = row
-        print(f"  {name}: f32 kernel vs f32 plain: status agreement "
+        print(f"  {name} ({info['path']} path): f32 kernel vs f32 plain: "
+              f"status agreement "
               f"{agree32:.5f}, landing equal {lm}, steps equal {steps_eq}, "
               f"max|d range| {dr:.4e} km on rays landed in both, max rel "
               f"diff {rel:.3e} (bound {FAN_F32_RTOL:g}){note}; plain "
               f"{info['plain_ms']:.1f} ms", flush=True)
         check(st and lm and steps_eq and rel <= FAN_F32_RTOL,
               f"{name}: f32 kernel vs f32 plain")
+    check(paths32 == {"shared", "global"},
+          f"the f32 checks ran the kernel's paths {paths32}, not both")
 
     # ---- timing -------------------------------------------------------
     print(f"fan timing: median of {TIMING_ITERS} launches after 3 warm-up "
@@ -565,22 +575,31 @@ def fan_phase(torch, prt, dev, card):
             return pr.launch_fan(geo, tab, elevs, ds, n_steps=n_steps)
 
         ms, _ = profiling.time_launch(launch, iters=TIMING_ITERS)
-        out = launch()
-        steps = float(out["steps_taken"].double().sum())
+        taken = launch()["steps_taken"].double()
+        steps = float(taken.sum())
         ops = steps * FAN_OPS_STEP[geom]
         nbytes = needed[name] + (elevs.numel() + len(pr.OUTPUTS) * FAN_F
                                  * FAN_E) * 4
         b_ms, b_by = bound_ms(ops, nbytes, "float32")
+        # the longest ray is a serial chain: its time per step
+        max_steps, mean_steps = float(taken.max()), float(taken.mean())
         rows[name] = dict(ms=ms, rays_per_s=FAN_F * FAN_E / (ms * 1e-3),
                           steps=steps, bound_ms=b_ms, bound_by=b_by,
                           table_mb=tab.numel() * 4 / 1e6,
-                          needed_mb=needed[name] / 1e6)
-        print(f"  kernel {kind} {geom} O: {ms:.4f} ms "
+                          needed_mb=needed[name] / 1e6,
+                          max_steps=max_steps, mean_steps=mean_steps,
+                          us_per_step=1e3 * ms / max_steps,
+                          block=pr._BLOCK,
+                          path=pr.fan_path(geo, torch.float32))
+        print(f"  kernel {kind} {geom} O ({rows[name]['path']} path, "
+              f"blocks of {pr._BLOCK} rays): {ms:.4f} ms "
               f"({rows[name]['rays_per_s']:.4e} rays/s); steps taken "
               f"{steps:.0f} of {FAN_F * FAN_E * n_steps} ({ops:.4e} ops), "
-              f"tables {rows[name]['table_mb']:.1f} MB of which the rays "
-              f"need {rows[name]['needed_mb']:.2f} MB, bound {b_ms:.4f} ms "
-              f"({b_by})", flush=True)
+              f"max {max_steps:.0f}, mean {mean_steps:.1f}, "
+              f"{rows[name]['us_per_step']:.4f} us per step of the longest "
+              f"ray; tables {rows[name]['table_mb']:.1f} MB of which the "
+              f"rays need {rows[name]['needed_mb']:.2f} MB, bound "
+              f"{b_ms:.4f} ms ({b_by})", flush=True)
     z, x, ne, babs, bpsi, nu = fan_scene("typical")
     fan = oblique._fan_2d_fn(z, x, "O", "cartesian", FAN_E, n_steps, 1)
     fan_args = (T(f0s), T([5.0, 85.0]), T(ne), T(babs), T(bpsi), T(nu),
@@ -611,10 +630,12 @@ def fan_phase(torch, prt, dev, card):
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": None, "fan_2d_fn_ms": call_ms,
         "fields_ms": fields_ms, "pack_ms": pack_ms,
-        "rays_per_s": r["rays_per_s"],
-        "timing": {k: {"ms": v["ms"], "bound_ms": v["bound_ms"],
-                       "bound_by": v["bound_by"],
-                       "needed_mb": v["needed_mb"]} for k, v in rows.items()},
+        "rays_per_s": r["rays_per_s"], "max_steps": r["max_steps"],
+        "mean_steps": r["mean_steps"], "us_per_step": r["us_per_step"],
+        "block": r["block"], "path": r["path"],
+        "timing": {k: {key: v[key] for key in (
+            "ms", "bound_ms", "bound_by", "needed_mb", "max_steps",
+            "mean_steps", "us_per_step", "path")} for k, v in rows.items()},
         "shape": f"F={FAN_F} E={FAN_E} steps={n_steps} 512x32 cartesian "
                  f"f32"}
 
@@ -1119,7 +1140,7 @@ def main():
     so, compile_s = cuda_ext.build()
     cuda_ext.load()
     regs = [ln.strip() for ln in cuda_ext.build_log().splitlines()
-            if "registers" in ln]
+            if "registers" in ln or "spill" in ln]
     print(f"build: {so.name}: nvcc {compile_s:.2f} s, build+load "
           f"{time.perf_counter() - t0:.2f} s; ptxas: "
           f"{'; '.join(sorted(set(regs)))}", flush=True)

@@ -145,7 +145,8 @@ def load():
                 p, d, p, p]            # alt_min, inv_dalt, out, stream
             lib.pyrayhf_ionogram_mxu.restype = ctypes.c_int
             lib.pyrayhf_fan2d.argtypes = [
-                i, i, p, i, i, i,      # dtype, spherical, tab, F, nz, nx
+                i, i, i,               # dtype, spherical, shared memory
+                p, i, i, i,            # tab, F, nz, nx
                 p, p, i, i, i,         # va0, vb0, E, n_steps, max_bounces
                 ctypes.POINTER(d),     # 16 scalars (see csrc/fan2d.cu)
                 p, i, p]               # out, block, stream

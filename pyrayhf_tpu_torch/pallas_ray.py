@@ -3,9 +3,11 @@
 Port of ``pyrayhf_tpu.pallas_ray``. The TPU kernel (``_fan_kernel``)
 integrates a whole [F, E] (frequency × elevation) fan of gradient-ODE rays
 with fixed-step RK4 inside one Pallas program, its field tables resident
-in VMEM. Here it is ``csrc/fan2d.cu``: one CUDA thread per ray, the
-per-frequency tables in device memory (channel-major [F, 5, nz, nx]:
-μ, ∂μ/∂c0, ∂μ/∂c1, μ', κ), read through the read-only cache.
+in VMEM. Here it is ``csrc/fan2d.cu``: one CUDA thread per ray, blocks of
+``_BLOCK`` rays of one frequency, the tables node-major in device memory
+(one (μ, ∂μ/∂c0, ∂μ/∂c1, μ') record per node, then a κ plane); where one
+frequency's (μ, ∂μ/∂c0, ∂μ/∂c1) fit in shared memory, each block stages
+them there (:func:`fan_path`).
 
 * :func:`pack_tables` builds those tables from the [F, nz, nx] fields, the
   gradients taken on the uniform axes rebuilt from origin and spacing, as
@@ -30,14 +32,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import cuda_ext
 from ._util import host_f64
 from .constants import R_E
 from .fields import RefractiveField, _mup_function, gradient_ord2, \
     uniform_axis
 
 __all__ = ["fan_2d_pallas", "fan_2d_pallas_available", "plain_fan",
-           "launch_fan", "pack_tables", "fan_geometry", "OUTPUTS",
-           "LAUNCHES", "PLAIN_CALLS", "reset_counters"]
+           "launch_fan", "pack_tables", "table_views", "fan_path",
+           "fan_geometry", "OUTPUTS", "LAUNCHES", "PLAIN_CALLS",
+           "reset_counters"]
 
 KERNELS = ("fan_2d",)
 LAUNCHES = dict.fromkeys(KERNELS, 0)
@@ -49,7 +53,8 @@ OUTPUTS = ("ground_range_km", "group_delay_sec", "absorption_db",
            "group_path_km", "phase_path_km", "status_code", "x_final_km",
            "z_final_km", "steps_taken")
 _CHANNELS = 5                    # μ, ∂μ/∂c0, ∂μ/∂c1, μ', κ
-_BLOCK = 128                     # rays (threads) per block
+_RECORD = 4                      # μ, ∂μ/∂c0, ∂μ/∂c1, μ' per node
+_BLOCK = 64                      # rays (threads) per block, csrc kBlock
 
 
 def reset_counters():
@@ -125,11 +130,13 @@ def fan_geometry(z_np, x_np, geometry):
 
 
 def pack_tables(geo, mu_f, mup_f, kappa_f):
-    """[F, nz, nx] fields → contiguous [F, 5, nz, nx] kernel tables.
+    """[F, nz, nx] fields → the kernel's node-major tables, one flat tensor.
 
-    The gradient channels are ``gradient_ord2`` of μ on the uniform native
-    axes rebuilt as o + i/inv_d in the working dtype, as the JAX host side
-    builds them.
+    The first F·nz·nx·4 elements are one record per node, [F, nz, nx, 4]:
+    (μ, ∂μ/∂c0, ∂μ/∂c1, μ'), 16 bytes in f32; then κ, [F, nz, nx].
+    :func:`table_views` gives the two parts. The gradient channels are
+    ``gradient_ord2`` of μ on the uniform native axes rebuilt as
+    o + i/inv_d in the working dtype, as the JAX host side builds them.
     """
     kw = dict(dtype=mu_f.dtype, device=mu_f.device)
     c0_ax = (torch.tensor(geo.o0, **kw) + torch.arange(geo.nz, **kw)
@@ -137,7 +144,37 @@ def pack_tables(geo, mu_f, mup_f, kappa_f):
     c1_ax = (torch.tensor(geo.o1, **kw) + torch.arange(geo.nx, **kw)
              / torch.tensor(geo.inv_d1, **kw))
     g0, g1 = gradient_ord2(mu_f, c0_ax, c1_ax)
-    return torch.stack([mu_f, g0, g1, mup_f, kappa_f], dim=1).contiguous()
+    tab = torch.empty(_CHANNELS * mu_f.numel(), **kw)
+    rec, kap = table_views(geo, tab)
+    torch.stack([mu_f, g0, g1, mup_f], dim=-1, out=rec)
+    kap.copy_(kappa_f)
+    return tab
+
+
+def table_views(geo, tab):
+    """The two parts of :func:`pack_tables`' tensor, as views: the records
+    [F, nz, nx, 4] (μ, ∂μ/∂c0, ∂μ/∂c1, μ' along the last axis) and κ
+    [F, nz, nx]."""
+    plane = geo.nz * geo.nx
+    if (tab.dim() != 1 or tab.numel() == 0
+            or tab.numel() % (_CHANNELS * plane)):
+        raise ValueError(f"tables must be 1-D with a multiple of "
+                         f"{_CHANNELS}·{geo.nz}·{geo.nx} elements, got "
+                         f"{tuple(tab.shape)}")
+    F = tab.numel() // (_CHANNELS * plane)
+    n_rec = F * plane * _RECORD
+    return (tab[:n_rec].view(F, geo.nz, geo.nx, _RECORD),
+            tab[n_rec:].view(F, geo.nz, geo.nx))
+
+
+def fan_path(geo, dtype):
+    """The kernel's path for these tables: ``"shared"`` where one
+    frequency's (μ, ∂μ/∂c0, ∂μ/∂c1) fit in a block's shared memory (each
+    block stages them there, in rows of an odd stride nx | 1), else
+    ``"global"`` (read from the records)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return ("shared" if 3 * geo.nz * (geo.nx | 1) * itemsize
+            <= cuda_ext.MAX_SMEM_BYTES else "global")
 
 
 def plain_fan(geo, tab, elevs, ds, *, n_steps, n_hops=1, x0=0.0, z0=None,
@@ -145,8 +182,9 @@ def plain_fan(geo, tab, elevs, ds, *, n_steps, n_hops=1, x0=0.0, z0=None,
     """The kernel's plain PyTorch version on the packed tables.
 
     The batched fixed-step fan of :mod:`.gradient` (its integrator and
-    metrics), with fields read from ``tab`` [F, 5, nz, nx] through the
-    uniform locate. ``elevs`` [E] deg, ``ds`` a 0-d tensor (km). Returns
+    metrics), with fields read from the channels of ``tab`` (see
+    :func:`pack_tables`) through the uniform locate. ``elevs`` [E] deg,
+    ``ds`` a 0-d tensor (km). Returns
     the dict of :data:`OUTPUTS`, each [F, E], on any device; with
     ``paths`` also ``c0_path`` and ``c1_path`` [F, E, n_steps + 1], the
     rays' step points in the tables' native coordinates.
@@ -154,15 +192,19 @@ def plain_fan(geo, tab, elevs, ds, *, n_steps, n_hops=1, x0=0.0, z0=None,
     from .gradient import _cart_gradient_core, _sph_gradient_core
     PLAIN_CALLS["fan_2d"] += 1
     z0 = float(geo.z[0]) if z0 is None else float(z0)
-    F, E = tab.shape[0], elevs.shape[0]
+    rec, kap = table_views(geo, tab)
+    F, E = rec.shape[0], elevs.shape[0]
+    # each channel copied out of the records once, so that the per-step
+    # gathers read contiguous planes
+    ch = [rec[..., c].contiguous() for c in range(_RECORD)]
 
-    def field(c, grads=None):
-        return RefractiveField(geo.z, geo.x, tab[:, c], geometry=geo.geometry,
+    def field(f, grads=None):
+        return RefractiveField(geo.z, geo.x, f, geometry=geo.geometry,
                                grads=grads)
 
-    mu = field(0, grads=(tab[:, 1], tab[:, 2]))
-    mupf = _mup_function(field(3))
-    kapf = _mup_function(field(4))
+    mu = field(ch[0], grads=(ch[1], ch[2]))
+    mupf = _mup_function(field(ch[3]))
+    kapf = _mup_function(field(kap))
     el = elevs.expand(F, E)
     x0 = float(x0)
     if geo.geometry == "cartesian":
@@ -202,10 +244,10 @@ def plain_fan(geo, tab, elevs, ds, *, n_steps, n_hops=1, x0=0.0, z0=None,
 def launch_fan(geo, tab, elevs, ds, *, n_steps, n_hops=1, x0=0.0, z0=None):
     """Launch ``csrc/fan2d.cu`` on prepared tables; returns the output dict.
 
-    Checks device, dtype, shape and contiguity, launches on the current
-    stream and raises on any CUDA error the launch reports.
+    Checks device, dtype, shape, contiguity and alignment, picks the path
+    by table size (:func:`fan_path`), launches on the current stream and
+    raises on any CUDA error the launch reports.
     """
-    from . import cuda_ext
     from .gradient import _launch_direction
 
     dtype, dev = tab.dtype, tab.device
@@ -213,12 +255,11 @@ def launch_fan(geo, tab, elevs, ds, *, n_steps, n_hops=1, x0=0.0, z0=None):
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"unsupported dtype {dtype}")
-    F = tab.shape[0]
+    F = table_views(geo, tab)[1].shape[0]
     E = elevs.shape[0]
-    if (tuple(tab.shape) != (F, _CHANNELS, geo.nz, geo.nx)
-            or not tab.is_contiguous()):
-        raise ValueError(f"tables must be contiguous [F, {_CHANNELS}, "
-                         f"{geo.nz}, {geo.nx}], got {tuple(tab.shape)}")
+    if not tab.is_contiguous() or tab.data_ptr() % 16:
+        raise ValueError("tables must be contiguous and 16-byte aligned, "
+                         "as pack_tables makes them")
     if (elevs.dtype != dtype or elevs.device != dev or elevs.dim() != 1
             or not elevs.is_contiguous()):
         raise ValueError("elevations must be a contiguous 1-D tensor in the "
@@ -243,6 +284,7 @@ def launch_fan(geo, tab, elevs, ds, *, n_steps, n_hops=1, x0=0.0, z0=None):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = cuda_ext.load().pyrayhf_fan2d(
             0 if dtype == torch.float32 else 1, int(sph),
+            int(fan_path(geo, dtype) == "shared"),
             tab.data_ptr(), F, geo.nz, geo.nx, va0.data_ptr(),
             vb0.data_ptr(), E, int(n_steps), int(n_hops) - 1, scalars,
             out.data_ptr(), _BLOCK, stream)

@@ -6,8 +6,14 @@ built at first use) and skip without a card. Run them on the card with
 Tolerances: f64 identical NaN masks and ≤ 1e-6 km; f32 within 0.1 km of
 the f64 plain result (the accuracy contract); the mxu kernel against
 kernel 3 ≤ 1e-9 km in f64. The ray-fan kernel: f64 identical status codes
-and landing masks, rtol 1e-8, atol 1e-10.
+and landing masks, rtol 1e-8, atol 1e-10; f32 identical status codes,
+landing masks and step counts, rtol 1e-4, atol 1e-6 (the four path sums
+add in another order in the plain version); the kernel's paired f32
+division bit for bit the IEEE one.
 """
+
+import ctypes
+import subprocess
 
 import numpy as np
 import pytest
@@ -186,17 +192,18 @@ def test_lm_retrieval_on_the_card_equals_the_cpu(cuda):
     np.testing.assert_allclose(fits[1][3], fits[0][3], rtol=1e-8)
 
 
-def _fan_case(mode):
-    """tests/test_pallas_ray.py's small scene, as packed kernel tables."""
+def _fan_case(mode, nz=101, nx=17, freqs=(5e6, 9e6), dtype=torch.float64):
+    """tests/test_pallas_ray.py's small scene (on an nz × nx grid): the
+    host grids and the [F, nz, nx] μ, μ', κ on the card."""
     from pyrayhf_tpu_torch import oblique
-    z = np.linspace(0.0, 400.0, 101)
-    x = np.linspace(0.0, 2000.0, 17)
+    z = np.linspace(0.0, 400.0, nz)
+    x = np.linspace(0.0, 2000.0, nx)
     h = (z[:, None] - 250.0) / 45.0
     ne = 8.0e11 * (1.0 + 0.15 * (x[None, :] / x[-1] - 0.5)) * np.exp(
         0.5 * (1.0 - h - np.exp(-h)))
     nu = 1e7 * np.exp(-(z - 70.0) / 8.0)
-    t = [torch.as_tensor(a, dtype=torch.float64, device="cuda")
-         for a in ([5e6, 9e6], ne, np.full(ne.shape, 4.5e-5),
+    t = [torch.as_tensor(a, dtype=dtype, device="cuda")
+         for a in (list(freqs), ne, np.full(ne.shape, 4.5e-5),
                    np.full(ne.shape, np.deg2rad(30.0)), nu)]
     return z, x, oblique._fan_fields(*t, mode)
 
@@ -225,6 +232,141 @@ def test_fan_kernel_matches_plain(cuda, geometry, mode, n_hops):
     for key in TR.OUTPUTS:
         assert torch.allclose(k[key], p[key], rtol=1e-8, atol=1e-10,
                               equal_nan=True), key
+
+
+# the kernel's two paths: 101 x 17 tables fit a block's shared memory in
+# f32 and f64, 401 x 61 in neither
+FAN_PATHS = {"shared": (101, 17), "global": (401, 61)}
+# (geometry, mode, n_hops, frequencies, E): an E that is no multiple of the
+# block, an E below one block, one frequency through a ground bounce
+FAN_SHAPES = {"ragged_E100": ("cartesian", "O", 1, (5e6, 9e6), 100),
+              "small_E24_sph": ("spherical", "O", 1, (5e6, 9e6), 24),
+              "F1_x_2hop": ("cartesian", "X", 2, (7e6,), 70)}
+
+
+@pytest.mark.parametrize("shape", list(FAN_SHAPES))
+@pytest.mark.parametrize("path", list(FAN_PATHS))
+def test_fan_kernel_paths_and_edges(cuda, path, shape):
+    """Each path of the kernel, at ragged and small shapes, against the
+    plain version on the same tables: f64 identical status codes, step
+    counts and landing masks, rtol 1e-8, atol 1e-10; f32 identical status
+    codes, step counts and landing masks, rtol 1e-4, atol 1e-6."""
+    import pyrayhf_tpu_torch.pallas_ray as TR
+    geometry, mode, n_hops, freqs, E = FAN_SHAPES[shape]
+    for dtype in (torch.float64, torch.float32):
+        z, x, fields = _fan_case(mode, *FAN_PATHS[path], freqs, dtype)
+        geo = TR.fan_geometry(z, x, geometry)
+        assert TR.fan_path(geo, dtype) == path
+        tab = TR.pack_tables(geo, *fields)
+        elevs = torch.linspace(8.0, 60.0, E, dtype=dtype, device=cuda)
+        ds = torch.tensor(10.0, dtype=dtype, device=cuda)
+        TR.reset_counters()
+        k = TR.launch_fan(geo, tab, elevs, ds, n_steps=400, n_hops=n_hops)
+        torch.cuda.synchronize()
+        p = TR.plain_fan(geo, tab, elevs, ds, n_steps=400, n_hops=n_hops)
+        assert TR.LAUNCHES["fan_2d"] == 1
+        assert k["status_code"].shape == (len(freqs), E)
+        for key in ("status_code", "steps_taken"):
+            assert torch.equal(k[key], p[key]), (dtype, key)
+        assert torch.equal(torch.isnan(k["ground_range_km"]),
+                           torch.isnan(p["ground_range_km"]))
+        assert (k["status_code"] == 1).any()
+        # f32: the four path sums add in another order in the plain
+        # version (rtol); a landed ray ends 1e-3 km below the ground,
+        # where f32 round-off of the backtrack is large relative to z
+        # (atol 1e-6, in the outputs' own units: km, s, dB)
+        tol = (dict(rtol=1e-8, atol=1e-10) if dtype == torch.float64
+               else dict(rtol=1e-4, atol=1e-6))
+        for key in TR.OUTPUTS:
+            assert torch.allclose(k[key].double(), p[key].double(),
+                                  equal_nan=True, **tol), (dtype, key)
+
+
+def test_fan_launch_refuses_bad_tables(cuda):
+    """A table of the wrong length, or one not 16-byte aligned, raises
+    before any launch."""
+    import pyrayhf_tpu_torch.pallas_ray as TR
+    z, x, fields = _fan_case("O")
+    geo = TR.fan_geometry(z, x, "cartesian")
+    tab = TR.pack_tables(geo, *fields)
+    elevs = torch.linspace(8.0, 60.0, 8, dtype=torch.float64, device=cuda)
+    ds = torch.tensor(10.0, dtype=torch.float64, device=cuda)
+    TR.reset_counters()
+    with pytest.raises(ValueError, match="multiple"):
+        TR.launch_fan(geo, tab[:-1], elevs, ds, n_steps=5)
+    shifted = torch.empty(tab.numel() + 1, dtype=tab.dtype,
+                          device=cuda)[1:]
+    shifted.copy_(tab)
+    with pytest.raises(ValueError, match="aligned"):
+        TR.launch_fan(geo, shifted, elevs, ds, n_steps=5)
+    assert TR.LAUNCHES["fan_2d"] == 0
+
+
+# a check kernel built beside csrc/fan2d.cu (it includes it): div2 against
+# the IEEE division on random f32 pairs, half of them random bit patterns
+# (zeros, denormals, infinities and NaNs included), half with exponents
+# near 1, an eighth of the numerators zero
+_DIV2_CHECK = r"""
+#include <stdint.h>
+namespace {
+__device__ uint32_t mix(uint64_t x) {
+  x ^= x >> 33; x *= 0xff51afd7ed558ccdULL; x ^= x >> 33;
+  x *= 0xc4ceb9fe1a85ec53ULL; x ^= x >> 33; return (uint32_t)x;
+}
+__device__ bool same(float q, float r) {
+  return __float_as_uint(q) == __float_as_uint(r) || (isnan(q) && isnan(r));
+}
+__global__ void div2_check(uint64_t n, uint64_t seed,
+                           unsigned long long* bad) {
+  unsigned long long nb = 0;
+  for (uint64_t i = blockIdx.x * (uint64_t)blockDim.x + threadIdx.x; i < n;
+       i += (uint64_t)gridDim.x * blockDim.x) {
+    const uint32_t u = mix(2 * i + seed), v = mix(2 * i + 1 + seed);
+    float a = __uint_as_float(u), b = __uint_as_float(v);
+    if (i & 1) {
+      a = __uint_as_float((u & 0x807fffffu) | ((100u + (u >> 27)) << 23));
+      b = __uint_as_float((v & 0x807fffffu) | ((100u + (v >> 27)) << 23));
+    }
+    if ((i & 7) == 2) a = 0.0f * a;
+    float q1, q2;
+    div2(a, -a, b, q1, q2);
+    nb += !(same(q1, a / b) && same(q2, -a / b));
+  }
+  atomicAdd(bad, nb);
+}
+}  // namespace
+extern "C" int div2_mismatches(unsigned long long n, unsigned long long seed,
+                               unsigned long long* out) {
+  unsigned long long* d;
+  cudaMalloc(&d, sizeof(*d));
+  cudaMemset(d, 0, sizeof(*d));
+  div2_check<<<528, 256>>>(n, seed, d);
+  cudaMemcpy(out, d, sizeof(*d), cudaMemcpyDeviceToHost);
+  cudaFree(d);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def test_fan_paired_division_is_ieee(cuda, tmp_path):
+    """The fan kernel's paired f32 division (div2) gives the IEEE quotient
+    bit for bit on 2^29 random pairs, on its fast path and off it."""
+    from pyrayhf_tpu_torch import cuda_ext
+    src = tmp_path / "div2_check.cu"
+    src.write_text(f'#include "{cuda_ext.SRC_DIR / "fan2d.cu"}"\n'
+                   + _DIV2_CHECK)
+    so = tmp_path / "div2_check.so"
+    r = subprocess.run([str(cuda_ext.find_nvcc()), *cuda_ext.NVCC_FLAGS,
+                        "-shared", "-o", str(so), str(src)],
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lib = ctypes.CDLL(str(so))
+    lib.div2_mismatches.argtypes = [ctypes.c_ulonglong, ctypes.c_ulonglong,
+                                    ctypes.POINTER(ctypes.c_ulonglong)]
+    for seed in (1, 0x9E3779B97F4A7C15):
+        bad = ctypes.c_ulonglong(0)
+        assert lib.div2_mismatches(1 << 28, seed, ctypes.byref(bad)) == 0
+        assert bad.value == 0, (seed, bad.value)
 
 
 def test_fan_wrapper_on_the_card(cuda):

@@ -104,8 +104,9 @@ def test_frozen_ray_adds_zero(geometry):
         assert torch.equal(torch.nan_to_num(short[k][frozen]),
                            torch.nan_to_num(long_[k][frozen])), k
     # the segments themselves: zero length wherever the step began frozen
-    mu = TF.RefractiveField(geo.z, geo.x, tab[:, 0], geometry=geometry,
-                            grads=(tab[:, 1], tab[:, 2]))
+    rec = TR.table_views(geo, tab)[0]
+    mu = TF.RefractiveField(geo.z, geo.x, rec[..., 0], geometry=geometry,
+                            grads=(rec[..., 1], rec[..., 2]))
     el = elevs.expand(2, -1)
     if geometry == "cartesian":
         def nag(x, z):

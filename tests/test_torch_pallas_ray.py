@@ -114,17 +114,81 @@ def test_no_table_size_gate():
     assert geo.ground == 6371.0 and geo.hi == 3995.0 / 6371.0
 
 
-def test_pack_tables_layout():
-    """Channel-major [F, 5, nz, nx]: μ, ∂μ/∂c0, ∂μ/∂c1, μ', κ."""
+def _equal(a, b):
+    return torch.equal(torch.nan_to_num(a, nan=-7.0),
+                       torch.nan_to_num(b, nan=-7.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("geometry", ["cartesian", "spherical"])
+def test_pack_tables_layout(geometry, dtype):
+    """Node-major: [F, nz, nx, 4] records (μ, ∂μ/∂c0, ∂μ/∂c1, μ'), then
+    κ [F, nz, nx], in one flat 16-byte-aligned tensor. The gradients are
+    ``gradient_ord2`` on the native axes rebuilt as o + i/inv_d, exactly
+    the port's and within round-off the JAX host side's."""
+    import pyrayhf_tpu.fields as JF
+    from pyrayhf_tpu_torch.fields import gradient_ord2
+    z, x, mu, mup, kap = _fields("O")
+    geo = TR.fan_geometry(z, x, geometry)
+    mu_t, mup_t, kap_t = (torch.from_numpy(a).to(dtype)
+                          for a in (mu, mup, kap))
+    tab = TR.pack_tables(geo, mu_t, mup_t, kap_t)
+    assert tab.shape == (5 * 2 * 101 * 17,) and tab.dtype == dtype
+    assert tab.is_contiguous() and tab.data_ptr() % 16 == 0
+    rec, kap_v = TR.table_views(geo, tab)
+    assert rec.shape == (2, 101, 17, 4) and kap_v.shape == (2, 101, 17)
+    assert rec.data_ptr() == tab.data_ptr()
+    assert kap_v.data_ptr() == tab.data_ptr() + 2 * 101 * 17 * 4 * \
+        tab.element_size()
+    kw = dict(dtype=dtype)
+    c0 = (torch.tensor(geo.o0, **kw) + torch.arange(geo.nz, **kw)
+          / torch.tensor(geo.inv_d0, **kw))
+    c1 = (torch.tensor(geo.o1, **kw) + torch.arange(geo.nx, **kw)
+          / torch.tensor(geo.inv_d1, **kw))
+    g0, g1 = gradient_ord2(mu_t, c0, c1)
+    for c, want in enumerate((mu_t, g0, g1, mup_t)):
+        assert _equal(rec[..., c], want), c
+    assert torch.equal(kap_v, kap_t)
+    assert torch.isnan(rec[..., 1]).any() and torch.isfinite(g0).any()
+    # the JAX host side's gradients on its axes (pallas_ray.py:384-388)
+    jd = np.float32 if dtype == torch.float32 else np.float64
+    jc0 = jnp.asarray(geo.o0, jd) + jnp.arange(geo.nz, dtype=jd) / \
+        jnp.asarray(geo.inv_d0, jd)
+    jc1 = jnp.asarray(geo.o1, jd) + jnp.arange(geo.nx, dtype=jd) / \
+        jnp.asarray(geo.inv_d1, jd)
+    rtol = 1e-5 if dtype == torch.float32 else 1e-12
+    for f in range(2):
+        jg = JF.gradient_ord2(jnp.asarray(mu[f], jd), jc0, jc1)
+        for c in (1, 2):
+            j = np.asarray(jg[c - 1], np.float64)
+            scale = np.nanmax(np.abs(j))
+            assert np.allclose(rec[f, ..., c].double().numpy(), j, rtol=rtol,
+                               atol=rtol * scale, equal_nan=True), (f, c)
+
+
+def test_table_views_refuses_other_tensors():
+    """Only a flat tensor of whole frequencies' tables is taken apart."""
     z, x, mu, mup, kap = _fields("O")
     geo = TR.fan_geometry(z, x, "cartesian")
     tab = TR.pack_tables(geo, *[torch.from_numpy(a) for a in (mu, mup, kap)])
-    assert tab.shape == (2, 5, 101, 17) and tab.is_contiguous()
-    assert torch.equal(torch.nan_to_num(tab[:, 0]),
-                       torch.nan_to_num(torch.from_numpy(mu)))
-    assert torch.equal(tab[:, 4], torch.from_numpy(kap))
-    g0 = np.gradient(np.nan_to_num(mu[0], nan=0.0), z, axis=0, edge_order=2)
-    fin = np.isfinite(tab[0, 1].numpy())
-    # interior nodes away from the NaN region: np.gradient's values
-    assert np.allclose(tab[0, 1].numpy()[fin][:500], g0[fin][:500],
-                       rtol=1e-9, atol=1e-12)
+    assert TR.table_views(geo, tab[: 5 * 101 * 17])[0].shape == \
+        (1, 101, 17, 4)
+    for bad in (tab[:-1], tab.view(2, -1), tab[:0]):
+        with pytest.raises(ValueError, match="tables must be"):
+            TR.table_views(geo, bad)
+
+
+@pytest.mark.parametrize("nz,nx,dtype,path", [
+    (512, 32, torch.float32, "shared"),      # the typical slice: 203 KB
+    (512, 32, torch.float64, "global"),
+    (621, 800, torch.float32, "global"),     # the tutorials' 621 × 800 field
+    (101, 17, torch.float64, "shared"),
+    (586, 32, torch.float32, "shared"),      # 3·586·33·4 = 232,056 B
+    (587, 32, torch.float32, "global"),      # 232,452 B > 232,448 B
+])
+def test_fan_path_by_table_size(nz, nx, dtype, path):
+    """The shared-memory path where one frequency's μ, ∂μ/∂c0, ∂μ/∂c1,
+    rows of odd stride nx | 1, fit a block's 227 KB; else global."""
+    geo = TR.fan_geometry(np.linspace(0.0, 600.0, nz),
+                          np.linspace(0.0, 4000.0, nx), "cartesian")
+    assert TR.fan_path(geo, dtype) == path
