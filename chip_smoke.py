@@ -48,7 +48,9 @@ failure:
    the kernel, the whole fan call and the plain version, each kernel time
    beside a bound that counts the table bytes the rays of this run need,
    with the fan's maximum and mean steps taken and the time per step of
-   the longest ray;
+   the longest ray; the kernel against its plain version on a 2-node x
+   axis (f64, f32; and ``synthesize_oblique_ionogram_2d`` there on the
+   kernel against its ``xla`` engine) and on 65,537 frequencies (f64);
 8. the tensor-core one-hot kernel (``csrc/ionogram_mxu.cu``): its main
    path, counters zeroed first and read after — ``vertical_forward_
    operator_batch(engine="pallas_mxu")`` O and X, f32, at O-200 B=1024
@@ -56,11 +58,14 @@ failure:
    f32 (≤ 1e-3 km) and, through the same entry point in f64, in f64
    (≤ 1e-6 km), f32 against plain f64 (≤ 0.1 km, phase 4's rule), and the
    f64 kernel against kernel 3 (``gather``) on the same prepared inputs
-   (≤ 1e-9 km, identical masks); the same at P=2,000 on the B=64 check
-   set; autograd through ``ionogram_pallas_mxu`` against the plain
-   sweep's and a central difference; timing of the kernel, its wrapper,
-   its plain version and kernel 3 beside the bound (the function's own
-   work, kernel 3's), and the one-hot products' tensor-core time;
+   (≤ 1e-9 km, identical masks), and the kernel equal to kernel 3 bit for
+   bit in f32 and f64; the same at P=2,000 on the B=64 check set;
+   autograd through ``ionogram_pallas_mxu`` against the plain sweep's and
+   a central difference; timing of the kernel, its wrapper, its plain
+   version and kernel 3 beside the bound (the function's own work on the
+   valid (profile, frequency) pairs), and the tensor-core time of the
+   one-hot products it issues on these inputs (counted on the host from
+   the kernel's indices) beside that of its first design;
 9. the inversions on the card: ``retrieve_gradient_batch`` on a
    station-day of B=288 O-mode ionograms (hmF2 260-400 km, B_bot 25-60
    km; 25 LM steps, f64 and f32, per-sample |B| and ψ),
@@ -128,8 +133,11 @@ ION_OPS_NODE = {"gather_osolve": 1, "gather_xsolve": 10, "gather": 0,
 MXU_SOURCE = "pyrayhf_tpu_torch/csrc/ionogram_mxu.cu"
 MXU_REPLACES = "pyrayhf_tpu/pallas_vh.py:456"
 # the f64 kernel against kernel 3 on the same prepared inputs: the JAX
-# package's own MXU-vs-sweep bound (tests/test_pallas.py:247)
+# package's own MXU-vs-sweep bound (tests/test_pallas.py:247); the kernel
+# must moreover equal kernel 3 bit for bit, f32 and f64
 TOL_MXU_K3 = 1e-9
+# grid points per band of the kernel's products (csrc kTile)
+MXU_TILE = 16
 
 # ---- the inversions on the card ---------------------------------------------
 # one station-day at 5-minute cadence: the golden layer parameters of
@@ -209,6 +217,13 @@ CHECK_CASES = {**FAN_CASES,
                "large_sph": ("large", "spherical", "O", 1, 1500.0, None)}
 F64_CASES = ("typical_cart", "typical_sph", "x_2hop", "large_cart")
 F32_CASES = F64_CASES + ("large_sph",)
+# a range-independent slice written with a 2-node x axis (x = -100, 3000
+# km): a Gaussian F layer, 1e12 m^-3 at 300 km, on 121 heights 80-680 km,
+# at 5 and 7 MHz, 16 elevations, a 1,000-km link
+TWO_NODE_F, TWO_NODE_E, TWO_NODE_RANGE = (5.0e6, 7.0e6), 16, 1000.0
+# more frequencies than a launch grid's y extent holds: 65,537 of them on
+# a 16 x 8 grid, 2 elevations, 64 steps of 10 km
+WIDE_F, WIDE_E, WIDE_STEPS, WIDE_STEP = 65537, 2, 64, 10.0
 
 
 def fan_grid(kind):
@@ -231,6 +246,13 @@ def fan_scene(kind):
     return (z, x, ne, np.full(ne.shape, 4.5e-5),
             np.full(ne.shape, np.deg2rad(30.0)),
             1e7 * np.exp(-(z - 70.0) / 8.0))
+
+
+def two_node_scene():
+    """(z, x, Ne) of the 2-node slice, 80-680 km."""
+    z = np.linspace(80.0, 680.0, 121)
+    ne = np.repeat(1e12 * np.exp(-((z - 300.0) / 50.0) ** 2)[:, None], 2, 1)
+    return z, np.array([-100.0, 3000.0]), ne
 
 
 def bound_ms(ops, nbytes, dtype_name):
@@ -560,6 +582,83 @@ def fan_phase(torch, prt, dev, card):
     check(paths32 == {"shared", "global"},
           f"the f32 checks ran the kernel's paths {paths32}, not both")
 
+    # ---- a 2-node x axis; more than 65,535 frequencies ------------------
+    def grid_check(name, z, x, ne, fs, elevs, step, steps, dtype):
+        """The wrapper ``fan_2d_pallas`` (one launch) against the plain
+        version on the tables it packs, Cartesian O, on the scene's
+        fields; checks codes, masks and steps identical and the values
+        within the dtype's tolerance."""
+        nu = 1e7 * np.exp(-(z - 70.0) / 8.0)
+        flds = oblique._fan_fields(T(fs, dtype), T(ne, dtype),
+                                   T(np.full(ne.shape, 4.5e-5), dtype),
+                                   T(np.full(ne.shape, np.deg2rad(30.0)),
+                                     dtype), T(nu, dtype), "O")
+        el, ds = T(elevs, dtype), T(step, dtype)
+        n0 = pr.LAUNCHES["fan_2d"]
+        k = pr.fan_2d_pallas(z, x, *flds, el, ds, n_steps=steps)
+        check(pr.LAUNCHES["fan_2d"] == n0 + 1,
+              f"{name}: the wrapper did not launch the kernel")
+        geo = pr.fan_geometry(z, x, "cartesian")
+        p = pr.plain_fan(geo, pr.pack_tables(geo, *flds), el, ds,
+                         n_steps=steps)
+        k = {key: v.double().cpu().numpy() for key, v in k.items()}
+        p = {key: p[key].double().cpu().numpy() for key in pr.OUTPUTS}
+        st, lm, dr, rel, over, frac = diff(k, p)
+        steps_eq = np.array_equal(k["steps_taken"], p["steps_taken"])
+        f64 = dtype == torch.float64
+        print(f"  {name} {str(dtype)[6:]} ({pr.fan_path(geo, dtype)} path, "
+              f"{geo.nz}x{geo.nx} nodes, F={len(fs)} E={len(elevs)} {steps} "
+              f"steps): status equal {st}, landing equal {lm} ({frac:.3f} "
+              f"landed), steps equal {steps_eq}, max|d range| {dr:.3e} km, "
+              f"max rel diff {rel:.3e}"
+              + (f", {over} values over the bound" if f64 else ""),
+              flush=True)
+        check(st and lm and steps_eq
+              and (over == 0 if f64 else rel <= FAN_F32_RTOL),
+              f"{name} {dtype}: kernel vs plain")
+        return k
+
+    print(f"fan kernel vs plain version on a 2-node x axis (the slice from "
+          f"the ground: heights below 80 km free space) and on F={WIDE_F} "
+          f"frequencies", flush=True)
+    z2, x2, ne2 = two_node_scene()
+    z_ext = np.arange(0.0, z2[-1] + 1.0, z2[1] - z2[0])
+    ne_ext = np.concatenate([np.zeros((len(z_ext) - len(z2), 2)), ne2])
+    for dtype in (torch.float64, torch.float32):
+        k = grid_check("2-node x axis", z_ext, x2, ne_ext, TWO_NODE_F,
+                       np.linspace(5.0, 85.0, TWO_NODE_E), FAN_STEP,
+                       n_steps, dtype)
+        check((k["status_code"] == 1).any(), "2-node x axis: no ray landed")
+    # the entry point on the same slice, routed to the kernel, against
+    # its gradient-ODE engine, f64
+    kw = dict(f0s_hz=np.array(TWO_NODE_F), ground_range_km=TWO_NODE_RANGE,
+              x_grid_km=x2, z_grid_km=z2, Ne2d=T(ne2, torch.float64),
+              Babs2d=np.full(ne2.shape, 4.5e-5),
+              bpsi2d=np.full(ne2.shape, np.deg2rad(30.0)),
+              n_elev=TWO_NODE_E)
+    n0 = pr.LAUNCHES["fan_2d"]
+    syn_k = prt.synthesize_oblique_ionogram_2d(engine="auto", **kw)
+    check(pr.LAUNCHES["fan_2d"] == n0 + 1,
+          "2-node x axis: engine='auto' did not launch the kernel")
+    syn_x = prt.synthesize_oblique_ionogram_2d(engine="xla", **kw)
+    bad = [key for key in syn_x if not np.allclose(
+        syn_k[key].cpu().numpy(), syn_x[key].cpu().numpy(), rtol=FAN_RTOL,
+        atol=FAN_ATOL, equal_nan=True)]
+    lo = syn_k["delay_low_sec"].cpu().numpy()
+    print(f"  synthesize_oblique_ionogram_2d on the 2-node slice, f64: "
+          f"engine='auto' (the kernel) vs 'xla', keys beyond rtol "
+          f"{FAN_RTOL:g}: {bad}; low-ray delay {lo} s, elevation "
+          f"{syn_k['elev_low_deg'].cpu().numpy()} deg", flush=True)
+    check(not bad and np.isfinite(lo).any(),
+          f"2-node x axis: synthesis on the kernel vs xla: {bad}")
+    zw = np.linspace(0.0, 400.0, 16)
+    xw = np.linspace(0.0, 2000.0, 8)
+    hw = (zw[:, None] - 250.0) / 45.0
+    ne_w = (8.0e11 * (1.0 + 0.15 * (xw[None, :] / xw[-1] - 0.5))
+            * np.exp(0.5 * (1.0 - hw - np.exp(-hw))))
+    grid_check(f"F={WIDE_F}", zw, xw, ne_w, np.linspace(2e6, 30e6, WIDE_F),
+               np.array([10.0, 60.0]), WIDE_STEP, WIDE_STEPS, torch.float64)
+
     # ---- timing -------------------------------------------------------
     print(f"fan timing: median of {TIMING_ITERS} launches after 3 warm-up "
           f"launches, CUDA events, f32, F={FAN_F} E={FAN_E} {n_steps} "
@@ -655,8 +754,11 @@ def mxu_phase(torch, prt, dev, card, freqs, alt, main_prof, check_prof,
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
     def args(kind, prof, mm, P, dtype):
-        return pv.prepare_kernel_args(
-            kind, *[T(a, dtype) for a in (freqs, *prof, alt)], mm, P, inv)
+        # 1/dalt read from the grid in the working dtype, as the entry
+        # point reads it
+        t = [T(a, dtype) for a in (freqs, *prof, alt)]
+        return pv.prepare_kernel_args(kind, *t, mm, P,
+                                      pv.uniform_inv_dalt(t[-1]))
 
     # ---- main path, counted ------------------------------------------
     main_in = [T(a) for a in (freqs, *main_prof, alt)]
@@ -684,8 +786,16 @@ def mxu_phase(torch, prt, dev, card, freqs, alt, main_prof, check_prof,
     errs, errs32, errs_k3, k3_f32 = [], [], [], []
     print(f"mxu kernel vs its plain version (f32 ≤ {TOL_F32_PLAIN:g} km, "
           f"f64 ≤ {TOL_F64:g} km, f32 vs plain f64 ≤ {TOL_F32:g} km) and vs "
-          f"kernel 3 on the same prepared inputs (f64 ≤ {TOL_MXU_K3:g} km)",
-          flush=True)
+          f"kernel 3 on the same prepared inputs (f64 ≤ {TOL_MXU_K3:g} km; "
+          f"f32 and f64 bit for bit, identical NaN masks)", flush=True)
+
+    def bitwise(name, out, ref):
+        nan = torch.isnan(out)
+        same = (torch.equal(nan, torch.isnan(ref))
+                and torch.equal(out[~nan], ref[~nan]))
+        print(f"  {name}: bit for bit {same} ({int((~nan).sum())} finite "
+              f"values)", flush=True)
+        check(same, f"{name}: not bit for bit")
 
     def against(prof, mm, P, tag, vh32=None):
         name = f"mxu {'O' if mm > 0 else 'X'} P={P} {tag}"
@@ -711,13 +821,11 @@ def mxu_phase(torch, prt, dev, card, freqs, alt, main_prof, check_prof,
               for dt in (torch.float32, torch.float64)}
         errs_k3.append(compare(f"{name} f64 vs kernel 3 f64", vh64,
                                k3[torch.float64], TOL_MXU_K3, no_rows, True))
+        bitwise(f"{name} f64 vs kernel 3 f64", vh64, k3[torch.float64])
+        bitwise(f"{name} f32 vs kernel 3 f32", vh32, k3[torch.float32])
         d32 = np.abs(vh32.double().cpu().numpy()
                      - k3[torch.float32].double().cpu().numpy())
         k3_f32.append(float(np.nanmax(d32)))
-        print(f"  {name} f32 vs kernel 3 f32: max|dvh| = {k3_f32[-1]:.3e} "
-              f"km, NaN masks equal "
-              f"{torch.equal(torch.isnan(vh32), torch.isnan(k3[torch.float32]))}",
-              flush=True)
 
     for mode, mm in (("O", 1.0), ("X", -1.0)):
         against(main_prof, mm, P_MAIN, f"B={B_MAIN} (main path)", out[mode])
@@ -776,37 +884,52 @@ def mxu_phase(torch, prt, dev, card, freqs, alt, main_prof, check_prof,
             lambda: prt.ionogram_pallas_mxu(*inp, mode_mult=1.0,
                                             n_points=P_MAIN),
             iters=TIMING_ITERS)
-        # the bound is the function's own work, which is kernel 3's: its
-        # scalar operations per point and the bytes of its inputs (the
-        # [B, 8, N] table, the grid, the host solve's [B, F] rows) and output
-        ops = B_MAIN * F_MAIN * P_MAIN * ION_OPS_POINT["gather"]
+        # the bound is the function's own work on these inputs: the tail's
+        # scalar operations at every grid point of each valid (profile,
+        # frequency) — an escaped ray's vh is NaN, with no work — and the
+        # bytes of its inputs (the [B, 8, N] table, the grid, the host
+        # solve's [B, F] rows) and output
+        n_valid = int((a.valid != 0).sum())
+        ops = n_valid * P_MAIN * ION_OPS_POINT["gather"]
         nbytes = a3.tab.element_size() * (a3.tab.numel() + F_MAIN
                                           + 3 * P_MAIN + 1
                                           + 4 * B_MAIN * F_MAIN) \
             + B_MAIN * F_MAIN
         b_ms, b_by = bound_ms(ops, nbytes, dname)
         # apart from the bound: the tensor-core flops of the one-hot
-        # products as implemented (per 32 points 16 N-tiles × K1P/8 K-steps
-        # × 2 M-tiles × 3 parts of m16n8k8, 2,048 flops each, or 16 ×
-        # K1P/4 × 4 m8n8k4, 512 flops each) and their time at the tensor
-        # peak: the least time of this design, not of the function
+        # products the kernel issues on these inputs (mxu_products) and
+        # their time at the tensor peak; and, for comparison, those of the
+        # first design, which took every pair (per 32 points 16 N-tiles ×
+        # K1P/8 K-steps × 2 M-tiles × 3 parts of m16n8k8, 2,048 flops
+        # each, or 16 × K1P/4 × 4 m8n8k4, 512 flops each) at every
+        # (profile, frequency)
+        pairs, tflops = mxu_products(torch, a)
+        tc_ms = 1e3 * tflops / PEAK_TENSOR[dname]
         K1P = -(-a.tab.shape[2] // 8) * 8
         chunks = B_MAIN * F_MAIN * (-(-P_MAIN // 32))
-        tflops = chunks * (16 * (K1P // 8) * 2 * 3 * 2048
-                           if dt == torch.float32
-                           else 16 * (K1P // 4) * 4 * 512)
-        tc_ms = 1e3 * tflops / PEAK_TENSOR[dname]
+        tflops_pr3 = chunks * (16 * (K1P // 8) * 2 * 3 * 2048
+                               if dt == torch.float32
+                               else 16 * (K1P // 4) * 4 * 512)
+        tc_pr3_ms = 1e3 * tflops_pr3 / PEAK_TENSOR[dname]
         rows[dname] = dict(ms=k_ms, plain_ms=p_ms, wrapper_ms=w_ms,
                            same_function_kernel_ms=k3_ms, bound_ms=b_ms,
                            bound_by=b_by, scalar_ops=ops, bytes=nbytes,
-                           tensor_flops=tflops, tensor_core_ms=tc_ms)
+                           valid_share=n_valid / (B_MAIN * F_MAIN),
+                           mma_pairs=pairs, tensor_flops=tflops,
+                           tensor_core_ms=tc_ms,
+                           tensor_flops_pr3_design=tflops_pr3,
+                           tensor_core_ms_pr3_design=tc_pr3_ms)
         print(f"  mxu {dname}: kernel {k_ms:.4f} ms ("
               f"{profiling.vh_evals_per_s(B_MAIN, F_MAIN, k_ms):.4e} vh/s; "
-              f"bound {b_ms:.4f} ms, {b_by}: {ops:.4e} ops, {nbytes:.4e} "
-              f"bytes; the one-hot products' {tflops:.4e} tensor-core "
-              f"flops take {tc_ms:.4f} ms at {PEAK_TENSOR[dname]:.3g}/s), "
-              f"wrapper {w_ms:.4f} ms, plain {p_ms:.4f} ms; kernel 3 "
-              f"(gather) on the same inputs {k3_ms:.4f} ms", flush=True)
+              f"bound {b_ms:.4f} ms, {b_by}: {ops:.4e} ops on the "
+              f"{n_valid / (B_MAIN * F_MAIN):.4f} valid share, {nbytes:.4e} "
+              f"bytes; the one-hot products issued, {pairs} (N-tile, "
+              f"K-step) pairs over tiles of {MXU_TILE} points, "
+              f"{tflops:.4e} tensor-core flops, take {tc_ms:.4f} ms at "
+              f"{PEAK_TENSOR[dname]:.3g}/s, against {tflops_pr3:.4e} flops "
+              f"and {tc_pr3_ms:.4f} ms for the first design), wrapper "
+              f"{w_ms:.4f} ms, plain {p_ms:.4f} ms; kernel 3 (gather) on "
+              f"the same inputs {k3_ms:.4f} ms", flush=True)
     r = rows["float32"]
     return {"name": "mxu", "route": "cuda", "source": MXU_SOURCE,
             "replaces": MXU_REPLACES, "launches": launches["mxu"],
@@ -819,9 +942,47 @@ def mxu_phase(torch, prt, dev, card, freqs, alt, main_prof, check_prof,
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None, "wrapper_ms": r["wrapper_ms"],
             "same_function_kernel_ms": r["same_function_kernel_ms"],
+            "valid_share": r["valid_share"], "mma_pairs": r["mma_pairs"],
             "tensor_flops": r["tensor_flops"],
-            "tensor_core_ms": r["tensor_core_ms"], "f64": rows["float64"],
+            "tensor_core_ms": r["tensor_core_ms"],
+            "tensor_flops_pr3_design": r["tensor_flops_pr3_design"],
+            "tensor_core_ms_pr3_design": r["tensor_core_ms_pr3_design"],
+            "f64": rows["float64"],
             "shape": f"B={B_MAIN} F={F_MAIN} P={P_MAIN} N={N_ALT} f32 O"}
+
+
+def mxu_products(torch, a, tile=None):
+    """Tensor-core products that ``csrc/ionogram_mxu.cu`` issues on the
+    prepared mxu args ``a``, counted on the host from the indices the
+    kernel forms (the same ``span * (mult * inv_dalt)`` in the working
+    dtype): for each valid (profile, frequency) and each tile of ``tile``
+    consecutive grid points, the N-tiles of the offsets its points select
+    times the K-steps (8 columns in f32, 4 in f64) that hold its one-hot
+    columns. Returns (pairs, tensor flops): per pair, 3 TF32 parts of
+    m16n8k8 (2,048 flops) per m16 tile of points in f32, one m8n8k4 (512
+    flops) per m8 tile in f64."""
+    from pyrayhf_tpu_torch import pallas_vh as pv
+    tile = tile or MXU_TILE
+    f32 = a.tab.dtype == torch.float32
+    kstep = 8 if f32 else 4
+    i0, _ = pv._uniform_index(a.span[:, :, None] * (a.mult * a.inv_dalt),
+                              a.n_alt)
+    B, F, P = i0.shape
+    # points past P and frequencies the host solve marks invalid: no part
+    i0 = torch.where((a.valid != 0)[:, :, None], i0, -1)
+    i0 = torch.cat([i0, i0.new_full((B, F, -P % 32), -1)], 2)
+    t = i0.reshape(B, F, -1, tile)
+    inp = t >= 0
+    col = torch.div(t, 16, rounding_mode="floor")
+    lo = torch.where(inp, col, 1 << 30).amin(-1)
+    hi = torch.where(inp, col, -1).amax(-1)
+    ksteps = torch.where(hi >= 0, torch.div(hi, kstep, rounding_mode="floor")
+                         - torch.div(lo, kstep, rounding_mode="floor") + 1, 0)
+    off = t - 16 * col
+    ntiles = sum(((off == nt) & inp).any(-1).long() for nt in range(16))
+    pairs = int((ksteps * ntiles).sum())
+    return pairs, pairs * ((tile // 16) * 3 * 2048 if f32
+                           else (tile // 8) * 512)
 
 
 def lm_scene(rng, alt, freqs, B):

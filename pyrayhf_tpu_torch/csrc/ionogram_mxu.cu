@@ -16,42 +16,65 @@
 //   kernels (quad_term, mup_stable: ionogram_common.cuh), and
 //   vh = sum_p mu'_p dh_p + min(alt), NaN where the ray escapes.
 //
+// What bounds it. The function is kernel 3's (ionogram.cu with the host
+// solve on a uniform grid): the mu' tail, ~115 scalar operations a grid
+// point, bounds both. A one-hot product is a gather at one useful
+// multiply-add in 128, so products taken over the whole table (all 16
+// N-tiles, all K-steps, for every 32 points, as this kernel's first form
+// took them) needed 2.5 ms of TF32 tensor-core time alone at O-200
+// (B = 1024, F = 175, P = 200) and made the kernel ~11x kernel 3. But a
+// tile of consecutive grid points of one frequency selects a narrow band
+// of the table: i0 never decreases along p (mult increases), and the
+// stretched grid crowds the points near the reflection height, so most
+// tiles span one or two one-hot columns and a few offsets.
+//
 // Design. One block per (profile, frequency group) and one warp per
 // frequency, as in ionogram.cu. The profile's table sits in shared memory
-// (row stride K1P + 4, K1P = K1 rounded up to 8, zeros beyond K1). A warp
-// resamples 32 grid points at a time. The one-hot operand is built in
-// registers from each point's index, never read from memory; it is the A
-// operand (points are the M dimension), the table the B operand (its 128
-// rows are 16 N-tiles of 8, one per segment offset bb, each tile holding
-// the 8 channels), and K runs over a. The fold is a register select: a
+// (row stride K1P + 4, K1P = K1 rounded up to 8, zeros beyond K1). A
+// frequency the host solve marks invalid writes NaN and does nothing else
+// (vh is NaN there whatever the sum). A warp resamples 32 grid points at a
+// time; each lane forms its own point's i0 and frac once. Per tile of
+// kTile consecutive points the warp reduces the one-hot columns a_lo..a_hi
+// its points select and the set of their offsets bb (__reduce_min/max/
+// or_sync; points past P take no part), and issues products only for the
+// K-steps that hold a_lo..a_hi and the N-tiles (one per offset bb, each
+// holding the 8 channels) of the offsets present. The band comes from the
+// indices themselves, not from their monotonicity: any span, NaN
+// included, gives indices in [0, N-2] and a band that holds them. The
+// one-hot operand is built in registers (points are the M dimension, K
+// runs over a), never read from memory. The fold is a register select: a
 // thread keeps the accumulator tile whose N-tile index equals its point's
 // bb, so the four threads of a quad hold channels 0..7 of the point's
 // segment row. Threads 1..3 of each quad put channels 2..7 into the warp's
-// shared scratch and each lane finishes one point, in the lane-strided
+// shared scratch and each lane finishes its point, in the lane-strided
 // order of ionogram.cu, so the sums add in the same order as kernel 3's.
+// On the O-200 inputs (chip_smoke.py counts them) the products left are
+// 4.3e6 (N-tile, K-step) pairs against 1.0e8, 0.054 ms of TF32 tensor-core
+// time against 2.49. Bands of 16 points beat bands of 32 (three mma a pair
+// against six outweigh twice the reductions). What bounds the kernel now
+// is kernel 3's work on the valid frequencies, the index and the mu' tail,
+// and the products' per-pair overhead (shared loads, one-hot selects):
+// ~0.32 of ~0.95 ms in f32, hidden by the tail in f64 (NVIDIA H100 80GB
+// HBM3, 700 W; tools/mxu_attribution.py). mma.sync, not wgmma: a band
+// issues a handful of m16n8k8 whose N-tiles vary from band to band, while
+// a wgmma tile is 64 points (a wider band) with N fixed at compile time.
 //
-//   f64: mma.sync m8n8k4 (DMMA), one pass; IEEE products and sums, and the
-//        one-hot makes each output equal to the table entry exactly.
-//   f32: mma.sync m16n8k8 TF32 on the table split into three exact TF32
-//        parts (hi, mid, lo: truncations to 10 explicit mantissa bits of the
-//        value and of its remainders). Each part goes through its own
-//        accumulator, so every tensor-core sum is one exact product plus
-//        zeros, and (hi + mid) + lo restores the f32 entry exactly (the
-//        TPU's Precision.HIGHEST splits into bf16 parts to the same end).
+//   f64: mma.sync m8n8k4 (DMMA) over m8 tiles of points, K-steps of 4; IEEE
+//        products and sums, and the one-hot makes each output equal to the
+//        table entry exactly.
+//   f32: mma.sync m16n8k8 TF32 over m16 tiles, K-steps of 8, on the table
+//        split into three exact TF32 parts (hi, mid, lo: truncations to 10
+//        explicit mantissa bits of the value and of its remainders). Each
+//        part goes through its own accumulator, so every tensor-core sum is
+//        one exact product plus zeros, and (hi + mid) + lo restores the f32
+//        entry exactly (the TPU's Precision.HIGHEST splits into bf16 parts
+//        to the same end). A skipped product is 0 times a table entry, so
+//        the outputs stay kernel 3's bit for bit.
 //   Shared memory: 128 x 44 x 4 B x 3 = 66 KB (f32), 44 KB (f64) at
 //   N = 620, plus 6 x 32 values of scratch per warp.
 //
-// Bound. The tensor-core work of the one-hot products as implemented: per
-// 32 points, 16 N-tiles x K1P/8 K-steps x 2 M-tiles x 3 parts m16n8k8 TF32
-// (30,720 flops a point at K1P = 40) or 16 x K1P/4 x 4 m8n8k4 DMMA (10,240
-// flops a point). At O-200 (B = 1024, F = 175, P = 200) that is ~1.2e12
-// TF32 flops (2.5 ms at 495 TFLOP/s) or ~4.1e11 f64 flops (6.1 ms at
-// 67 TFLOP/s), against 0.65 ms for kernel 3's direct shared-memory load of
-// the same rows: a gather is one useful multiply-add per output element,
-// and the products spend the other 127 of every 128 on zeros. The design
-// keeps the table loads out of the inner loop over M-tiles and builds the
-// one-hot in registers; it does not use wgmma or TMA. Built without fast
-// math and with -fmad=false.
+// Built without fast math and with -fmad=false. tools/mxu_attribution.py
+// times this kernel against its first form, by parts of the design.
 
 #include "ionogram_common.cuh"
 
@@ -62,6 +85,7 @@ constexpr int kK2 = 16;           // segment offsets per one-hot column
 constexpr int kRows = kK2 * 8;    // table rows: 16 offsets x 8 channels
 constexpr int kPad = 4;           // row padding of the shared table (banks)
 constexpr int kScratch = 6 * 32;  // channels 2..7 of 32 points, per warp
+constexpr int kTile = 16;         // points per band: 16 or 32
 constexpr uint32_t kOne = 0x3f800000u;  // 1.0f, an exact TF32 value
 
 template <typename T>
@@ -128,70 +152,87 @@ __device__ __forceinline__ void mma_f64(double (&d)[2], double a, double b) {
       : "d"(a), "d"(b));
 }
 
-// one-hot column a and segment offset bb of grid point q (-1 past P)
-template <typename T>
-__device__ __forceinline__ void point_index(T span, const T* mult,
-                                            T inv_dalt, int N, int q, int P,
-                                            int& a, int& bb) {
-  if (q < P) {
-    T frac;
-    const int i0 = uniform_index(span * (mult[q] * inv_dalt), N, frac);
-    a = i0 / kK2;
-    bb = i0 - a * kK2;
-  } else {
-    a = -1;
-    bb = -1;
-  }
+// The band of tile t of a chunk: the one-hot columns lo..hi its points
+// select and the offsets among them (bit bb of nmask), reduced over the
+// warp from each lane's own segment i0 (-1 past P: no part). An empty
+// tile gives lo > hi and nmask 0.
+struct Band {
+  int lo, hi;
+  unsigned nmask;
+};
+
+__device__ __forceinline__ Band tile_band(int i0, int lane, int t) {
+  const bool mine = i0 >= 0 && lane / kTile == t;
+  Band b;
+  b.lo = __reduce_min_sync(kFull, mine ? i0 / kK2 : 0x7fffffff);
+  b.hi = __reduce_max_sync(kFull, mine ? i0 / kK2 : -1);
+  b.nmask = __reduce_or_sync(kFull, mine ? 1u << (i0 % kK2) : 0u);
+  return b;
 }
 
-// f32: resample grid points c0 .. c0+31 of one frequency (two m16 tiles of
-// points); writes channels 2..7 of each point's segment row to
-// scr[(c - 2) * 32 + j].
-__device__ void onehot_chunk(const float* st, int S, int K1P, int N,
-                             float span, const float* mult, float inv_dalt,
-                             int c0, int P, float* scr, int lane) {
+// one-hot column a and offset bb of the point in the lane's row ``src``
+// (a = -1, bb = -1 past P: a zero one-hot row, kept by no N-tile)
+__device__ __forceinline__ void row_index(int i0, int src, int& a, int& bb) {
+  const int i = __shfl_sync(kFull, i0, src);
+  a = i >= 0 ? i / kK2 : -1;
+  bb = i >= 0 ? i % kK2 : -1;
+}
+
+// f32: the segment rows of grid points c0 .. c0+31 of one frequency (two
+// m16 tiles of points), i0 the lane's own point's segment; writes channels
+// 2..7 of each point's row to scr[(c - 2) * 32 + j].
+__device__ void onehot_chunk(const float* st, int S, int i0, float* scr,
+                             int lane) {
+  constexpr int kM = kTile / 16;  // m16 tiles per band
   const int gid = lane >> 2, tig = lane & 3;
   const int plane = kRows * S;
-  int ai[2][2], bi[2][2];  // [M-tile][row gid / gid + 8]
+  int ai[2][2], bi[2][2];  // [m16 tile][row gid / gid + 8]
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      point_index(span, mult, inv_dalt, N, c0 + mt * 16 + h * 8 + gid, P,
-                  ai[mt][h], bi[mt][h]);
+      row_index(i0, mt * 16 + h * 8 + gid, ai[mt][h], bi[mt][h]);
   float keep[2][4] = {};
-  for (int nt = 0; nt < kK2; ++nt) {
-    float acc[3][2][4] = {};
-    const int row = (nt * 8 + gid) * S + tig;
-    for (int k0 = 0; k0 < K1P; k0 += 8) {
-      uint32_t b[3][2];
 #pragma unroll
-      for (int part = 0; part < 3; ++part) {
-        b[part][0] = __float_as_uint(st[part * plane + row + k0]);
-        b[part][1] = __float_as_uint(st[part * plane + row + k0 + 4]);
-      }
+  for (int t = 0; t < 32 / kTile; ++t) {
+    const Band band = tile_band(i0, lane, t);
+    const int k_end = band.hi & ~7;
+    for (unsigned m = band.nmask; m != 0u; m &= m - 1u) {
+      const int nt = __ffs(m) - 1;
+      float acc[3][kM][4] = {};
+      const int row = (nt * 8 + gid) * S + tig;
+      for (int k0 = band.lo & ~7; k0 <= k_end; k0 += 8) {
+        uint32_t b[3][2];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const uint32_t a[4] = {k0 + tig == ai[mt][0] ? kOne : 0u,
-                               k0 + tig == ai[mt][1] ? kOne : 0u,
-                               k0 + tig + 4 == ai[mt][0] ? kOne : 0u,
-                               k0 + tig + 4 == ai[mt][1] ? kOne : 0u};
-#pragma unroll
-        for (int part = 0; part < 3; ++part)
-          mma_tf32(acc[part][mt], a, b[part][0], b[part][1]);
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        if (bi[mt][h] == nt) {
-#pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            const int i = 2 * h + c;
-            keep[mt][i] = (acc[0][mt][i] + acc[1][mt][i]) + acc[2][mt][i];
-          }
+        for (int part = 0; part < 3; ++part) {
+          b[part][0] = __float_as_uint(st[part * plane + row + k0]);
+          b[part][1] = __float_as_uint(st[part * plane + row + k0 + 4]);
         }
+#pragma unroll
+        for (int j = 0; j < kM; ++j) {
+          const int mt = t * kM + j;
+          const uint32_t a[4] = {k0 + tig == ai[mt][0] ? kOne : 0u,
+                                 k0 + tig == ai[mt][1] ? kOne : 0u,
+                                 k0 + tig + 4 == ai[mt][0] ? kOne : 0u,
+                                 k0 + tig + 4 == ai[mt][1] ? kOne : 0u};
+#pragma unroll
+          for (int part = 0; part < 3; ++part)
+            mma_tf32(acc[part][j], a, b[part][0], b[part][1]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kM; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (bi[t * kM + j][h] == nt) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int i = 2 * h + c;
+              keep[t * kM + j][i] =
+                  (acc[0][j][i] + acc[1][j][i]) + acc[2][j][i];
+            }
+          }
+    }
   }
   if (tig > 0) {
 #pragma unroll
@@ -205,33 +246,36 @@ __device__ void onehot_chunk(const float* st, int S, int K1P, int N,
   }
 }
 
-// f64: the same with four m8 tiles of points and one DMMA pass
-__device__ void onehot_chunk(const double* st, int S, int K1P, int N,
-                             double span, const double* mult,
-                             double inv_dalt, int c0, int P, double* scr,
+// f64: the same with four m8 tiles of points, K-steps of 4, one DMMA pass
+__device__ void onehot_chunk(const double* st, int S, int i0, double* scr,
                              int lane) {
+  constexpr int kM = kTile / 8;  // m8 tiles per band
   const int gid = lane >> 2, tig = lane & 3;
-  int ai[4], bi[4];  // [M-tile], row gid
+  int ai[4], bi[4];  // [m8 tile], row gid
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-    point_index(span, mult, inv_dalt, N, c0 + mt * 8 + gid, P, ai[mt],
-                bi[mt]);
+  for (int mt = 0; mt < 4; ++mt) row_index(i0, mt * 8 + gid, ai[mt], bi[mt]);
   double keep[4][2] = {};
-  for (int nt = 0; nt < kK2; ++nt) {
-    double acc[4][2] = {};
-    const int row = (nt * 8 + gid) * S + tig;
-    for (int k0 = 0; k0 < K1P; k0 += 4) {
-      const double b = st[row + k0];
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        mma_f64(acc[mt], k0 + tig == ai[mt] ? 1.0 : 0.0, b);
-    }
+  for (int t = 0; t < 32 / kTile; ++t) {
+    const Band band = tile_band(i0, lane, t);
+    const int k_end = band.hi & ~3;
+    for (unsigned m = band.nmask; m != 0u; m &= m - 1u) {
+      const int nt = __ffs(m) - 1;
+      double acc[kM][2] = {};
+      const int row = (nt * 8 + gid) * S + tig;
+      for (int k0 = band.lo & ~3; k0 <= k_end; k0 += 4) {
+        const double b = st[row + k0];
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-      if (bi[mt] == nt) {
-        keep[mt][0] = acc[mt][0];
-        keep[mt][1] = acc[mt][1];
+        for (int j = 0; j < kM; ++j)
+          mma_f64(acc[j], k0 + tig == ai[t * kM + j] ? 1.0 : 0.0, b);
       }
+#pragma unroll
+      for (int j = 0; j < kM; ++j)
+        if (bi[t * kM + j] == nt) {
+          keep[t * kM + j][0] = acc[j][0];
+          keep[t * kM + j][1] = acc[j][1];
+        }
+    }
   }
   if (tig > 0) {
 #pragma unroll
@@ -270,21 +314,27 @@ __global__ void __launch_bounds__(kThreads)
   const T amin = *p.alt_min;
 
   for (int fi = f_begin + (threadIdx.x >> 5); fi < f_end; fi += nwarps) {
-    const T f = p.freq[fi];
     const size_t o = (size_t)b * p.F + fi;
+    const bool valid = p.valid[o] != 0;
+    if (!valid) {  // the ray escapes: vh is NaN, no products, no tail
+      if (lane == 0) p.out[o] = T(NAN);
+      continue;
+    }
+    const T f = p.freq[fi];
     const T span = p.span[o];
     const T slope = p.slope[o];
     const T emax = p.emax[o];
     const T ff = f * f;
     T acc = T(0);
     for (int c0 = 0; c0 < p.P; c0 += 32) {
-      onehot_chunk(st, S, p.K1P, p.N, span, p.mult, p.inv_dalt, c0, p.P, scr,
-                   lane);
-      __syncwarp();
       const int q = c0 + lane;
+      T frac = T(0);
+      const int i0 =
+          q < p.P ? uniform_index(span * (p.mult[q] * p.inv_dalt), p.N, frac)
+                  : -1;
+      onehot_chunk(st, S, i0, scr, lane);
+      __syncwarp();
       if (q < p.P) {
-        T frac;
-        uniform_index(span * (p.mult[q] * p.inv_dalt), p.N, frac);
         const T d = scr[lane] + frac * scr[32 + lane];
         const T bmv = scr[64 + lane] + frac * scr[96 + lane];
         const T bpv = scr[128 + lane] + frac * scr[160 + lane];
@@ -294,8 +344,7 @@ __global__ void __launch_bounds__(kThreads)
       __syncwarp();
     }
     acc = warp_sum(acc);
-    if (lane == 0)
-      p.out[o] = (p.valid[o] != 0 && acc != T(0)) ? acc + amin : T(NAN);
+    if (lane == 0) p.out[o] = (valid && acc != T(0)) ? acc + amin : T(NAN);
   }
 }
 

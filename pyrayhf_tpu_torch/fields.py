@@ -81,16 +81,20 @@ def grad_axis_ord2(f, c, axis):
     num = (hs * hs * sl(2, n) - (hs * hs - hd * hd) * sl(1, n - 1)
            - hd * hd * sl(0, n - 2))
     interior = num / (hs * hd * (hs + hd))
-    h0, h1 = h[0], h[1]
+    # the edge stencils' third node, clamped into range as JAX's indexing
+    # clamps it: on a 2-node axis (a range-independent slice) both edges
+    # read f0, f1 and h0 only, 1.5·(f1 − f0)/h0, and the interior is empty
+    i2, i3 = min(2, n - 1), max(n - 3, 0)
+    h0, h1 = h[0], h[min(1, n - 2)]
     a0 = -(2 * h0 + h1) / (h0 * (h0 + h1))
     b0 = (h0 + h1) / (h0 * h1)
     c0 = -h0 / (h1 * (h0 + h1))
-    first = a0 * sl(0, 1) + b0 * sl(1, 2) + c0 * sl(2, 3)
-    hm1, hm2 = h[-1], h[-2]
+    first = a0 * sl(0, 1) + b0 * sl(1, 2) + c0 * sl(i2, i2 + 1)
+    hm1, hm2 = h[-1], h[i3]
     am = (2 * hm1 + hm2) / (hm1 * (hm1 + hm2))
     bm = -(hm1 + hm2) / (hm1 * hm2)
     cm = hm1 / (hm2 * (hm1 + hm2))
-    last = am * sl(n - 1, n) + bm * sl(n - 2, n - 1) + cm * sl(n - 3, n - 2)
+    last = am * sl(n - 1, n) + bm * sl(n - 2, n - 1) + cm * sl(i3, i3 + 1)
     return torch.cat([first, interior, last], dim=axis)
 
 

@@ -264,11 +264,9 @@ def launch_fan(geo, tab, elevs, ds, *, n_steps, n_hops=1, x0=0.0, z0=None):
             or not elevs.is_contiguous()):
         raise ValueError("elevations must be a contiguous 1-D tensor in the "
                          "tables' dtype and device")
-    if F == 0 or E == 0 or geo.nz < 3 or geo.nx < 3 or n_steps < 0:
+    if F == 0 or E == 0 or geo.nz < 2 or geo.nx < 2 or n_steps < 0:
         raise ValueError(f"degenerate launch F={F} E={E} nz={geo.nz} "
                          f"nx={geo.nx} n_steps={n_steps}")
-    if F > 65535:
-        raise ValueError(f"F={F} exceeds the launch grid's y extent")
     z0 = float(geo.z[0]) if z0 is None else float(z0)
     sph = geo.geometry == "spherical"
     # the launch state, formed as the plain version's cores form it: the

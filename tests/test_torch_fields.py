@@ -193,3 +193,20 @@ def test_field_validation():
     with pytest.raises(ValueError, match="geometry"):
         TF.RefractiveField(z, x, _t(np.zeros((z.size, x.size))),
                            geometry="polar")
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2, -1])
+def test_grad_axis_ord2_on_a_two_node_axis_matches_jax(axis):
+    """A 2-node axis (a range-independent slice): the edge stencils read
+    their out-of-range nodes clamped, as JAX's indexing clamps them, so
+    both edges give 1.5·(f1 − f0)/h and the interior is empty."""
+    rng = np.random.default_rng(9)
+    shape = [5, 4, 3]
+    shape[axis] = 2
+    f = rng.normal(size=shape)
+    c = np.array([-100.0, 3000.0])
+    got = TF.grad_axis_ord2(_t(f), _t(c), axis)
+    _same(got, JF.grad_axis_ord2(jnp.asarray(f), jnp.asarray(c), axis))
+    edge = 1.5 * np.diff(f, axis=axis) / 3100.0
+    assert_allclose(got.numpy(), np.concatenate([edge, edge], axis=axis),
+                    rtol=1e-12)

@@ -5,11 +5,12 @@ built at first use) and skip without a card. Run them on the card with
 ``python -m pytest tests/test_torch_gpu_kernels.py -q -m gpu``.
 Tolerances: f64 identical NaN masks and ≤ 1e-6 km; f32 within 0.1 km of
 the f64 plain result (the accuracy contract); the mxu kernel against
-kernel 3 ≤ 1e-9 km in f64. The ray-fan kernel: f64 identical status codes
-and landing masks, rtol 1e-8, atol 1e-10; f32 identical status codes,
-landing masks and step counts, rtol 1e-4, atol 1e-6 (the four path sums
-add in another order in the plain version); the kernel's paired f32
-division bit for bit the IEEE one.
+kernel 3 ≤ 1e-9 km in f64, and bit for bit, f32 and f64, where the inputs
+exercise the edges of its banded products. The ray-fan kernel: f64
+identical status codes and landing masks, rtol 1e-8, atol 1e-10; f32
+identical status codes, landing masks and step counts, rtol 1e-4, atol
+1e-6 (the four path sums add in another order in the plain version); the
+kernel's paired f32 division bit for bit the IEEE one.
 """
 
 import ctypes
@@ -152,6 +153,80 @@ def test_mxu_kernel_matches_plain_and_kernel3(cuda, mode_mult, n_points,
     assert np.abs(k64[m] - g64[m]).max() <= 1e-9
     m32 = m & np.isfinite(k32)
     assert np.abs(k32[m32] - ref[m32]).max() <= 0.1
+
+
+def _bands(i0, tile):
+    """(K-step-8 crossings, tiles with all 16 offsets) of the [B, F, P]
+    segment indices over tiles of ``tile`` points (the last tile of each
+    frequency ragged, padded with -1)."""
+    B, F, P = i0.shape
+    i0 = torch.cat([i0, i0.new_full((B, F, -P % tile), -1)], 2)
+    t = i0.reshape(B, F, -1, tile)
+    inp = t >= 0
+    col = torch.div(t, 16, rounding_mode="floor")
+    lo = torch.where(inp, col, 1 << 30).amin(-1)
+    hi = torch.where(inp, col, -1).amax(-1)
+    cross = int(((hi >= 0) & (lo // 8 != hi // 8)).sum())
+    offs = sum(((t - 16 * col == k) & inp).any(-1).long() for k in range(16))
+    return cross, int((offs == 16).sum())
+
+
+@pytest.mark.parametrize("n_points", [37, 200])
+@pytest.mark.parametrize("mode_mult", [1.0, -1.0])
+def test_mxu_kernel_equals_kernel3_bitwise_on_band_edges(cuda, n_points,
+                                                         mode_mult):
+    """The mxu kernel, which multiplies only over the band of the table
+    each tile of points selects, equals kernel 3 bit for bit (NaN-aware),
+    f32 and f64, on the same prepared inputs, with: tiles whose band
+    crosses a K-step boundary (profile 1's spans put segment 128, column 8,
+    inside the stretched grid), tiles that select all 16 offsets (a linear
+    grid on which profile 1's points step one segment each), P no multiple
+    of the tile (37, 200), K1 = 15 (N = 231: no multiple of 8), a profile
+    whose every frequency is invalid (2) and NaN spans (3)."""
+    import dataclasses
+    args = _case(True)
+    inv = TV.uniform_inv_dalt(args[4])                 # 1/dalt, dalt = 2 km
+    lin = (np.arange(n_points) + 8.5) * (2.0 / 300.0)
+    found = {16: [0, 0], 32: [0, 0]}
+    for grid in ("stretched", "linear"):
+        for dtype in (torch.float32, torch.float64):
+            t = [torch.as_tensor(a, dtype=dtype, device=cuda) for a in args]
+            a = TV.prepare_kernel_args("mxu", *t, mode_mult, n_points, inv)
+            F = a.span.shape[1]
+            span, valid = a.span.clone(), a.valid.clone()
+            over = dict(span=span, valid=valid)
+            if grid == "linear":                       # i0 = p + 8
+                span[1] = 300.0
+                over.update({k: torch.as_tensor(v, dtype=dtype, device=cuda)
+                              for k, v in (("mult", lin), ("omm", 1.0 - lin),
+                                           ("dmult", np.append(np.diff(lin),
+                                                               0.0)))})
+            else:
+                span[1] = torch.linspace(250.0, 320.0, F, dtype=dtype)
+            valid[1] = 1
+            valid[2] = 0
+            span[3, ::3] = float("nan")
+            valid[3] = 1
+            a = dataclasses.replace(a, **over)
+            g = dataclasses.replace(
+                TV.prepare_kernel_args("gather", *t, mode_mult, n_points,
+                                       inv), **over)
+            assert a.tab.shape[2] == 15
+            i0, _ = TV._uniform_index(span[:, :, None] * (a.mult * inv), 231)
+            for tile in (16, 32):
+                bands = _bands(torch.where(valid[:, :, None] != 0, i0, -1),
+                               tile)
+                found[tile] = [u + v for u, v in zip(found[tile], bands)]
+            TV.reset_counters()
+            k = TV.launch_mxu(a)
+            ref = TV.launch_kernel(g)
+            assert TV.LAUNCHES["mxu"] == 1 and TV.LAUNCHES["gather"] == 1
+            nan = torch.isnan(k)
+            assert torch.equal(nan, torch.isnan(ref)), (grid, dtype)
+            assert torch.equal(k[~nan], ref[~nan]), (grid, dtype)
+            assert nan[2].all() and (~nan[1]).any() and (~nan[0]).any()
+    # K-step crossings, tiles with all 16 offsets, for each tile size
+    assert all(c > 0 and f > 0 for c, f in found.values()), found
 
 
 def test_engine_pallas_mxu_launches_on_numpy_input(cuda):
@@ -390,3 +465,57 @@ def test_fan_wrapper_on_the_card(cuda):
         np.full(ne.shape, 30.0), n_elev=24, step_km=10.0, s_max_km=2500.0)
     assert out["fan_range_km"].device.type == "cuda"
     assert TR.LAUNCHES["fan_2d"] == 1 and TR.PLAIN_CALLS["fan_2d"] == 0
+
+
+def test_fan_kernel_on_a_two_node_x_axis(cuda):
+    """An x axis of 2 nodes (one cell across; the JAX package's kernel
+    clamps the cell index to it too), on both of the kernel's paths: the
+    kernel against the plain version on the same tables, as
+    test_fan_kernel_paths_and_edges holds them; rays land."""
+    import pyrayhf_tpu_torch.pallas_ray as TR
+    for path, nz in (("shared", 137), ("global", 12001)):
+        for dtype in (torch.float64, torch.float32):
+            z, x, fields = _fan_case("O", nz, 2, (5e6, 7e6), dtype)
+            geo = TR.fan_geometry(z, x, "cartesian")
+            assert TR.fan_path(geo, dtype) == path
+            tab = TR.pack_tables(geo, *fields)
+            elevs = torch.linspace(8.0, 60.0, 16, dtype=dtype, device=cuda)
+            ds = torch.tensor(10.0, dtype=dtype, device=cuda)
+            TR.reset_counters()
+            k = TR.launch_fan(geo, tab, elevs, ds, n_steps=400)
+            torch.cuda.synchronize()
+            p = TR.plain_fan(geo, tab, elevs, ds, n_steps=400)
+            assert TR.LAUNCHES["fan_2d"] == 1
+            for key in ("status_code", "steps_taken"):
+                assert torch.equal(k[key], p[key]), (path, dtype, key)
+            assert (k["status_code"] == 1).any()
+            tol = (dict(rtol=1e-8, atol=1e-10) if dtype == torch.float64
+                   else dict(rtol=1e-4, atol=1e-6))
+            for key in TR.OUTPUTS:
+                assert torch.allclose(k[key].double(), p[key].double(),
+                                      equal_nan=True, **tol), (path, dtype,
+                                                               key)
+
+
+def test_fan_kernel_on_more_frequencies_than_a_grid_row(cuda):
+    """65,537 frequencies in one launch (more than a launch grid's y
+    extent), f64, against the plain version: identical status codes, step
+    counts and landing masks, rtol 1e-8, atol 1e-10."""
+    import pyrayhf_tpu_torch.pallas_ray as TR
+    F = 65537
+    z, x, fields = _fan_case("O", 16, 8, tuple(np.linspace(2e6, 30e6, F)))
+    geo = TR.fan_geometry(z, x, "cartesian")
+    tab = TR.pack_tables(geo, *fields)
+    elevs = torch.tensor([10.0, 60.0], dtype=torch.float64, device=cuda)
+    ds = torch.tensor(10.0, dtype=torch.float64, device=cuda)
+    TR.reset_counters()
+    k = TR.launch_fan(geo, tab, elevs, ds, n_steps=64)
+    p = TR.plain_fan(geo, tab, elevs, ds, n_steps=64)
+    assert TR.LAUNCHES["fan_2d"] == 1 and k["status_code"].shape == (F, 2)
+    for key in ("status_code", "steps_taken"):
+        assert torch.equal(k[key], p[key]), key
+    assert torch.equal(torch.isnan(k["ground_range_km"]),
+                       torch.isnan(p["ground_range_km"]))
+    for key in TR.OUTPUTS:
+        assert torch.allclose(k[key], p[key], rtol=1e-8, atol=1e-10,
+                              equal_nan=True), key

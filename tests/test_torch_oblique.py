@@ -198,3 +198,35 @@ def test_crossings_match_jax():
             assert np.allclose(g.numpy(), r, rtol=1e-12, atol=0,
                                equal_nan=True)
     assert torch.isfinite(lo_t[0]).any() and torch.isnan(lo_t[0]).any()
+
+
+def _two_node_kw():
+    """A range-independent slice written with a 2-node x axis: a Gaussian
+    F layer (1e12 m^-3 at 300 km) on 121 uniform heights, 80-680 km."""
+    x = np.array([-100.0, 3000.0])
+    z = np.linspace(80.0, 680.0, 121)
+    ne = np.repeat(1e12 * np.exp(-((z - 300.0) / 50.0) ** 2)[:, None], 2, 1)
+    return dict(f0s_hz=np.array([5.0e6, 7.0e6]), ground_range_km=1000.0,
+                x_grid_km=x, z_grid_km=z, Ne2d=ne,
+                Babs2d=np.full(ne.shape, 4.5e-5),
+                bpsi2d=np.full(ne.shape, np.deg2rad(30.0)), n_elev=16,
+                s_max_km=1500.0)
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_synthesize_2d_on_a_two_node_x_axis_matches_jax(engine):
+    """Every key as the JAX package gives it, on each engine (the kernel
+    engine through its plain version here): the x gradient is the clamped
+    edge stencil's exact 0 of a field constant in x."""
+    kw = _two_node_kw()
+    ref = JO.synthesize_oblique_ionogram_2d(engine=engine, **kw)
+    TR.reset_counters()
+    got = TO.synthesize_oblique_ionogram_2d(engine=engine, device="cpu",
+                                            **kw)
+    assert TR.PLAIN_CALLS["fan_2d"] == (engine == "pallas")
+    assert set(got) == set(ref)
+    for k in ref:
+        r, g = np.asarray(ref[k]), got[k].numpy()
+        assert g.shape == r.shape, k
+        assert np.allclose(r, g, rtol=RTOL, atol=ATOL, equal_nan=True), k
+    assert np.isfinite(got["delay_low_sec"].numpy()).any()
