@@ -7,7 +7,8 @@ Needs one CUDA card (``cuda:0``) and ``nvcc``; without a card it exits
 non-zero before printing any result. Phases, each of which raises on
 failure:
 
-1. card identity (``nvidia-smi``) and the build of ``csrc/`` (nvcc, sm_90a);
+1. card identity (``nvidia-smi``) and the build of ``csrc/`` (nvcc, sm_90a),
+   with each kernel's registers by name (``cuobjdump``);
 2. the main path through the user entry points, f32, launch counters
    zeroed first and read after: ``vertical_forward_operator_batch(engine=
    "auto")`` O and X at B=1024 × F=175 × 200 points on a 620-node uniform
@@ -30,7 +31,10 @@ failure:
    sweep's, and equal to a central finite difference of the kernel's
    forward (f64) along one density direction;
 6. timing: median of 10 launches after warm-up (CUDA events), kernel and
-   plain version at O-200 B=1024 and X-20k B=32, each beside its bound;
+   plain version at O-200 B=1024 and X-20k B=32 (kernels 1 and 4 in f64
+   too, and the sweep at X-20k on the non-uniform grid), each beside its
+   bound (the tail on the pairs the solve marks valid, whose share it
+   prints) and the launch layout ``launch_shape`` chose;
 7. the 2-D oblique ionogram (``csrc/fan2d.cu``): the main path, counters
    zeroed first and read after — ``synthesize_oblique_ionogram_2d`` and
    ``_fan_2d_fn`` with ``engine="auto"`` on f32 CUDA tensors, F=64 × E=128
@@ -57,9 +61,10 @@ failure:
    (2 launches, no plain call); its outputs against the plain version in
    f32 (≤ 1e-3 km) and, through the same entry point in f64, in f64
    (≤ 1e-6 km), f32 against plain f64 (≤ 0.1 km, phase 4's rule), and the
-   f64 kernel against kernel 3 (``gather``) on the same prepared inputs
-   (≤ 1e-9 km, identical masks), and the kernel equal to kernel 3 bit for
-   bit in f32 and f64; the same at P=2,000 on the B=64 check set;
+   f64 kernel against kernel 3 (``gather``, a warp per pair) on the same
+   prepared inputs (≤ 1e-9 km, identical masks), and the kernel equal to
+   kernel 3 bit for bit in f32 and f64; the same at P=2,000 on the B=64
+   check set;
    autograd through ``ionogram_pallas_mxu`` against the plain sweep's and
    a central difference; timing of the kernel, its wrapper, its plain
    version and kernel 3 beside the bound (the function's own work on the
@@ -119,13 +124,15 @@ CP, G_P = 8.97866275, 2.799249247e10
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}
 PEAK_TENSOR = {"float32": 495e12, "float64": 67e12}
 PEAK_BYTES = 3.35e12
-# operations per grid point of the ionogram kernels, counted from
-# csrc/ionogram.cu (each add, multiply, division, sqrt, sin, cos, floor and
-# comparison as one): the resample and mup_stable ~115, plus ~30 for the
-# sweep's binary search; the in-kernel solve adds ~1 (O) or ~10 (X) per
-# altitude node and frequency
+# operations per grid point of a valid (profile, frequency) pair in the
+# ionogram kernels, counted from csrc/ionogram.cu (each add, multiply,
+# division, sqrt, sin, cos, floor and comparison as one): the resample and
+# mup_stable ~115, plus the sweep's 2 comparisons that keep a point in its
+# last segment (its index on any grid); an escaped pair's vh is NaN, with
+# no work. The in-kernel solve adds ~1 (O) or ~10 (X) per altitude node
+# and frequency, for every pair.
 ION_OPS_POINT = {"gather_osolve": 115, "gather_xsolve": 115,
-                 "gather": 115, "sweep": 145}
+                 "gather": 115, "sweep": 117}
 ION_OPS_NODE = {"gather_osolve": 1, "gather_xsolve": 10, "gather": 0,
                 "sweep": 0}
 
@@ -744,7 +751,7 @@ def mxu_phase(torch, prt, dev, card, freqs, alt, main_prof, check_prof,
     """The tensor-core one-hot kernel: main path (counted), against its
     plain version and kernel 3, gradient, timing. Returns its kernels-line
     entry."""
-    from pyrayhf_tpu_torch import pallas_vh as pv, profiling
+    from pyrayhf_tpu_torch import cuda_ext, pallas_vh as pv, profiling
 
     inv = pv.uniform_inv_dalt(alt)
     vfo = prt.vertical_forward_operator_batch
@@ -789,6 +796,24 @@ def mxu_phase(torch, prt, dev, card, freqs, alt, main_prof, check_prof,
           f"kernel 3 on the same prepared inputs (f64 ≤ {TOL_MXU_K3:g} km; "
           f"f32 and f64 bit for bit, identical NaN masks)", flush=True)
 
+    def kernel3_warp(a):
+        """Kernel 3 on prepared gather args in one frequency group of 8
+        warps, a warp per pair (a check's launch: counted nowhere)."""
+        B, C, N = a.tab.shape
+        F, P = a.freq_hz.shape[0], a.mult.shape[0]
+        out = torch.empty((B, F), dtype=a.tab.dtype, device=dev)
+        err = cuda_ext.load().pyrayhf_ionogram(
+            int(a.tab.dtype == torch.float64), 1 if a.mode_mult > 0 else -1,
+            0, 1, a.tab.data_ptr(), C, B, N, a.mult.data_ptr(),
+            a.omm.data_ptr(), a.dmult.data_ptr(), P, a.freq_hz.data_ptr(),
+            F, 1, 8, 0, a.span.data_ptr(), a.slope.data_ptr(),
+            a.emax.data_ptr(), a.valid.data_ptr(), a.alt_min.data_ptr(),
+            float(a.inv_dalt), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"kernel 3 warp launch: "
+              f"{cuda_ext.error_string(err)} ({err})")
+        return out
+
     def bitwise(name, out, ref):
         nan = torch.isnan(out)
         same = (torch.equal(nan, torch.isnan(ref))
@@ -817,7 +842,10 @@ def mxu_phase(torch, prt, dev, card, freqs, alt, main_prof, check_prof,
         errs32.append(compare(
             f"{name} f32 vs plain f64", vh32, p64, TOL_F32, degen, False,
             excused=over_tol(p32, p64, TOL_F32) & ~degen))
-        k3 = {dt: pv.launch_kernel(args("gather", prof, mm, P, dt))
+        # kernel 3 a warp per pair, whose sum over a pair's points runs in
+        # the mxu kernel's order (on long grids launch_kernel gives it a
+        # block per pair, which adds in another order)
+        k3 = {dt: kernel3_warp(args("gather", prof, mm, P, dt))
               for dt in (torch.float32, torch.float64)}
         errs_k3.append(compare(f"{name} f64 vs kernel 3 f64", vh64,
                                k3[torch.float64], TOL_MXU_K3, no_rows, True))
@@ -1305,6 +1333,9 @@ def main():
     print(f"build: {so.name}: nvcc {compile_s:.2f} s, build+load "
           f"{time.perf_counter() - t0:.2f} s; ptxas: "
           f"{'; '.join(sorted(set(regs)))}", flush=True)
+    print("registers and stack per kernel (cuobjdump --dump-resource-usage): "
+          + "; ".join(f"{name}: {use}" for name, use in
+                      cuda_ext.resource_usage()), flush=True)
 
     rng = np.random.default_rng(SEED)
     alt = np.linspace(80.0, 699.0, N_ALT)
@@ -1556,14 +1587,15 @@ def main():
 
     # ---- 6. timing -------------------------------------------------------
     print(f"timing: median of {TIMING_ITERS} launches after 3 warm-up "
-          f"launches, CUDA events, f32; card: {card}", flush=True)
+          f"launches, CUDA events; card: {card}", flush=True)
     timing = {}
 
-    def time_kind(kind, mm, inp, P, label):
+    def time_kind(kind, mm, inp, P, label, plain_iters=TIMING_ITERS):
         fr, td, tb, tpsi, ta = inp
         kinv = None if kind == "sweep" else pv.uniform_inv_dalt(ta)
         a = pv.prepare_kernel_args(kind, *inp, mm, P, kinv)
         B, F = td.shape[0], fr.shape[0]
+        dname = str(td.dtype).split(".")[-1]
         k_ms, _ = profiling.time_launch(pv.launch_kernel, a,
                                         iters=TIMING_ITERS)
         if kind == "sweep":
@@ -1572,7 +1604,8 @@ def main():
         else:
             def plain():
                 return pv.plain_ionogram(a)
-        p_ms, _ = profiling.time_launch(plain, iters=TIMING_ITERS)
+        p_ms, _ = profiling.time_launch(plain, iters=plain_iters,
+                                        warmup=min(3, plain_iters))
         if kind == "sweep":
             def wrapper():
                 return prt.ionogram_pallas(*inp, mode_mult=mm, n_points=P)
@@ -1582,32 +1615,61 @@ def main():
                     *inp, mode_mult=mm, n_points=P,
                     x_in_kernel_solve=(kind != "gather"))
         w_ms, _ = profiling.time_launch(wrapper, iters=TIMING_ITERS)
-        C, N = a.tab.shape[1:]
-        ops = B * F * (P * ION_OPS_POINT[kind] + N * ION_OPS_NODE[kind])
-        nbytes = 4 * (a.tab.numel() + F + 3 * P + 1 + B * F)
+        N = a.tab.shape[2]
+        item = a.tab.element_size()
+        # the pairs the solve marks valid: the host solve's, or the
+        # in-kernel solve's plain version on the same table
+        if kind == "gather_osolve":
+            valid = pv._osolve_plain(a)[3]
+        elif kind == "gather_xsolve":
+            valid = pv._xsolve_plain(a)[3]
+        else:
+            valid = a.valid != 0
+        n_valid = int(valid.sum())
+        ops = (n_valid * P * ION_OPS_POINT[kind]
+               + B * F * N * ION_OPS_NODE[kind])
+        nbytes = item * (a.tab.numel() + F + 3 * P + 1 + B * F)
         if kind in ("gather", "sweep"):      # the host solve's [B, F] rows
-            nbytes += 13 * B * F
-        b_ms, b_by = bound_ms(ops, nbytes, "float32")
-        row = {"shape": f"B={B} F={F} P={P} N={ta.shape[0]} f32 {label}",
+            nbytes += (3 * item + 1) * B * F
+        b_ms, b_by = bound_ms(ops, nbytes, dname)
+        lay = pv.kernel_layout(a)
+        layout = (f"{'block' if lay.per_block else 'warp'} per pair, "
+                  f"{lay.warps} warps, {lay.n_groups} groups")
+        row = {"shape": f"B={B} F={F} P={P} N={ta.shape[0]} "
+                        f"f{8 * item} {label}",
                "kernel_ms": k_ms, "plain_ms": p_ms, "wrapper_ms": w_ms,
                "bound_ms": b_ms, "bound_by": b_by,
+               "valid_share": n_valid / (B * F), "layout": layout,
                "kernel_vh_per_s": profiling.vh_evals_per_s(B, F, k_ms),
                "plain_vh_per_s": profiling.vh_evals_per_s(B, F, p_ms),
                "wrapper_vh_per_s": profiling.vh_evals_per_s(B, F, w_ms)}
         print(f"  {kind} {row['shape']}: kernel {k_ms:.4f} ms "
               f"({row['kernel_vh_per_s']:.4e} vh/s; bound {b_ms:.4f} ms, "
-              f"{b_by}: {ops:.4e} ops, {nbytes:.4e} bytes), wrapper "
+              f"{b_by}: {ops:.4e} ops on the {row['valid_share']:.4f} valid "
+              f"share, {nbytes:.4e} bytes; layout {layout}), wrapper "
               f"{w_ms:.4f} ms ({row['wrapper_vh_per_s']:.4e} vh/s), plain "
-              f"{p_ms:.4f} ms ({row['plain_vh_per_s']:.4e} vh/s)",
+              f"{p_ms:.4f} ms ({row['plain_vh_per_s']:.4e} vh/s); {card}",
               flush=True)
         return row
 
+    main64 = [T(a, torch.float64) for a in (freqs, den, bmag, bpsi, alt)]
+    x64 = [T(a, torch.float64) for a in (freqs, xden, xbmag, xbpsi, alt)]
+    xnu_in = [T(a[:B_X20K] if np.ndim(a) == 2 else a)
+              for a in (freqs, nden, nbmag, nbpsi, alt_nu)]
     timing["gather_osolve"] = time_kind("gather_osolve", 1.0, main_in,
                                         P_MAIN, "O")
     timing["gather_xsolve"] = time_kind("gather_xsolve", -1.0, main_in,
                                         P_MAIN, "X")
     timing["gather"] = time_kind("gather", -1.0, main_in, P_MAIN, "X")
     timing["sweep"] = time_kind("sweep", -1.0, x_in, P_X20K, "X")
+    # f64 rows of kernels 1 and 4, and the sweep on a grid that is really
+    # non-uniform (its cursor moves at uneven steps); the plain sweep at
+    # X-20k takes seconds, so it is timed once there
+    extra = {"gather_osolve": {"f64": time_kind("gather_osolve", 1.0, main64,
+                                                P_MAIN, "O")},
+             "sweep": {"f64": time_kind("sweep", -1.0, x64, P_X20K, "X", 1),
+                       "alt_nu": time_kind("sweep", -1.0, xnu_in, P_X20K,
+                                           "X, non-uniform alt_nu", 1)}}
     time_kind("gather_xsolve", -1.0, x_in, P_X20K, "X")
     time_kind("sweep", 1.0, main_in, P_MAIN, "O")
     e2e_ms, _ = profiling.time_launch(
@@ -1650,7 +1712,8 @@ def main():
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "wrapper_ms": row["wrapper_ms"],
-            "shape": row["shape"]})
+            "valid_share": row["valid_share"], "layout": row["layout"],
+            "shape": row["shape"], **extra.get(k, {})})
     kernels.append(mxu_entry)
     kernels.append(fan_entry)
     print(json.dumps({"kernels": kernels}))

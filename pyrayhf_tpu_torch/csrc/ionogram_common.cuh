@@ -50,8 +50,12 @@ __device__ __forceinline__ T mup_stable(T X, T Y, T psi_deg, T eps_crit,
                                         T eps_max, bool& ok_out) {
   const bool use_an = (eps_crit < T(1e-3)) && (eps_crit <= eps_max);
   const T psi = psi_deg * T(kPI / 180.0);
-  const T sinp = sin(psi);
-  const T cosp = cos(psi);
+  T sinp, cosp;  // one call, the same values as sin and cos
+  if constexpr (sizeof(T) == 4) {
+    sincosf(psi, &sinp, &cosp);
+  } else {
+    sincos(psi, &sinp, &cosp);
+  }
   const T YT = Y * sinp;
   const T YL = Y * cosp;
 

@@ -24,7 +24,7 @@ import time
 from pathlib import Path
 
 __all__ = ["build", "load", "find_nvcc", "error_string", "build_log",
-           "MAX_SMEM_BYTES"]
+           "resource_usage", "MAX_SMEM_BYTES"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
@@ -121,6 +121,33 @@ def build_log():
     return log.read_text() if log.exists() else ""
 
 
+def resource_usage():
+    """[(kernel, "REG:n STACK:n ...")] of the current library, by
+    ``cuobjdump --dump-resource-usage`` (the toolkit's, beside ``nvcc``),
+    with the kernel names demangled by ``cu++filt`` where it exists."""
+    so, _ = build()
+    tools = find_nvcc().parent
+    r = subprocess.run([str(tools / "cuobjdump"), "--dump-resource-usage",
+                        str(so)], capture_output=True, text=True, check=True)
+    rows, name = [], None
+    for ln in r.stdout.splitlines():
+        ln = ln.strip()
+        if ln.startswith("Function ") and ln.endswith(":"):
+            name = ln[len("Function "):-1]
+        elif name and ln.startswith("REG:"):
+            rows.append([name, " ".join(ln.split()[:2])])
+            name = None
+    filt = tools / "cu++filt"
+    if rows and filt.exists():
+        names = subprocess.run([str(filt), *(n for n, _ in rows)],
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        if len(names) == len(rows):
+            for row, n in zip(rows, names):
+                row[0] = n.replace("(anonymous namespace)::", "")
+    return [tuple(row) for row in rows]
+
+
 def load():
     """The loaded kernel library (built at first use), with typed entries."""
     global _lib
@@ -133,10 +160,12 @@ def load():
                 i, i, i, i,            # dtype, mode, solve, uniform
                 p, i, i, i,            # tab, C, B, N
                 p, p, p, i,            # mult, omm, dmult, P
-                p, i, i, i,            # freq, F, f_group, warps
+                p, i, i, i, i,         # freq, F, n_groups, warps, per_block
                 p, p, p, p,            # span, slope, emax, valid
                 p, d, p, p]            # alt_min, inv_dalt, out, stream
             lib.pyrayhf_ionogram.restype = ctypes.c_int
+            lib.pyrayhf_ionogram_blocks_per_sm.argtypes = [i] * 7
+            lib.pyrayhf_ionogram_blocks_per_sm.restype = ctypes.c_int
             lib.pyrayhf_ionogram_mxu.argtypes = [
                 i, i, p, i, i, i,      # dtype, mode, tab, B, N, K1
                 p, p, p, i,            # mult, omm, dmult, P

@@ -107,7 +107,7 @@ def vertical_forward_operator_batch(freq, den, bmag, bpsi, alt,
 
     * ``"parity"`` — the searchsorted/gather regrid path, numerically
       closest to the reference (any device, any grid);
-    * ``"pallas"`` — the sweep-kernel port (shared grid; binary-search
+    * ``"pallas"`` — the sweep-kernel port (shared grid; upper-bound
       index, so any grid spacing);
     * ``"pallas_gather"`` — the gather kernels with the reflection solve
       in the kernel (shared, uniformly spaced grid);

@@ -15,8 +15,13 @@ kernel (counter name) ← replaced TPU kernel; its plain PyTorch version:
   uniform index); ``_xsolve_plain`` + ``_resample_plain``;
 * ``gather`` ← ``_kernel_gather`` (solve on the host, uniform index);
   :func:`prepare_profile_tables` + ``_resample_plain``;
-* ``sweep`` ← ``_kernel`` (solve on the host, any grid: binary-search
-  index); :func:`ionogram_fast_xla`.
+* ``sweep`` ← ``_kernel`` (solve on the host, any grid: the segment of
+  each point by a cursor each lane carries along the grid, equal to a
+  binary search); :func:`ionogram_fast_xla`.
+
+:func:`launch_shape` picks the launch layout from (B, F, P, the SM count
+and the blocks an SM holds): a warp per (profile, frequency) on short
+grids, a block per pair on long ones; escaped pairs do no work.
 
 A fifth kernel, ``mxu`` ← ``_kernel_mxu`` (``csrc/ionogram_mxu.cu``),
 computes what ``gather`` computes but does the resample as one-hot matrix
@@ -37,7 +42,7 @@ discretisation; the TPU kernels had no backward kernel either.
 
 import dataclasses
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -416,7 +421,7 @@ class KernelArgs:
     :func:`_pack_segment_table`, plus cummax(den) as channel 8 for the
     O-mode in-kernel solve). ``span``/``slope``/``emax``/``valid`` [B, F]
     are set when the solve runs outside the kernel. ``inv_dalt`` selects
-    the arithmetic index (uniform grid); None the binary search. For
+    the arithmetic index (uniform grid); None the upper-bound one. For
     ``kind="mxu"``, ``tab`` is the one-hot table [B, 128, K1] of
     :func:`_mxu_table` and ``n_alt`` the number of altitude nodes.
     """
@@ -666,24 +671,102 @@ def plain_ionogram(a):
 # Kernel launch
 # --------------------------------------------------------------------------
 
-_WARPS = 8                      # warps per block: one frequency per warp
+_WARPS = 8                      # warps per block (256 threads)
+_MAX_GROUPS = 65535             # the launch grid's y extent
+# a block per (profile, frequency) once each of its threads has this many
+# points, and as many as each warp the card holds at once would have pairs
+# in the warp layout (the crossover timed by tools/ionogram_attribution.py)
+_BLOCK_STRIDES = 4
+# warp layout: blocks per resident block of the card, so that the block
+# scheduler evens out profiles with more or fewer valid frequencies
+_WAVES = 8
 
 
-def launch_shape(B, F, n_sm):
-    """(frequencies per block, warps per block) for a [B, F] launch.
+class Layout(NamedTuple):
+    """How ``csrc/ionogram.cu`` is launched: a [B, n_groups] grid of blocks
+    of ``warps`` warps; group g takes frequencies g, g + n_groups, ...;
+    ``per_block`` puts a whole block on each (profile, frequency), else a
+    warp."""
+    n_groups: int
+    warps: int
+    per_block: bool
 
-    One block per (profile, frequency group); groups are split only as far
-    as needed to put about four blocks on every SM.
+
+def launch_shape(B, F, P, n_sm, blocks_per_sm):
+    """The :class:`Layout` of a [B, F] launch of ``csrc/ionogram.cu`` at P
+    grid points on ``n_sm`` SMs, each of which holds ``blocks_per_sm``
+    blocks of the kernel at once.
+
+    Blocks of 8 warps. A block per pair, one frequency per group, once
+    each of the block's threads has at least ``_BLOCK_STRIDES`` points and
+    at least as many points as each warp the card holds would have pairs
+    in the warp layout: then a warp per pair would leave the card part
+    idle while its last warps end, and a block per pair pays back its own
+    table load and solve. Else a warp per pair, with the frequencies split
+    into as many groups as give about ``_WAVES`` blocks for each block the
+    card holds at once, and never fewer than one frequency per warp: more
+    blocks even out the work, each loads the table once more.
     """
+    slots = n_sm * max(1, blocks_per_sm)
+    pairs_per_warp = B * F / (slots * _WARPS)
+    if P >= 32 * _WARPS * max(_BLOCK_STRIDES, pairs_per_warp):
+        return Layout(min(F, _MAX_GROUPS), _WARPS, True)
+    n_groups = max(1, min(round(_WAVES * slots / B), -(-F // _WARPS),
+                          _MAX_GROUPS))
+    return Layout(n_groups, _WARPS, False)
+
+
+def mxu_launch_shape(B, F, n_sm):
+    """(frequencies per block, warps per block) of a [B, F] launch of
+    ``csrc/ionogram_mxu.cu``: one block per (profile, contiguous frequency
+    group); groups are split only as far as needed to put about four
+    blocks on every SM."""
     n_groups = max(1, min(-(-F // _WARPS), -(-4 * n_sm // B)))
     return -(-F // n_groups), _WARPS
+
+
+@functools.lru_cache(maxsize=64)
+def blocks_per_sm(device_index, dtype_code, mode, solve, uniform, C, N):
+    """Blocks of ``_WARPS`` warps of one ``csrc/ionogram.cu`` instantiation
+    that one SM of CUDA device ``device_index`` holds at once with a
+    [C, N] table: the CUDA occupancy calculator, from the registers the
+    compiler allotted and the block's shared memory."""
+    from . import cuda_ext
+    lib = cuda_ext.load()
+    with torch.cuda.device(device_index):
+        n = lib.pyrayhf_ionogram_blocks_per_sm(
+            dtype_code, mode, int(solve), int(uniform), C, N, _WARPS)
+    if n < 0:
+        raise RuntimeError(f"ionogram kernel occupancy: "
+                           f"{cuda_ext.error_string(-n)} ({-n})")
+    return n
+
+
+def kernel_layout(a):
+    """The :class:`Layout` :func:`launch_kernel` launches prepared args
+    ``a`` in, on the card ``a`` lies on."""
+    B, C, N = a.tab.shape
+    dev = a.tab.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    bps = blocks_per_sm(dev.index, int(a.tab.dtype == torch.float64),
+                        1 if a.mode_mult > 0 else -1,
+                        a.kind in ("gather_osolve", "gather_xsolve"),
+                        a.inv_dalt is not None, C, N)
+    return launch_shape(B, a.freq_hz.shape[0], a.mult.shape[0], n_sm, bps)
+
+
+def ionogram_smem_bytes(C, N, itemsize):
+    """Dynamic shared memory of one ``csrc/ionogram.cu`` block: the [C, N]
+    table and 8 warp sums."""
+    return itemsize * (C * N + 8)
 
 
 def launch_kernel(a):
     """Launch ``csrc/ionogram.cu`` for prepared args; returns vh [B, F].
 
-    Checks device, dtype and contiguity, launches on the current stream,
-    and raises on any CUDA error the launch reports.
+    Checks device, dtype and contiguity, launches on the current stream in
+    :func:`kernel_layout`'s layout, and raises on any CUDA error the launch
+    reports.
     """
     from . import cuda_ext
 
@@ -708,25 +791,25 @@ def launch_kernel(a):
         if t.dtype != dtype or t.device != dev or not t.is_contiguous():
             raise ValueError("kernel operands must share dtype and device "
                              "and be contiguous")
-    smem = tab.element_size() * C * N
+    smem = ionogram_smem_bytes(C, N, tab.element_size())
     if smem > cuda_ext.MAX_SMEM_BYTES:
         raise ValueError(f"profile table of {smem} bytes exceeds the "
                          f"{cuda_ext.MAX_SMEM_BYTES}-byte shared memory of "
                          "one block (N_alt too large)")
     out = torch.empty((B, F), dtype=dtype, device=dev)
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    f_group, warps = launch_shape(B, F, n_sm)
+    code = 0 if dtype == torch.float32 else 1
+    mode = 1 if a.mode_mult > 0 else -1
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
+        lay = kernel_layout(a)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = cuda_ext.load().pyrayhf_ionogram(
-            0 if dtype == torch.float32 else 1,
-            1 if a.mode_mult > 0 else -1, int(solve), int(uniform),
+            code, mode, int(solve), int(uniform),
             ptr(tab), C, B, N, ptr(a.mult), ptr(a.omm), ptr(a.dmult), P,
-            ptr(a.freq_hz), F, f_group, warps,
+            ptr(a.freq_hz), F, lay.n_groups, lay.warps, int(lay.per_block),
             ptr(a.span), ptr(a.slope), ptr(a.emax), ptr(a.valid),
             ptr(a.alt_min), float(a.inv_dalt or 0.0), ptr(out), stream)
     if err != 0:
@@ -783,7 +866,7 @@ def launch_mxu(a):
                          "one block (N_alt too large)")
     out = torch.empty((B, F), dtype=dtype, device=dev)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    f_group, warps = launch_shape(B, F, n_sm)
+    f_group, warps = mxu_launch_shape(B, F, n_sm)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = cuda_ext.load().pyrayhf_ionogram_mxu(
@@ -908,8 +991,9 @@ def ionogram_pallas(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
 
     Same discretisation as :func:`pyrayhf_tpu_torch.forward
     .vertical_forward_operator_batch`, for any shared altitude grid
-    (uniform or not): the kernel finds each point's segment by binary
-    search, the plain version (CPU tensors) is :func:`ionogram_fast_xla`.
+    (uniform or not): the kernel finds each point's segment by an
+    upper-bound search (a cursor per lane), the plain version (CPU
+    tensors) is :func:`ionogram_fast_xla`.
     ``config`` supplies mode (as ±1 mode_mult) and n_points when not
     explicit. ``p_chunk``, ``f_tile`` and ``b_tile`` are accepted for
     signature compatibility and unused. Differentiable through

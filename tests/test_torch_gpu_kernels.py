@@ -4,13 +4,15 @@ Marked ``gpu``: they need a CUDA device and ``nvcc`` (the kernels are
 built at first use) and skip without a card. Run them on the card with
 ``python -m pytest tests/test_torch_gpu_kernels.py -q -m gpu``.
 Tolerances: f64 identical NaN masks and ≤ 1e-6 km; f32 within 0.1 km of
-the f64 plain result (the accuracy contract); the mxu kernel against
-kernel 3 ≤ 1e-9 km in f64, and bit for bit, f32 and f64, where the inputs
-exercise the edges of its banded products. The ray-fan kernel: f64
-identical status codes and landing masks, rtol 1e-8, atol 1e-10; f32
-identical status codes, landing masks and step counts, rtol 1e-4, atol
-1e-6 (the four path sums add in another order in the plain version); the
-kernel's paired f32 division bit for bit the IEEE one.
+the f64 plain result (the accuracy contract) and, on the ionogram
+kernels' edge cases, within 1e-3 km of plain f32 with identical masks;
+the mxu kernel against kernel 3 ≤ 1e-9 km in f64, and bit for bit, f32
+and f64, where the inputs exercise the edges of its banded products. The
+ray-fan kernel: f64 identical status codes and landing masks, rtol 1e-8,
+atol 1e-10; f32 identical status codes, landing masks and step counts,
+rtol 1e-4, atol 1e-6 (the four path sums add in another order in the
+plain version); the kernel's paired f32 division bit for bit the IEEE
+one.
 """
 
 import ctypes
@@ -153,6 +155,157 @@ def test_mxu_kernel_matches_plain_and_kernel3(cuda, mode_mult, n_points,
     assert np.abs(k64[m] - g64[m]).max() <= 1e-9
     m32 = m & np.isfinite(k32)
     assert np.abs(k32[m32] - ref[m32]).max() <= 0.1
+
+
+# ---- csrc/ionogram.cu: escaped pairs, the sweep's cursor, both layouts --
+
+ION_KINDS = [("gather_osolve", 1.0), ("gather_xsolve", -1.0),
+             ("gather", 1.0), ("gather", -1.0), ("sweep", 1.0),
+             ("sweep", -1.0)]
+
+
+def _ion_case(case):
+    """(freqs MHz, den, |B|, psi, alt, P) of an edge case of the ionogram
+    kernels (numpy, seeded)."""
+    rng = np.random.default_rng(11)
+    alt = np.linspace(90.0, 550.0, 231)
+    B = 4
+    hm = rng.uniform(250.0, 330.0, (B, 1))
+    den = rng.uniform(1e12, 3e12, (B, 1)) * np.exp(
+        -(alt - hm) ** 2 / (2 * 55.0 ** 2))
+    bmag = np.full_like(den, 3.2e-5)
+    bpsi = rng.uniform(0.0, 90.0, (B, 1)) + 0.0 * den
+    # 0.1-20 MHz: the lowest frequencies are valid, the rest escape; 0.3
+    # and 0.6 MHz lie below the gyrofrequency (X: the first node already
+    # past the cutoff, span -1e-6 km)
+    freqs = np.concatenate([[0.3, 0.6], np.linspace(1.0, 20.0, 31)])
+    P = 200
+    if case == "escaped":           # profile 0 reflects nothing
+        den[0] = 1e6
+    elif case == "strong_field":    # sub-gyro rows up to ~1.5 MHz
+        bmag[:] = 5.5e-5
+        freqs = np.linspace(0.2, 3.0, 15)
+    elif case.startswith("P"):      # P = 2, 37 (no multiple of a warp or
+        P = int(case[1:])           # a block), 20,000 at B = 2
+        if P > 2000:
+            den, bmag, bpsi = den[:2], bmag[:2], bpsi[:2]
+    elif case == "F7":              # fewer frequencies than a block's warps
+        freqs = np.array([0.3, 2.0, 4.0, 6.0, 8.0, 11.0, 19.0])
+    elif case == "F176":            # F no multiple of the group count
+        freqs = np.linspace(0.1, 17.6, 176)
+    return freqs, den, bmag, np.ascontiguousarray(bpsi), alt, P
+
+
+def _first_exceeds(freqs, den, bmag, mode_mult):
+    f = np.asarray(freqs)[None, :] * 1e6
+    s = den[:, :1] * 8.97866275 ** 2 / f ** 2
+    if mode_mult < 0:
+        s = s + bmag[:, :1] * 2.799249247e10 / f
+    return s >= 1.0
+
+
+def _hold(k64, k32, p64, p32, degenerate):
+    """f64 kernel vs plain f64: identical NaN masks, <= 1e-6 km; f32 vs
+    plain f32: identical masks, <= 1e-3 km; f32 vs plain f64 <= 0.1 km
+    outside the first-node rows, except where plain f32 is over 0.1 km too
+    (the f32 limit of the algorithm, ROADMAP Queue 3)."""
+    k64, k32, p64, p32 = (x.double().cpu().numpy()
+                          for x in (k64, k32, p64, p32))
+    for k, p, tol in ((k64, p64, 1e-6), (k32, p32, 1e-3)):
+        assert np.array_equal(np.isnan(k), np.isnan(p))
+        m = np.isfinite(p)
+        assert not m.any() or np.abs(k[m] - p[m]).max() <= tol
+    m = np.isfinite(k32) & np.isfinite(p64) & ~degenerate
+    over = np.abs(np.where(m, k32 - p64, 0.0)) > 0.1
+    excused = np.abs(np.where(m & np.isfinite(p32), p32 - p64, 0.0)) > 0.1
+    assert not (over & ~excused).any()
+
+
+def _ion_run(cuda, kind, mode_mult, args, P, dtype, kernel):
+    t = [torch.as_tensor(a, dtype=dtype, device=cuda) for a in args]
+    if kind == "sweep" and not kernel:
+        return TV.ionogram_fast_xla(*t, mode_mult=mode_mult, n_points=P)
+    inv = None if kind == "sweep" else TV.uniform_inv_dalt(t[4])
+    a = TV.prepare_kernel_args(kind, *t, mode_mult, P, inv)
+    return TV.launch_kernel(a) if kernel else TV.plain_ionogram(a)
+
+
+@pytest.mark.parametrize("case", ["mix", "escaped", "strong_field", "P2",
+                                  "P37", "P20000", "F7", "F176"])
+@pytest.mark.parametrize("kind,mode_mult", ION_KINDS)
+def test_ionogram_kernel_edge_cases(cuda, kind, mode_mult, case):
+    """Every instantiation of csrc/ionogram.cu against its plain version
+    where the redesign could go wrong: an all-escaped profile (its pairs
+    skip the tail), a mix where only the lowest frequencies are valid,
+    sub-gyro first-exceedance rows (valid, span -1e-6 km), P = 2, 37 and
+    20,000 (a warp per pair, then a block per pair), F below a block's
+    warps and F no multiple of the group count."""
+    *args, P = _ion_case(case)
+    outs = {(dt, k): _ion_run(cuda, kind, mode_mult, args, P, dt, k)
+            for dt in (torch.float64, torch.float32) for k in (True, False)}
+    _hold(outs[torch.float64, True], outs[torch.float32, True],
+          outs[torch.float64, False], outs[torch.float32, False],
+          _first_exceeds(args[0], args[1], args[2], mode_mult))
+    k64 = outs[torch.float64, True].cpu().numpy()
+    if case == "escaped":
+        assert np.isnan(k64[0]).all() and np.isfinite(k64[1:]).any()
+    assert np.isfinite(k64).any() and np.isnan(k64).any()
+
+
+@pytest.mark.parametrize("n_points", [200, 2000, 20000])
+@pytest.mark.parametrize("mode_mult", [1.0, -1.0])
+def test_sweep_cursor_on_flat_and_repeated_nodes(cuda, mode_mult, n_points):
+    """The sweep's cursor on a non-uniform grid with a repeated node (a
+    zero-width segment, 1/dalt = 0), a stretch where den, |B| and psi are
+    flat, and the flat extension above each peak, against the plain
+    segment sweep; a warp per pair at P = 200, a block per pair above."""
+    rng = np.random.default_rng(5)
+    alt = np.sort(rng.uniform(90.0, 550.0, 300))
+    alt[0], alt[-1] = 90.0, 550.0
+    alt[120] = alt[119]                                  # repeated node
+    B = 3
+    hm = np.array([[280.0], [310.0], [330.0]])
+    den = np.array([[2.5e12], [1.5e12], [3e12]]) * np.exp(
+        -(alt - hm) ** 2 / (2 * 60.0 ** 2))
+    den[:, 40:60] = den[:, 40:41]                        # flat stretch
+    bmag = np.full((B, alt.size), 4e-5)
+    bpsi = np.full((B, alt.size), 55.0)
+    bpsi[:, 150:] = 62.0
+    freqs = np.concatenate([[0.4], np.linspace(1.0, 18.0, 35)])
+    args = (freqs, den, bmag, bpsi, alt)
+    outs = {(dt, k): _ion_run(cuda, "sweep", mode_mult, args, n_points, dt,
+                              k)
+            for dt in (torch.float64, torch.float32) for k in (True, False)}
+    _hold(outs[torch.float64, True], outs[torch.float32, True],
+          outs[torch.float64, False], outs[torch.float32, False],
+          _first_exceeds(freqs, den, bmag, mode_mult))
+
+
+@pytest.mark.parametrize("kind,mode_mult", [("gather", 1.0), ("gather", -1.0),
+                                            ("sweep", 1.0), ("sweep", -1.0)])
+@pytest.mark.parametrize("n_points", [200, 20000])
+def test_ionogram_kernel_nan_spans(cuda, kind, mode_mult, n_points):
+    """Host-solve rows with a NaN span marked valid: the cursor and the
+    uniform index put every point in segment 0 with a NaN fraction, so no
+    point adds to the sum and vh is NaN; every other pair equals the
+    kernel on the untouched rows bit for bit (the same layout)."""
+    import dataclasses
+    *args, _ = _ion_case("mix")
+    for dtype in (torch.float64, torch.float32):
+        t = [torch.as_tensor(a, dtype=dtype, device=cuda) for a in args]
+        inv = None if kind == "sweep" else TV.uniform_inv_dalt(t[4])
+        a = TV.prepare_kernel_args(kind, *t, mode_mult, n_points, inv)
+        ref = TV.launch_kernel(a)
+        span, valid = a.span.clone(), a.valid.clone()
+        span[1, ::3] = float("nan")
+        valid[1, ::3] = 1
+        k = TV.launch_kernel(dataclasses.replace(a, span=span, valid=valid))
+        hit = torch.zeros_like(valid, dtype=torch.bool)
+        hit[1, ::3] = True
+        assert torch.isnan(k[hit]).all()
+        assert torch.equal(torch.isnan(k[~hit]), torch.isnan(ref[~hit]))
+        fin = ~hit & ~torch.isnan(ref)
+        assert fin.any() and torch.equal(k[fin], ref[fin])
 
 
 def _bands(i0, tile):

@@ -333,12 +333,84 @@ def test_wrappers_raise_off_cpu_and_cuda():
         TV.ionogram_pallas(*args, mode_mult=1.0)
 
 
+def _pairs_of(lay, F):
+    """(group, warp) -> frequencies of ``csrc/ionogram.cu``'s loops: group
+    g takes g, g + n_groups, ...; in the warp layout warp w takes the
+    group's slots w, w + warps, ..., in the block layout every warp takes
+    every slot."""
+    out = {}
+    for g in range(lay.n_groups):
+        for w in range(lay.warps):
+            s0, step = (0, 1) if lay.per_block else (w, lay.warps)
+            out[g, w] = list(range(g + s0 * lay.n_groups, F,
+                                   step * lay.n_groups))
+    return out
+
+
 def test_launch_shape_covers_every_frequency():
     for B, F in [(1, 1), (4, 33), (32, 175), (1024, 175), (10512, 175)]:
-        f_group, warps = TV.launch_shape(B, F, n_sm=132)
+        for P in (2, 200, 2000, 20000):
+            lay = TV.launch_shape(B, F, P, n_sm=132, blocks_per_sm=2)
+            assert 1 <= lay.n_groups <= min(F, 65535)
+            assert 4 <= lay.warps and lay.warps * 32 <= 256
+            got = sorted(f for v in _pairs_of(lay, F).values() for f in v)
+            want = list(range(F)) * (lay.warps if lay.per_block else 1)
+            assert got == sorted(want)
+        f_group, warps = TV.mxu_launch_shape(B, F, n_sm=132)
         n_groups = -(-F // f_group)
         assert f_group >= 1 and warps * 32 <= 256
         assert (n_groups - 1) * f_group < F <= n_groups * f_group
+
+
+@pytest.mark.parametrize("blocks_per_sm", [0, 2, 5])
+def test_launch_shape_picks_the_layout_by_grid_length(blocks_per_sm):
+    """A warp per (profile, frequency) at P = 200 (the gather kernels and
+    the non-uniform route), a block per pair at P = 20,000 (X-20k): a
+    block per pair once each of its 256 threads has 4 points or more, and
+    as many as the pairs each warp the card holds would get; in the warp
+    layout the groups give about 8 blocks for each block the SMs hold at
+    once (at least one a SM)."""
+    short = TV.launch_shape(1024, 175, 200, 132, blocks_per_sm)
+    long = TV.launch_shape(32, 175, 20000, 132, blocks_per_sm)
+    assert not short.per_block and long.per_block
+    assert short.warps == long.warps == 8 and long.n_groups == 175
+    # 8 waves of 132 SMs x blocks_per_sm over 1,024 profiles
+    assert short.n_groups == {0: 1, 2: 2, 5: 5}[blocks_per_sm]
+    # a small batch at P = 200: one frequency per warp at most
+    lay = TV.launch_shape(32, 175, 200, 132, blocks_per_sm)
+    assert not lay.per_block and lay.n_groups == -(-175 // 8)
+    # few pairs: from 4 points a thread
+    assert not TV.launch_shape(1, 7, 1023, 132, blocks_per_sm).per_block
+    assert TV.launch_shape(1, 7, 1024, 132, blocks_per_sm).per_block
+    # 10 pairs for each resident warp: from 2,560 points
+    F = 10 * 132 * max(1, blocks_per_sm) * 8
+    assert not TV.launch_shape(1, F, 2559, 132, blocks_per_sm).per_block
+    assert TV.launch_shape(1, F, 2560, 132, blocks_per_sm).per_block
+    # many pairs (4,096 profiles): a warp per pair even at P = 20,000
+    assert not TV.launch_shape(4096, 175, 20000, 132, blocks_per_sm).per_block
+
+
+@pytest.mark.parametrize("B", [1, 32, 1024])
+@pytest.mark.parametrize("F", [1, 7, 175, 176])
+def test_interleaved_map_assigns_each_frequency_once(B, F):
+    """Every frequency goes to exactly one (block, slot): one warp of one
+    group in the warp layout, one group (all its warps) in the block
+    layout; and a group's frequencies are interleaved, so each group gets
+    some of the lowest (the valid) ones."""
+    for P in (200, 20000):
+        lay = TV.launch_shape(B, F, P, n_sm=132, blocks_per_sm=2)
+        owners = {}
+        for (g, w), fs in _pairs_of(lay, F).items():
+            for f in fs:
+                owners.setdefault(f, set()).add(g if lay.per_block
+                                                 else (g, w))
+        assert sorted(owners) == list(range(F))
+        assert all(len(o) == 1 for o in owners.values())
+        first = {}
+        for f, (o,) in owners.items():
+            g = o if lay.per_block else o[0]
+            first[g] = min(first.get(g, f), f)
+        assert first == {g: g for g in range(lay.n_groups)}
 
 
 def test_osolve_razor_frequencies_match_host_solve():
