@@ -27,14 +27,21 @@ failure:
    20,000 points at B=32; every 16th profile of the global grid, where
    the values over 0.1 km must be exactly those where the plain f32
    version is over 0.1 km too; a non-uniform grid through the sweep;
+   kernel 2 at frequencies on the node cutoffs of Chapman, E-above-valley,
+   two-peak and constant-|B| profiles, times (1 +- n ulp), n <= 4, at 200
+   and 2,000 points (f64 identical NaN masks, <= 1e-6 km; f32 identical
+   NaN masks, <= 1e-3 km or 4 ulps of vh where that is more);
 5. a gradient through the autograd wrapper: finite, equal to the plain
    sweep's, and equal to a central finite difference of the kernel's
    forward (f64) along one density direction;
 6. timing: median of 10 launches after warm-up (CUDA events), kernel and
-   plain version at O-200 B=1024 and X-20k B=32 (kernels 1 and 4 in f64
-   too, and the sweep at X-20k on the non-uniform grid), each beside its
-   bound (the tail on the pairs the solve marks valid, whose share it
-   prints) and the launch layout ``launch_shape`` chose;
+   plain version at O-200 B=1024 and X-20k B=32 (kernels 1-4 in f64 too,
+   kernel 3 in O mode too, and the sweep at X-20k on the non-uniform
+   grid), each beside its bound (the tail on the pairs the solve marks
+   valid, whose share it prints), its issue bound (the SASS instructions
+   of its loops, ``cuda_ext.sass_loops``, over the schedulers' rate at the
+   SM clock read under load) and the launch layout ``launch_shape``
+   chose;
 7. the 2-D oblique ionogram (``csrc/fan2d.cu``): the main path, counters
    zeroed first and read after — ``synthesize_oblique_ionogram_2d`` and
    ``_fan_2d_fn`` with ``engine="auto"`` on f32 CUDA tensors, F=64 × E=128
@@ -99,6 +106,9 @@ B_MAIN, F_MAIN, P_MAIN, N_ALT = 1024, 175, 200, 620
 GLOBAL_GRID = (73, 144)
 B_X20K, P_X20K = 32, 20000
 B_CHECK = 64
+# kernel 2 at cutoffs: frequencies at fx_j and cfx_j times (1 +- n ulp),
+# n <= RAZOR_ULPS, at RAZOR_NODES nodes of each razor profile
+RAZOR_NODES, RAZOR_ULPS = 12, 4
 TIMING_ITERS = 10
 # f32 kernel vs f32 plain: the same operations summed in another order
 # (2.4e-4 km measured on the global grid, H100); f64 kernel vs plain f64
@@ -284,6 +294,25 @@ def card_line():
     return r.stdout.strip().splitlines()[0]
 
 
+def sm_clock_under(torch, fn, seconds=2.0):
+    """The SM clock (MHz) ``nvidia-smi`` reads while ``fn`` is launched
+    again and again (at most ``seconds``)."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                             "--format=csv,noheader,nounits"],
+                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                            text=True)
+    t0 = time.perf_counter()
+    while proc.poll() is None and time.perf_counter() - t0 < seconds:
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+    out, _ = proc.communicate(timeout=60)
+    clock = out.strip().splitlines()[:1]
+    check(proc.returncode == 0 and clock and clock[0].replace(".", "", 1)
+          .isdigit(), f"nvidia-smi clocks.sm: {out!r}")
+    return float(clock[0])
+
+
 def card_state():
     r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,"
                         "temperature.gpu", "--format=csv,noheader"],
@@ -315,6 +344,156 @@ def two_peak(alt):
     e_layer = 9e11 * np.exp(-(alt - 110.0) ** 2 / (2 * 10.0 ** 2))
     den = np.stack([f2, f2 + e_layer])
     return den, np.full_like(den, 3.2e-5), np.full_like(den, 65.0)
+
+
+def razor_profiles(alt, den, bmag, bpsi):
+    """The razor phase's profiles: 8 of the main batch (Chapman F2, some
+    with an E layer above a valley), the two-peak pair, and two of the
+    first with |B| constant in height."""
+    tp = two_peak(alt)
+    flat_b = np.repeat(bmag[:2, :1], alt.size, axis=1)
+    return (np.concatenate([den[:8], tp[0], den[:2]]),
+            np.concatenate([bmag[:8], tp[1], flat_b]),
+            np.concatenate([bpsi[:8], tp[2], bpsi[:2]]))
+
+
+def razor_args(torch, pv, prof, alt, P, dtype, dev):
+    """Prepared kernel-2 (``gather_xsolve``) args whose frequencies sit on
+    cutoffs: for each profile, at RAZOR_NODES nodes spread over the grid,
+    its node cutoff fx_j and prefix maximum cfx_j (``pallas_vh.
+    cutoff_frequencies`` and ``cutoff_table``, in the working dtype) times
+    (1 +- n ulp), n = 0..RAZOR_ULPS."""
+    import dataclasses
+    t = [torch.as_tensor(x, dtype=dtype, device=dev)
+         for x in (np.array([5.0]), *prof, alt)]
+    a = pv.prepare_kernel_args("gather_xsolve", *t, -1.0, P,
+                               pv.uniform_inv_dalt(t[-1]))
+    fx, cfx = pv.cutoff_frequencies(a), pv.cutoff_table(a)
+    nodes = torch.linspace(0, fx.shape[1] - 1, RAZOR_NODES,
+                           device=dev).round().long()
+    base = torch.cat([fx[:, nodes], cfx[:, nodes]]).flatten()
+    base = base[torch.isfinite(base) & (base > 0)]
+    fs, up, down = [base], base, base
+    for _ in range(RAZOR_ULPS):
+        up = torch.nextafter(up, torch.full_like(up, float("inf")))
+        down = torch.nextafter(down, torch.full_like(down, -float("inf")))
+        fs += [up, down]
+    return dataclasses.replace(a, freq_hz=torch.unique(torch.cat(fs)))
+
+
+def sass_function(want, sass):
+    """The SASS loops (``cuda_ext.sass_loops``) of the one kernel whose
+    demangled name holds ``want``."""
+    hits = [v for k, v in sass.items() if want in k]
+    check(len(hits) == 1, f"SASS of {want}: {len(hits)} functions")
+    return hits[0]
+
+
+def ionogram_function(kind, mode_mult, dtype_name):
+    """The instantiation of csrc/ionogram.cu that runs ``kind``."""
+    t = "float" if dtype_name == "float32" else "double"
+    m = "(int)1" if mode_mult > 0 else "(int)-1"
+    return {"gather_osolve": f"ionogram_kernel<{t}, (int)1, (bool)1, (bool)1>",
+            "gather_xsolve": f"gather_kernel<{t}, (int)-1, (bool)1>",
+            "gather": f"gather_kernel<{t}, {m}, (bool)0>",
+            "sweep": f"ionogram_kernel<{t}, {m}, (bool)0, (bool)0>"}[kind]
+
+
+def main_loop(loops, mufu="RSQ"):
+    """The innermost loop with a MUFU ``mufu`` instruction (of several
+    copies, the one whose longest path is longest): the tail's loop over
+    grid points (a MUFU.RSQ: the roots of mu'), the fan's loop over
+    steps."""
+    cand = [lp for lp in loops if lp["path"]
+            and any(mufu in m for m in lp["mufu"])]
+    inner = [lp for lp in cand if not any(
+        o is not lp and lp["start"] <= o["start"] and o["end"] <= lp["end"]
+        for o in cand)]
+    return max(inner, key=lambda lp: lp["longest"])
+
+
+def issue_ms(torch, dev, instructions, clock_mhz):
+    """Warp instructions over the card's issue rate: its SMs x 4
+    schedulers, one warp instruction a cycle each, at ``clock_mhz``."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return 1e3 * instructions / (n_sm * 4 * clock_mhz * 1e6)
+
+
+def issue_bound_ms(torch, pv, kind, a, valid, clock_mhz, sass):
+    """The time the card's schedulers take to issue the kernel's loops
+    (:func:`issue_ms`): the tail loop's instructions an iteration issues
+    (:func:`main_loop`) times its warp iterations (ceil(P/32) a valid
+    pair), and for kernel 2 its solve: the ballot scan (from the bracket's
+    first node to the first exceedance) and the prefix-maximum pass over
+    [0, k-1], each at its loop's instructions per 32 nodes (over the
+    loop's MUFU.RCP, one a node). Other work (binary search, table loads,
+    sums) is not counted. Returns (ms at the fewest instructions an
+    iteration can issue: the bound, ms at the most, {what: count})."""
+    loops = sass_function(ionogram_function(kind, a.mode_mult,
+                                            str(a.tab.dtype)[6:]), sass)
+    tail = main_loop(loops)
+    P = a.mult.shape[0]
+    warp_iters = int(valid.sum()) * -(-P // 32)
+    issued = {k: tail[k] * warp_iters for k in ("path", "longest")}
+    counts = {"tail_instructions": tail["path"],
+              "tail_instructions_longest": tail["longest"],
+              "tail_warp_iterations": warp_iters}
+    if kind == "gather_xsolve":
+        def per_node(vote, k):
+            return min(lp[k] / sum("RCP" in m for m in lp["mufu"])
+                       for lp in loops if lp["path"]
+                       and (lp["vote"] > 0) == vote
+                       and not any("RSQ" in m for m in lp["mufu"])
+                       and any("RCP" in m for m in lp["mufu"]))
+        scan, f0 = xsolve_iterations(torch, pv, a)
+        for k in issued:
+            issued[k] += per_node(True, k) * scan + per_node(False, k) * f0
+        counts.update(scan_instructions=per_node(True, "path"),
+                      scan_iterations=scan,
+                      f0_instructions=per_node(False, "path"),
+                      f0_iterations=f0)
+    return (issue_ms(torch, a.tab.device, issued["path"], clock_mhz),
+            issue_ms(torch, a.tab.device, issued["longest"], clock_mhz),
+            counts)
+
+
+def xsolve_iterations(torch, pv, a, chunk=128):
+    """Warp iterations of kernel 2's solve loops on prepared args, summed
+    over the pairs: the ballot scan (32 nodes an iteration from the first
+    node whose cfx reaches f(1 - delta), to the first exceedance or the
+    last node) and the f0 pass (ceil(k/32), valid pairs)."""
+    cfx = pv.cutoff_table(a)
+    tab = pv._table(a)
+    N = tab.shape[2]
+    f = a.freq_hz
+    fl = f * (1.0 - pv.XSOLVE_MARGIN[tab.dtype])
+    scan = f0 = 0
+    for b0 in range(0, tab.shape[0], chunk):
+        c = cfx[b0:b0 + chunk]
+        den, bm = tab[b0:b0 + chunk, 2], tab[b0:b0 + chunk, 4]
+        s = (den[:, None, :] * (CP * CP) * (1.0 / (f * f))[None, :, None]
+             + bm[:, None, :] * G_P / f[None, :, None])
+        exceed = s >= 1.0
+        kf = torch.where(exceed.any(2), torch.argmax(exceed.to(torch.uint8),
+                                                     dim=2), N)
+        jlo = torch.searchsorted(c.contiguous(),
+                                 fl[None, :].expand(c.shape[0], -1)
+                                 .contiguous())
+        live = jlo < N
+        last = torch.where(kf < N, kf, N - 1)
+        scan += int(torch.where(live, (last - jlo) // 32 + 1, 0).sum())
+        k = torch.clamp(kf, min=1)
+        f0 += int(torch.where(kf < N, (k + 31) // 32, 0).sum())
+    return scan, f0
+
+
+def razor_tol_f32(ref):
+    """The razor phase's f32 tolerance: 1e-3 km, or 4 f32 ulps of the
+    value where that is more (above ~2,000 km: f at the gyrofrequency of
+    a constant-|B| profile, Y ~ 1 at every node, gives vh up to ~1e7 km,
+    where 1e-3 km is below one ulp and any order of the sum differs)."""
+    return np.fmax(TOL_F32_PLAIN, 4 * np.finfo(np.float32).eps
+                      * np.abs(np.asarray(ref.double().cpu())))
 
 
 def degenerate_rows(freqs, den, bmag, mode_mult):
@@ -369,7 +548,7 @@ def compare(name, out, ref, tol, degenerate, masks_equal, excused=None):
     return err
 
 
-def fan_phase(torch, prt, dev, card):
+def fan_phase(torch, prt, dev, card, sass):
     """The 2-D oblique slice: main path (counted), kernel against plain
     version, timing. Returns the kernels-line entry of ``fan_2d``."""
     from pyrayhf_tpu_torch import oblique, profiling
@@ -687,10 +866,29 @@ def fan_phase(torch, prt, dev, card):
         nbytes = needed[name] + (elevs.numel() + len(pr.OUTPUTS) * FAN_F
                                  * FAN_E) * 4
         b_ms, b_by = bound_ms(ops, nbytes, "float32")
+        # issue bound: the step loop's instructions times the warp
+        # iterations, each warp (32 elevations of one frequency) running
+        # as many steps as its longest ray
+        path = pr.fan_path(geo, torch.float32)
+        loop = main_loop(sass_function(
+            f"fan2d_kernel<float, (bool){int(geom == 'spherical')}, "
+            f"(bool){int(path == 'shared')}>", sass), "MUFU")
+        E = taken.shape[-1]
+        per_warp = torch.nn.functional.pad(
+            taken.reshape(-1, E), (0, -E % 32)).reshape(-1, 32).amax(1)
+        warp_iters = int(per_warp.sum())
+        clock = sm_clock_under(torch, launch)
+        i_ms = issue_ms(torch, dev, loop["path"] * warp_iters, clock)
+        i_long = issue_ms(torch, dev, loop["longest"] * warp_iters, clock)
         # the longest ray is a serial chain: its time per step
         max_steps, mean_steps = float(taken.max()), float(taken.mean())
         rows[name] = dict(ms=ms, rays_per_s=FAN_F * FAN_E / (ms * 1e-3),
                           steps=steps, bound_ms=b_ms, bound_by=b_by,
+                          issue_ms=i_ms, issue_ms_longest=i_long,
+                          sm_clock_mhz=clock,
+                          step_instructions=loop["path"],
+                          step_instructions_longest=loop["longest"],
+                          warp_iterations=warp_iters,
                           table_mb=tab.numel() * 4 / 1e6,
                           needed_mb=needed[name] / 1e6,
                           max_steps=max_steps, mean_steps=mean_steps,
@@ -705,7 +903,10 @@ def fan_phase(torch, prt, dev, card):
               f"{rows[name]['us_per_step']:.4f} us per step of the longest "
               f"ray; tables {rows[name]['table_mb']:.1f} MB of which the "
               f"rays need {rows[name]['needed_mb']:.2f} MB, bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
+              f"{b_ms:.4f} ms ({b_by}), issue bound {i_ms:.4f} ms "
+              f"({loop['path']} instructions a step x {warp_iters} warp "
+              f"steps at {clock} MHz; {i_long:.4f} ms at the longest path, "
+              f"{loop['longest']})", flush=True)
     z, x, ne, babs, bpsi, nu = fan_scene("typical")
     fan = oblique._fan_2d_fn(z, x, "O", "cartesian", FAN_E, n_steps, 1)
     fan_args = (T(f0s), T([5.0, 85.0]), T(ne), T(babs), T(bpsi), T(nu),
@@ -734,20 +935,24 @@ def fan_phase(torch, prt, dev, card):
                                            "atol": FAN_ATOL},
         "f32": f32, "ms": r["ms"], "plain_ms": plain_ms,
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "issue_ms": r["issue_ms"], "issue_ms_longest": r["issue_ms_longest"],
+        "sm_clock_mhz": r["sm_clock_mhz"],
         "library_ms": None, "fan_2d_fn_ms": call_ms,
         "fields_ms": fields_ms, "pack_ms": pack_ms,
         "rays_per_s": r["rays_per_s"], "max_steps": r["max_steps"],
         "mean_steps": r["mean_steps"], "us_per_step": r["us_per_step"],
         "block": r["block"], "path": r["path"],
         "timing": {k: {key: v[key] for key in (
-            "ms", "bound_ms", "bound_by", "needed_mb", "max_steps",
-            "mean_steps", "us_per_step", "path")} for k, v in rows.items()},
+            "ms", "bound_ms", "bound_by", "issue_ms", "issue_ms_longest",
+            "needed_mb",
+            "max_steps", "mean_steps", "us_per_step", "path")}
+            for k, v in rows.items()},
         "shape": f"F={FAN_F} E={FAN_E} steps={n_steps} 512x32 cartesian "
                  f"f32"}
 
 
 def mxu_phase(torch, prt, dev, card, freqs, alt, main_prof, check_prof,
-              u_dir):
+              u_dir, sass):
     """The tensor-core one-hot kernel: main path (counted), against its
     plain version and kernel 3, gradient, timing. Returns its kernels-line
     entry."""
@@ -799,12 +1004,12 @@ def mxu_phase(torch, prt, dev, card, freqs, alt, main_prof, check_prof,
     def kernel3_warp(a):
         """Kernel 3 on prepared gather args in one frequency group of 8
         warps, a warp per pair (a check's launch: counted nowhere)."""
-        B, C, N = a.tab.shape
+        B, C, ld = a.tab.shape
         F, P = a.freq_hz.shape[0], a.mult.shape[0]
         out = torch.empty((B, F), dtype=a.tab.dtype, device=dev)
         err = cuda_ext.load().pyrayhf_ionogram(
             int(a.tab.dtype == torch.float64), 1 if a.mode_mult > 0 else -1,
-            0, 1, a.tab.data_ptr(), C, B, N, a.mult.data_ptr(),
+            0, 1, a.tab.data_ptr(), C, B, a.n_alt, ld, a.mult.data_ptr(),
             a.omm.data_ptr(), a.dmult.data_ptr(), P, a.freq_hz.data_ptr(),
             F, 1, 8, 0, a.span.data_ptr(), a.slope.data_ptr(),
             a.emax.data_ptr(), a.valid.data_ptr(), a.alt_min.data_ptr(),
@@ -924,6 +1129,15 @@ def mxu_phase(torch, prt, dev, card, freqs, alt, main_prof, check_prof,
                                           + 4 * B_MAIN * F_MAIN) \
             + B_MAIN * F_MAIN
         b_ms, b_by = bound_ms(ops, nbytes, dname)
+        # issue bound: the tail loop's instructions (one pass of its band
+        # products included) times ceil(P/32) a valid pair
+        tail = main_loop(sass_function(
+            f"ionogram_mxu_kernel<{'float' if dname == 'float32' else 'double'}"
+            ", (int)1>", sass))
+        warp_iters = n_valid * -(-P_MAIN // 32)
+        clock = sm_clock_under(torch, lambda: pv.launch_mxu(a))
+        i_ms = issue_ms(torch, dev, tail["path"] * warp_iters, clock)
+        i_long = issue_ms(torch, dev, tail["longest"] * warp_iters, clock)
         # apart from the bound: the tensor-core flops of the one-hot
         # products the kernel issues on these inputs (mxu_products) and
         # their time at the tensor peak; and, for comparison, those of the
@@ -941,7 +1155,12 @@ def mxu_phase(torch, prt, dev, card, freqs, alt, main_prof, check_prof,
         tc_pr3_ms = 1e3 * tflops_pr3 / PEAK_TENSOR[dname]
         rows[dname] = dict(ms=k_ms, plain_ms=p_ms, wrapper_ms=w_ms,
                            same_function_kernel_ms=k3_ms, bound_ms=b_ms,
-                           bound_by=b_by, scalar_ops=ops, bytes=nbytes,
+                           bound_by=b_by, issue_ms=i_ms,
+                           issue_ms_longest=i_long, sm_clock_mhz=clock,
+                           tail_instructions=tail["path"],
+                           tail_instructions_longest=tail["longest"],
+                           tail_warp_iterations=warp_iters,
+                           scalar_ops=ops, bytes=nbytes,
                            valid_share=n_valid / (B_MAIN * F_MAIN),
                            mma_pairs=pairs, tensor_flops=tflops,
                            tensor_core_ms=tc_ms,
@@ -951,7 +1170,10 @@ def mxu_phase(torch, prt, dev, card, freqs, alt, main_prof, check_prof,
               f"{profiling.vh_evals_per_s(B_MAIN, F_MAIN, k_ms):.4e} vh/s; "
               f"bound {b_ms:.4f} ms, {b_by}: {ops:.4e} ops on the "
               f"{n_valid / (B_MAIN * F_MAIN):.4f} valid share, {nbytes:.4e} "
-              f"bytes; the one-hot products issued, {pairs} (N-tile, "
+              f"bytes; issue bound {i_ms:.4f} ms ({tail['path']} "
+              f"instructions x {warp_iters} warp iterations at {clock} "
+              f"MHz; {i_long:.4f} ms at the longest path, "
+              f"{tail['longest']}); the one-hot products issued, {pairs} (N-tile, "
               f"K-step) pairs over tiles of {MXU_TILE} points, "
               f"{tflops:.4e} tensor-core flops, take {tc_ms:.4f} ms at "
               f"{PEAK_TENSOR[dname]:.3g}/s, against {tflops_pr3:.4e} flops "
@@ -968,6 +1190,8 @@ def mxu_phase(torch, prt, dev, card, freqs, alt, main_prof, check_prof,
             "max_abs_err_vs_kernel3_f32": max(k3_f32),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "issue_ms": r["issue_ms"], "issue_ms_longest": r["issue_ms_longest"],
+            "sm_clock_mhz": r["sm_clock_mhz"],
             "library_ms": None, "wrapper_ms": r["wrapper_ms"],
             "same_function_kernel_ms": r["same_function_kernel_ms"],
             "valid_share": r["valid_share"], "mma_pairs": r["mma_pairs"],
@@ -1336,6 +1560,7 @@ def main():
     print("registers and stack per kernel (cuobjdump --dump-resource-usage): "
           + "; ".join(f"{name}: {use}" for name, use in
                       cuda_ext.resource_usage()), flush=True)
+    sass = cuda_ext.sass_loops()
 
     rng = np.random.default_rng(SEED)
     alt = np.linspace(80.0, 699.0, N_ALT)
@@ -1541,6 +1766,38 @@ def main():
             "plain f64", out[f"global_{mode}"][sub], p64, TOL_F32, degen,
             False, excused=over_tol(p32, p64, TOL_F32) & ~degen)
 
+    # kernel 2 at the cutoffs: frequencies on each razor profile's node
+    # cutoffs fx_j and prefix maxima cfx_j times (1 +- n ulp), where the
+    # cutoff-frequency bracket and the exact test meet
+    print(f"kernel 2 at cutoffs (fx_j, cfx_j x (1 +- n ulp), n <= "
+          f"{RAZOR_ULPS}, {RAZOR_NODES} nodes of each of the razor "
+          f"profiles) vs plain: f64 identical NaN masks, <= {TOL_F64:g} km; "
+          f"f32 identical NaN masks, <= {TOL_F32_PLAIN:g} km or 4 ulps of "
+          f"vh above ~2,000 km", flush=True)
+    rprof = razor_profiles(alt, den, bmag, bpsi)
+    razor_err = []
+    for P in (P_MAIN, 2000):
+        for dtype in (torch.float64, torch.float32):
+            a = razor_args(torch, pv, rprof, alt, P, dtype, dev)
+            k, ref = pv.launch_kernel(a), pv.plain_ionogram(a)
+            kn, rn = k.double().cpu().numpy(), ref.double().cpu().numpy()
+            tol = (TOL_F64 if dtype == torch.float64
+                   else razor_tol_f32(ref))
+            mis = int((np.isnan(kn) != np.isnan(rn)).sum())
+            m = np.isfinite(kn) & np.isfinite(rn)
+            d = np.abs(np.where(m, kn - rn, 0.0))
+            over = int((d > tol).sum())
+            lay = pv.kernel_layout(a)
+            print(f"  razor P={P} {str(dtype)[6:]} F={a.freq_hz.shape[0]} "
+                  f"({'block' if lay.per_block else 'warp'} per pair): "
+                  f"max|dvh| {d.max():.3e} km, {int(m.sum())} values, "
+                  f"{over} over tol, NaN-mask differences {mis}", flush=True)
+            check(mis == 0 and over == 0 and m.sum() > 0,
+                  f"razor P={P} {dtype}: {mis} NaN-mask differences, "
+                  f"{over} over tol")
+            if dtype == torch.float64:
+                razor_err.append(float(d.max()))
+
     # ---- 5. gradient through the autograd wrapper ----------------------
     print(f"gradient (f64): autograd vs the plain sweep's, and a central "
           f"difference of the kernel forward (step {FD_STEP:g}·den·u, "
@@ -1632,13 +1889,18 @@ def main():
         if kind in ("gather", "sweep"):      # the host solve's [B, F] rows
             nbytes += (3 * item + 1) * B * F
         b_ms, b_by = bound_ms(ops, nbytes, dname)
+        clock = sm_clock_under(torch, lambda: pv.launch_kernel(a))
+        i_ms, i_long, i_counts = issue_bound_ms(torch, pv, kind, a, valid,
+                                                clock, sass)
         lay = pv.kernel_layout(a)
         layout = (f"{'block' if lay.per_block else 'warp'} per pair, "
                   f"{lay.warps} warps, {lay.n_groups} groups")
         row = {"shape": f"B={B} F={F} P={P} N={ta.shape[0]} "
                         f"f{8 * item} {label}",
                "kernel_ms": k_ms, "plain_ms": p_ms, "wrapper_ms": w_ms,
-               "bound_ms": b_ms, "bound_by": b_by,
+               "bound_ms": b_ms, "bound_by": b_by, "issue_ms": i_ms,
+               "issue_ms_longest": i_long, "issue_counts": i_counts,
+               "sm_clock_mhz": clock,
                "valid_share": n_valid / (B * F), "layout": layout,
                "kernel_vh_per_s": profiling.vh_evals_per_s(B, F, k_ms),
                "plain_vh_per_s": profiling.vh_evals_per_s(B, F, p_ms),
@@ -1646,7 +1908,9 @@ def main():
         print(f"  {kind} {row['shape']}: kernel {k_ms:.4f} ms "
               f"({row['kernel_vh_per_s']:.4e} vh/s; bound {b_ms:.4f} ms, "
               f"{b_by}: {ops:.4e} ops on the {row['valid_share']:.4f} valid "
-              f"share, {nbytes:.4e} bytes; layout {layout}), wrapper "
+              f"share, {nbytes:.4e} bytes; issue bound {i_ms:.4f} ms "
+              f"({i_long:.4f} at the longest paths) at {clock} MHz, "
+              f"{i_counts}; layout {layout}), wrapper "
               f"{w_ms:.4f} ms ({row['wrapper_vh_per_s']:.4e} vh/s), plain "
               f"{p_ms:.4f} ms ({row['plain_vh_per_s']:.4e} vh/s); {card}",
               flush=True)
@@ -1667,6 +1931,10 @@ def main():
     # X-20k takes seconds, so it is timed once there
     extra = {"gather_osolve": {"f64": time_kind("gather_osolve", 1.0, main64,
                                                 P_MAIN, "O")},
+             "gather_xsolve": {"f64": time_kind("gather_xsolve", -1.0, main64,
+                                                P_MAIN, "X")},
+             "gather": {"f64": time_kind("gather", -1.0, main64, P_MAIN, "X"),
+                        "O": time_kind("gather", 1.0, main_in, P_MAIN, "O")},
              "sweep": {"f64": time_kind("sweep", -1.0, x64, P_X20K, "X", 1),
                        "alt_nu": time_kind("sweep", -1.0, xnu_in, P_X20K,
                                            "X, non-uniform alt_nu", 1)}}
@@ -1682,13 +1950,14 @@ def main():
           f"{card_state()}", flush=True)
 
     # ---- 7. the 2-D oblique fan ----------------------------------------
-    fan_entry = fan_phase(torch, prt, dev, card)
+    fan_entry = fan_phase(torch, prt, dev, card, sass)
     print(f"card state after the fan phase (clocks.sm, power.draw, temp): "
           f"{card_state()}", flush=True)
 
     # ---- 8. the tensor-core one-hot kernel ------------------------------
     mxu_entry = mxu_phase(torch, prt, dev, card, freqs, alt,
-                          (den, bmag, bpsi), (cden, cbmag, cbpsi), u_dir)
+                          (den, bmag, bpsi), (cden, cbmag, cbpsi), u_dir,
+                          sass)
     print(f"card state after the mxu phase (clocks.sm, power.draw, temp): "
           f"{card_state()}", flush=True)
 
@@ -1709,8 +1978,13 @@ def main():
             "max_abs_err_f32_vs_f64": max(errs32[k]), "tol_f32": TOL_F32,
             **({"global_grid_f32_vs_f64": global_err[k]}
                if k in global_err else {}),
+            **({"razor_f64_vs_plain": max(razor_err)}
+               if k == "gather_xsolve" else {}),
             "ms": row["kernel_ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "issue_ms": row["issue_ms"],
+            "issue_ms_longest": row["issue_ms_longest"],
+            "sm_clock_mhz": row["sm_clock_mhz"],
             "library_ms": None, "wrapper_ms": row["wrapper_ms"],
             "valid_share": row["valid_share"], "layout": row["layout"],
             "shape": row["shape"], **extra.get(k, {})})

@@ -54,6 +54,25 @@
 // warp's tree, in the same order whatever the warps and groups of the
 // launch; the block layout adds in another order (f64 agreement ~1e-12
 // relative).
+//
+// Kernels 2 and 3 (uniform grid, X-mode solve or host solve) run
+// gather_kernel, kernels 1 and 4 ionogram_kernel. gather_kernel:
+//
+//   * the X solve reads a table of each node's cutoff frequency fx_j (the
+//     f at which s_j = X_j + Y_j = 1) as its prefix maximum cfx_j, built
+//     once per (profile, group) in shared memory: a pair with f above
+//     cfx_{N-1} (by a margin) escapes with no node read, and the first
+//     exceedance of a valid pair is searched by 32-node ballots from the
+//     first node whose cfx reaches f (binary search), not from node 0;
+//     k, f0, f1 and r0 stay the exact s of the two-scan solve;
+//   * the table arrives by one TMA bulk copy (cp.async.bulk completing on
+//     an mbarrier) at a row stride `ld` the host pads to 16 bytes, in
+//     place of a loop of loads by every thread.
+//
+// Timed and not kept (tools/ionogram_attribution.py): copying only the
+// channels a kernel reads, mult, 1 - mult and dmult staged in shared
+// memory, and a persistent grid whose blocks copy the next item's table
+// while they work on the current one.
 
 #include "ionogram_common.cuh"
 
@@ -63,8 +82,8 @@ constexpr int kMaxThreads = 256;
 
 template <typename T>
 struct Params {
-  const T* tab;       // [B, C, N] channel-major segment table
-  int C, N;
+  const T* tab;       // [B, C, ld] channel-major segment table
+  int C, N, ld;       // channels, altitude nodes, row stride
   const T* mult;      // [P] stretched-grid multiplier
   const T* omm;       // [P] 1 - mult (formed in f64 on the host)
   const T* dmult;     // [P] mult[p+1] - mult[p], 0 at the end
@@ -150,24 +169,91 @@ __device__ __forceinline__ T cutoff_x(const T* den, const T* bm, int j,
   return den[j] * cp2 * inv_f2 + bm[j] * gp / f;
 }
 
-// X mode (_xsolve_tile): first exceedance of the raw s = X + Y; f0 and f1
-// are prefix maxima of the same s values, r0 is the raw s at k-1.
+// The margin of the cutoff-frequency bracket, relative in f. For f > 0,
+// s(f) = fp^2/f^2 + fH/f with fp^2 = den*cp2 >= 0 and fH = |B|*gp >= 0
+// falls with f at a log-slope between -2 and -1, so s(f) <= fx/f above
+// the root fx = (fH + sqrt(fH^2 + 4 fp^2))/2. The computed s (five
+// roundings of positive terms: (den*cp2)*(1/(f*f)) + (|B|*gp)/f) is
+// within about 5 ulp of s, the computed fx (fH, fH^2, fp^2, the sum, the
+// root, the add) within about 5 ulp of fx. So a computed s >= 1 needs
+// f <= fx(1 + 5u)/(1 - 5u) ~ fx(1 + 10u): a node whose computed fx is
+// below f(1 - delta) cannot exceed once delta > 10u (6e-7 in f32, 1.1e-15
+// in f64, u the unit roundoff). delta = 1e-5 (f32), 1e-12 (f64) keeps a
+// factor of 16 (f32) and ~900 (f64) over that; the host's
+// pallas_vh.cutoff_table is the same table.
 template <typename T>
-__device__ Solve<T> xsolve(const T* alt, const T* den, const T* bm, int N,
-                           T f, int lane) {
+struct Margin {
+  static constexpr double delta = sizeof(T) == 4 ? 1e-5 : 1e-12;
+};
+
+// cfx_j = max_{i <= j} fx_i over the block's profile, fx as above; a node
+// outside the analysis (den or |B| negative or NaN) gets fx = +inf, so it
+// is never passed over. A block-wide scan: each thread takes a run of
+// consecutive nodes, then the warps' maxima. Ends with __syncthreads.
+template <typename T>
+__device__ void cutoff_table(const T* den, const T* bm, int N, T* cfx,
+                             T* part) {
   const T cp2 = T(kCP * kCP);
   const T gp = T(kGP);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (N + blockDim.x - 1) / blockDim.x;
+  const int j0 = min(N, (int)threadIdx.x * per), j1 = min(N, j0 + per);
+  T run = T(-INFINITY);
+  for (int j = j0; j < j1; ++j) {
+    const T d = den[j], b = bm[j];
+    const T fh = b * gp;
+    T fx = (fh + sqrt(fh * fh + T(4) * (d * cp2))) * T(0.5);
+    if (!(d >= T(0) && b >= T(0))) fx = T(INFINITY);
+    run = fx > run ? fx : run;
+    cfx[j] = run;
+  }
+  for (int o = 1; o < 32; o <<= 1) {
+    const T w = __shfl_up_sync(kFull, run, o);
+    if (lane >= o && w > run) run = w;
+  }
+  if (lane == 31) part[warp] = run;
+  __syncthreads();
+  T carry = __shfl_up_sync(kFull, run, 1);
+  if (lane == 0) carry = T(-INFINITY);
+  for (int w = 0; w < warp; ++w) carry = part[w] > carry ? part[w] : carry;
+  for (int j = j0; j < j1; ++j)
+    if (carry > cfx[j]) cfx[j] = carry;
+  __syncthreads();
+}
+
+// X mode (_xsolve_tile) on the cutoff table: the first exceedance of the
+// raw s = X + Y, searched from j_lo = the first node with cfx >= f(1 -
+// delta) (no node below can exceed), 32 nodes a ballot; f0 and f1 are
+// prefix maxima of the same s values, r0 is the raw s at k-1. An escaped
+// pair (no node with cfx >= f(1 - delta)) reads no node.
+template <typename T>
+__device__ Solve<T> xsolve_table(const T* alt, const T* den, const T* bm,
+                                 const T* cfx, int N, T f, int lane) {
+  const T cp2 = T(kCP * kCP);
+  const T gp = T(kGP);
+  int jlo = 0;
+  if (f > T(0) && f < T(INFINITY)) {
+    const T fl = f * T(1.0 - Margin<T>::delta);
+    if (cfx[N - 1] < fl) return {T(0), T(0), T(0), false};
+    int h = N - 1;
+    while (jlo < h) {
+      const int mid = (jlo + h) >> 1;
+      if (cfx[mid] >= fl) h = mid; else jlo = mid + 1;
+    }
+  }
   const T inv_f2 = T(1) / (f * f);
   int kf = N;
-  for (int j = lane; j < N; j += 32) {
-    if (cutoff_x(den, bm, j, cp2, inv_f2, gp, f) >= T(1)) {
-      kf = j;
+  for (int j0 = jlo; j0 < N; j0 += 32) {
+    const int j = j0 + lane;
+    const bool hit = j < N && cutoff_x(den, bm, j, cp2, inv_f2, gp, f) >= T(1);
+    const unsigned m = __ballot_sync(kFull, hit);
+    if (m) {
+      kf = j0 + __ffs(m) - 1;
       break;
     }
   }
-  kf = __reduce_min_sync(kFull, kf);
-  const bool valid = kf < N;
-  const int k = min(max(kf, 1), N - 1);
+  if (kf == N) return {T(0), T(0), T(0), false};
+  const int k = max(kf, 1);
   T f0 = -INFINITY;
   for (int j = lane; j <= k - 1; j += 32) {
     const T v = cutoff_x(den, bm, j, cp2, inv_f2, gp, f);
@@ -178,7 +264,7 @@ __device__ Solve<T> xsolve(const T* alt, const T* den, const T* bm, int N,
   const T f1 = s_k > f0 ? s_k : f0;
   const T r0 = cutoff_x(den, bm, k - 1, cp2, inv_f2, gp, f);
   const bool first_exceeds = cutoff_x(den, bm, 0, cp2, inv_f2, gp, f) >= T(1);
-  return crossing(f0, f1, alt[k - 1], alt[k], r0, first_exceeds, valid);
+  return crossing(f0, f1, alt[k - 1], alt[k], r0, first_exceeds, true);
 }
 
 // The lane's place in the altitude table: lo = upper_bound(alt, x) of its
@@ -218,9 +304,12 @@ __device__ __forceinline__ void seek(const T* alt, int N, T x, Cursor<T>& c) {
   c.above = l < N ? alt[l] : T(INFINITY);
 }
 
+// Kernels 1 (O solve, uniform) and 4 (host solve, any grid).
 template <typename T, int MODE, bool SOLVE, bool UNIFORM>
 __global__ void __launch_bounds__(kMaxThreads)
     ionogram_kernel(const Params<T> p) {
+  static_assert(SOLVE ? (MODE > 0 && UNIFORM) : !UNIFORM,
+                "kernels 2 and 3 are gather_kernel");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s = reinterpret_cast<T*>(smem_raw);
   const int N = p.N;
@@ -278,11 +367,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     const size_t o = (size_t)b * p.F + fi;
     Solve<T> sv;
     if constexpr (SOLVE) {
-      if constexpr (MODE > 0) {
-        sv = osolve(alt, den, s + 8 * N, N, f, lane);
-      } else {
-        sv = xsolve(alt, den, bmg, N, f, lane);
-      }
+      sv = osolve(alt, den, s + 8 * N, N, f, lane);
     } else {
       sv = {p.span[o], p.slope[o], p.emax[o], p.valid[o] != 0};
     }
@@ -326,10 +411,196 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// Dynamic shared memory of one block: the [C, N] table and 8 warp sums.
+// ---- kernels 2 and 3 --------------------------------------------------
+
+// rows of kernels 2 and 3's table in shared memory: all 8 channels
+constexpr int kRows = 8;
+// bytes ahead of the table: the mbarrier, the valid-pair flag, 8 warp
+// sums, the block layout's shared solve
+constexpr size_t kHead = 128;
+
+__device__ __forceinline__ unsigned smem_addr(const void* ptr) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// Arm the barrier for `bytes` of bulk copies (the one arrival it waits for).
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA bulk copy of `bytes` (a multiple of 16, both ends 16-byte aligned)
+// from device memory into shared memory, completing on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Kernels 2 (X solve, uniform) and 3 (host solve, uniform): block (b, g)
+// takes profile b's frequencies g, g + n_groups, ... Warp 0 checks that
+// the group has a valid pair (kernel 3) and copies the table into shared
+// memory by TMA. In f64 the registers are capped for 4 blocks an SM (64
+// a thread; 80-97 uncapped, 2-3 blocks): the tail's chains of dependent
+// f64 divisions want the warps more than the registers.
+template <typename T, int MODE, bool SOLVE>
+__global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 8 ? 4 : 1)
+    gather_kernel(const Params<T> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
+  int* has = reinterpret_cast<int*>(smem_raw + 16);
+  T* part = reinterpret_cast<T*>(smem_raw + 32);
+  Solve<T>* solved = reinterpret_cast<Solve<T>*>(smem_raw + 96);
+  T* const tb = reinterpret_cast<T*>(smem_raw + kHead);
+  const int N = p.N, ld = p.ld, G = p.n_groups, P = p.P;
+  T* cfx = tb + kRows * ld;
+  const int b = blockIdx.x, g = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  T* const out = p.out + (size_t)b * p.F;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int any = 1;
+    if constexpr (!SOLVE) {
+      any = 0;
+      for (int fi = g + lane * G; fi < p.F; fi += 32 * G)
+        any |= p.valid[(size_t)b * p.F + fi];
+      any = __any_sync(kFull, any);
+    }
+    if (lane == 0) {
+      *has = any;
+      if (any) {
+        const unsigned bytes = (unsigned)(kRows * ld * sizeof(T));
+        mbar_expect(bar, bytes);
+        bulk_copy(tb, p.tab + (size_t)b * p.C * ld, bytes, bar);
+      }
+    }
+  }
+  __syncthreads();
+  if (!*has) {  // no valid pair in the group: NaN out, no table copied
+    for (int fi = g + (int)threadIdx.x * G; fi < p.F;
+         fi += (int)blockDim.x * G)
+      out[fi] = T(NAN);
+    return;
+  }
+  mbar_wait(bar, 0);
+  const T* alt = tb;
+  const T* den = tb + 2 * ld;
+  const T* dden = tb + 3 * ld;
+  const T* bmg = tb + 4 * ld;
+  const T* dbm = tb + 5 * ld;
+  const T* bps = tb + 6 * ld;
+  const T* dbp = tb + 7 * ld;
+  if constexpr (SOLVE) cutoff_table(den, bmg, N, cfx, part);
+
+  // warp layout: warp w takes the group's frequencies w, w + nwarps, ...
+  // and all P points; block layout: every warp takes every frequency and
+  // its own chunk of the points
+  int slot = warp, slot_step = nwarps, q_begin = 0, q_end = P;
+  if (p.per_block) {
+    const int chunk = (P + 32 * nwarps - 1) / (32 * nwarps) * 32;
+    slot = 0;
+    slot_step = 1;
+    q_begin = min(P, warp * chunk);
+    q_end = min(P, q_begin + chunk);
+  }
+  const bool lead = lane == 0 && (!p.per_block || warp == 0);
+  const T amin = *p.alt_min;
+
+  for (int fi = g + slot * G; fi < p.F; fi += slot_step * G) {
+    const T f = p.freq[fi];
+    const size_t o = (size_t)b * p.F + fi;
+    Solve<T> sv;
+    if constexpr (SOLVE) {
+      if (p.per_block) {  // one warp solves, the block reads it
+        if (warp == 0) {
+          sv = xsolve_table(alt, den, bmg, cfx, N, f, lane);
+          if (lane == 0) *solved = sv;
+        }
+        __syncthreads();
+        sv = *solved;
+        __syncthreads();
+      } else {
+        sv = xsolve_table(alt, den, bmg, cfx, N, f, lane);
+      }
+    } else {
+      sv = {p.span[o], p.slope[o], p.emax[o], p.valid[o] != 0};
+    }
+    if (!sv.valid) {  // the ray escapes: vh is NaN, no resample, no mu'
+      if (lead) out[fi] = T(NAN);
+      continue;
+    }
+    const T span = sv.span;
+    const T ff = f * f;
+    T acc = T(0);
+    for (int q = q_begin + lane; q < q_end; q += 32) {
+      T frac;
+      const int i0 = uniform_index(span * (p.mult[q] * p.inv_dalt), N, frac);
+      const T d = den[i0] + frac * dden[i0];
+      const T bmv = bmg[i0] + frac * dbm[i0];
+      const T bpv = bps[i0] + frac * dbp[i0];
+      acc += quad_term<T, MODE>(d, bmv, bpv, span, sv.slope, sv.emax, f, ff,
+                                p.dmult[q], p.omm[q], q, P);
+    }
+    acc = warp_sum(acc);
+    if (p.per_block) {
+      if (lane == 0) part[warp] = acc;
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        acc = part[0];
+        for (int w = 1; w < nwarps; ++w) acc += part[w];
+      }
+      __syncthreads();
+    }
+    if (lead) out[fi] = acc != T(0) ? acc + amin : T(NAN);
+  }
+}
+
+// ---- launch --------------------------------------------------------------
+
+// Dynamic shared memory of one ionogram_kernel block: the [C, N] table and
+// 8 warp sums.
 template <typename T>
 size_t smem_of(int C, int N) {
   return sizeof(T) * ((size_t)C * N + kMaxThreads / 32);
+}
+
+// ... of one gather_kernel block: the head, the table and the cutoff
+// table (kernel 2).
+template <typename T, bool SOLVE>
+size_t gather_smem(int ld) {
+  size_t n = (size_t)kRows * ld;
+  if (SOLVE) n += ld;
+  return kHead + sizeof(T) * n;
 }
 
 // Lets the kernel take `smem` bytes of dynamic shared memory (above the
@@ -341,21 +612,42 @@ cudaError_t allow_smem(K kern, size_t smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// The kernel of an instantiation and its dynamic shared memory.
+template <typename T, int MODE, bool SOLVE, bool UNIFORM>
+struct Kernel {
+  static constexpr bool gather = UNIFORM && !(SOLVE && MODE > 0);
+  static void (*fn())(const Params<T>) {
+    if constexpr (gather) {
+      return gather_kernel<T, MODE, SOLVE>;
+    } else {
+      return ionogram_kernel<T, MODE, SOLVE, UNIFORM>;
+    }
+  }
+  static size_t smem(int C, int N, int ld) {
+    if constexpr (gather) {
+      return gather_smem<T, SOLVE>(ld);
+    } else {
+      return smem_of<T>(C, N);
+    }
+  }
+};
+
 template <typename T, int MODE, bool SOLVE, bool UNIFORM>
 int launch(const Params<T>& p, int B, int warps, cudaStream_t stream) {
-  const size_t smem = smem_of<T>(p.C, p.N);
-  auto kern = ionogram_kernel<T, MODE, SOLVE, UNIFORM>;
+  using K = Kernel<T, MODE, SOLVE, UNIFORM>;
+  const size_t smem = K::smem(p.C, p.N, p.ld);
+  auto kern = K::fn();
   cudaError_t e = allow_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(B, p.n_groups);
-  kern<<<grid, warps * 32, smem, stream>>>(p);
+  kern<<<dim3(B, p.n_groups), warps * 32, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int MODE, bool SOLVE, bool UNIFORM>
-int blocks_of(int C, int N, int warps) {
-  const size_t smem = smem_of<T>(C, N);
-  auto kern = ionogram_kernel<T, MODE, SOLVE, UNIFORM>;
+int blocks_of(int C, int N, int ld, int warps) {
+  using K = Kernel<T, MODE, SOLVE, UNIFORM>;
+  const size_t smem = K::smem(C, N, ld);
+  auto kern = K::fn();
   cudaError_t e = allow_smem(kern, smem);
   int n = 0;
   if (e == cudaSuccess)
@@ -365,35 +657,44 @@ int blocks_of(int C, int N, int warps) {
 }
 
 template <typename T>
-int blocks_dispatch(int mode, int solve, int uniform, int C, int N,
+int blocks_dispatch(int mode, int solve, int uniform, int C, int N, int ld,
                     int warps) {
   if ((solve && !uniform) || warps < 1 || warps * 32 > kMaxThreads ||
-      C < 1 || N < 1)
+      C < 1 || N < 1 || ld < N)
     return -(int)cudaErrorInvalidValue;
   if (mode > 0) {
-    if (solve) return blocks_of<T, 1, true, true>(C, N, warps);
-    if (uniform) return blocks_of<T, 1, false, true>(C, N, warps);
-    return blocks_of<T, 1, false, false>(C, N, warps);
+    if (solve) return blocks_of<T, 1, true, true>(C, N, ld, warps);
+    if (uniform)
+      return blocks_of<T, 1, false, true>(C, N, ld, warps);
+    return blocks_of<T, 1, false, false>(C, N, ld, warps);
   }
-  if (solve) return blocks_of<T, -1, true, true>(C, N, warps);
-  if (uniform) return blocks_of<T, -1, false, true>(C, N, warps);
-  return blocks_of<T, -1, false, false>(C, N, warps);
+  if (solve) return blocks_of<T, -1, true, true>(C, N, ld, warps);
+  if (uniform) return blocks_of<T, -1, false, true>(C, N, ld, warps);
+  return blocks_of<T, -1, false, false>(C, N, ld, warps);
 }
 
 template <typename T>
 int dispatch(int mode, int solve, int uniform, const void* tab, int C, int B,
-             int N, const void* mult, const void* omm, const void* dmult,
-             int P, const void* freq, int F, int n_groups, int warps,
-             int per_block, const void* span, const void* slope,
-             const void* emax, const void* valid, const void* alt_min,
-             double inv_dalt, void* out, cudaStream_t stream) {
+             int N, int ld, const void* mult, const void* omm,
+             const void* dmult, int P, const void* freq, int F, int n_groups,
+             int warps, int per_block, const void* span,
+             const void* slope, const void* emax, const void* valid,
+             const void* alt_min, double inv_dalt, void* out,
+             cudaStream_t stream) {
+  const bool gather = uniform && !(solve && mode > 0);
+  // gather_kernel's bulk copies: rows of a multiple of 16 bytes, a
+  // 16-byte-aligned table; ionogram_kernel reads rows of N
+  const bool rows_ok =
+      gather ? (ld >= N && (ld * sizeof(T)) % 16 == 0 &&
+                reinterpret_cast<uintptr_t>(tab) % 16 == 0)
+             : ld == N;
   if (warps < 1 || warps * 32 > kMaxThreads || n_groups < 1 ||
-      n_groups > 65535 || N < 2 ||
+      n_groups > 65535 || N < 2 || !rows_ok ||
       B < 1 || F < 1 || P < 1 || C < 8 || (solve && !uniform) ||
       (solve && mode > 0 && C < 9) || (!solve && !(span && slope && emax &&
                                                    valid)))
     return (int)cudaErrorInvalidValue;
-  Params<T> p{static_cast<const T*>(tab), C, N,
+  Params<T> p{static_cast<const T*>(tab), C, N, ld,
               static_cast<const T*>(mult), static_cast<const T*>(omm),
               static_cast<const T*>(dmult), P,
               static_cast<const T*>(freq), F, n_groups, per_block,
@@ -418,41 +719,44 @@ extern "C" {
 
 // dtype: 0 float32, 1 float64. mode: +1 O, -1 X. solve: reflection solve
 // in the kernel (needs uniform). uniform: arithmetic index with inv_dalt.
-// n_groups frequency groups per profile (interleaved), warps per block,
-// per_block: a block per (profile, frequency) instead of a warp.
+// tab [B, C, ld]: ld = N for kernels 1 and 4, a multiple of 16 bytes >= N
+// for kernels 2 and 3. n_groups frequency groups per profile
+// (interleaved), warps per block, per_block: a block per (profile,
+// frequency) instead of a warp.
 // Returns the launch's cudaError_t (0 on success); does not synchronise.
 int pyrayhf_ionogram(int dtype, int mode, int solve, int uniform,
-                     const void* tab, int C, int B, int N, const void* mult,
-                     const void* omm, const void* dmult, int P,
-                     const void* freq, int F, int n_groups, int warps,
-                     int per_block, const void* span, const void* slope,
-                     const void* emax, const void* valid,
+                     const void* tab, int C, int B, int N, int ld,
+                     const void* mult, const void* omm, const void* dmult,
+                     int P, const void* freq, int F, int n_groups, int warps,
+                     int per_block, const void* span,
+                     const void* slope, const void* emax, const void* valid,
                      const void* alt_min, double inv_dalt, void* out,
                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return dispatch<float>(mode, solve, uniform, tab, C, B, N, mult, omm,
+    return dispatch<float>(mode, solve, uniform, tab, C, B, N, ld, mult, omm,
                            dmult, P, freq, F, n_groups, warps, per_block,
                            span, slope, emax, valid, alt_min, inv_dalt, out,
                            st);
   if (dtype == 1)
-    return dispatch<double>(mode, solve, uniform, tab, C, B, N, mult, omm,
-                            dmult, P, freq, F, n_groups, warps, per_block,
-                            span, slope, emax, valid, alt_min, inv_dalt, out,
-                            st);
+    return dispatch<double>(mode, solve, uniform, tab, C, B, N, ld, mult,
+                            omm, dmult, P, freq, F, n_groups, warps,
+                            per_block, span, slope, emax, valid, alt_min,
+                            inv_dalt, out, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // Blocks of `warps` warps of one instantiation that one SM of the current
-// device holds at once with a [C, N] table (the CUDA occupancy calculator,
-// from the registers ptxas allotted and the shared memory), or minus a
-// cudaError_t.
+// device holds at once with a [C, N] table of row stride ld (the CUDA
+// occupancy calculator, from the registers ptxas allotted and the shared
+// memory), or minus a cudaError_t.
 int pyrayhf_ionogram_blocks_per_sm(int dtype, int mode, int solve,
-                                   int uniform, int C, int N, int warps) {
+                                   int uniform, int C, int N, int ld,
+                                   int warps) {
   if (dtype == 0)
-    return blocks_dispatch<float>(mode, solve, uniform, C, N, warps);
+    return blocks_dispatch<float>(mode, solve, uniform, C, N, ld, warps);
   if (dtype == 1)
-    return blocks_dispatch<double>(mode, solve, uniform, C, N, warps);
+    return blocks_dispatch<double>(mode, solve, uniform, C, N, ld, warps);
   return -(int)cudaErrorInvalidValue;
 }
 

@@ -17,6 +17,7 @@ rounds as the plain PyTorch version's does.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,7 +25,7 @@ import time
 from pathlib import Path
 
 __all__ = ["build", "load", "find_nvcc", "error_string", "build_log",
-           "resource_usage", "MAX_SMEM_BYTES"]
+           "resource_usage", "sass_loops", "MAX_SMEM_BYTES"]
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / \
@@ -148,6 +149,103 @@ def resource_usage():
     return [tuple(row) for row in rows]
 
 
+_SASS_INSTR = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_TARGET = re.compile(r"(0x[0-9a-f]+|\.L_x_\d+)\)?`?\s*$")
+
+
+def _op(text):
+    """The opcode of one SASS instruction (after its predicate)."""
+    return text.split()[1] if text.startswith("@") else text.split()[0]
+
+
+def _loops(instrs, labels):
+    """The loops of one function's [(address, text)]: each backward branch
+    and its target, with the instructions in between; the fewest
+    (``path``) and the most (``longest``) that one pass from the target to
+    the branch can issue, over the forward edges (a conditional branch
+    taken or not, ``BRA.DIV`` either way, calls not entered, inner loops
+    once); and its MUFU and VOTE instructions."""
+    at = {addr: i for i, (addr, _) in enumerate(instrs)}
+
+    def target(text):
+        m = _SASS_TARGET.search(text)
+        if not _op(text).startswith("BRA") or not m:
+            return None
+        g = m.group(1)
+        return at.get(int(g, 16) if g.startswith("0x") else labels.get(g))
+
+    def succ(j):
+        text = instrs[j][1]
+        op = _op(text)
+        ends = (op.startswith(("BRA", "EXIT", "RET", "BRX", "JMP"))
+                and not op.startswith("BRA.DIV"))
+        out = [j + 1] if not ends or text.startswith("@") else []
+        k = target(text)
+        return out + ([k] if k is not None and k > j else [])
+
+    out = []
+    for i, (addr, text) in enumerate(instrs):
+        t = target(text)
+        if t is None or t > i:
+            continue
+        short, long_ = {t: 1}, {t: 1}
+        for j in range(t, i):    # forward edges only: addresses in order
+            if j not in short:
+                continue
+            for k in succ(j):
+                if k <= i:
+                    short[k] = min(short.get(k, 1 << 30), short[j] + 1)
+                    long_[k] = max(long_.get(k, 0), long_[j] + 1)
+        body = [x for _, x in instrs[t:i + 1]]
+        out.append({"start": instrs[t][0], "end": addr,
+                    "instructions": i - t + 1, "path": short.get(i),
+                    "longest": long_.get(i),
+                    "mufu": [_op(x) for x in body if "MUFU" in x],
+                    "vote": sum("VOTE" in x for x in body)})
+    return out
+
+
+def sass_loops(so=None):
+    """{kernel: [loop, ...]} of a built library (default: the package's),
+    read from ``cuobjdump -sass`` with names demangled by ``cu++filt``:
+    each loop (a backward branch) with its instruction count, the fewest
+    and the most instructions one iteration can issue (``path``,
+    ``longest``), and its MUFU and VOTE instructions. A warp issues at most
+    one instruction a cycle on its scheduler: ``path`` times the warp
+    iterations is a bound on the issue time."""
+    so = so or build()[0]
+    tools = find_nvcc().parent
+    r = subprocess.run([str(tools / "cuobjdump"), "-sass", str(so)],
+                       capture_output=True, text=True, check=True)
+    funcs, name, instrs, labels = {}, None, [], {}
+    for ln in r.stdout.splitlines() + ["Function : <end>"]:
+        if "Function : " in ln:
+            if name:
+                funcs[name] = _loops(instrs, labels)
+            name, instrs, labels = ln.split("Function : ")[1].strip(), [], {}
+            continue
+        lm = _SASS_LABEL.match(ln)
+        if lm:
+            labels[lm.group(1)] = None
+        m = _SASS_INSTR.search(ln)
+        if m and name:
+            addr = int(m.group(1), 16)
+            for k, v in labels.items():
+                if v is None:
+                    labels[k] = addr
+            instrs.append((addr, m.group(2).strip()))
+    filt = tools / "cu++filt"
+    if funcs and filt.exists():
+        names = subprocess.run([str(filt)], input="\n".join(funcs) + "\n",
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+        if len(names) == len(funcs):
+            funcs = {n.replace("(anonymous namespace)::", ""): v
+                     for n, v in zip(names, funcs.values())}
+    return funcs
+
+
 def load():
     """The loaded kernel library (built at first use), with typed entries."""
     global _lib
@@ -158,13 +256,14 @@ def load():
             i, p, d = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
             lib.pyrayhf_ionogram.argtypes = [
                 i, i, i, i,            # dtype, mode, solve, uniform
-                p, i, i, i,            # tab, C, B, N
+                p, i, i, i, i,         # tab, C, B, N, ld
                 p, p, p, i,            # mult, omm, dmult, P
                 p, i, i, i, i,         # freq, F, n_groups, warps, per_block
                 p, p, p, p,            # span, slope, emax, valid
                 p, d, p, p]            # alt_min, inv_dalt, out, stream
             lib.pyrayhf_ionogram.restype = ctypes.c_int
-            lib.pyrayhf_ionogram_blocks_per_sm.argtypes = [i] * 7
+            # dtype, mode, solve, uniform, C, N, ld, warps
+            lib.pyrayhf_ionogram_blocks_per_sm.argtypes = [i] * 8
             lib.pyrayhf_ionogram_blocks_per_sm.restype = ctypes.c_int
             lib.pyrayhf_ionogram_mxu.argtypes = [
                 i, i, p, i, i, i,      # dtype, mode, tab, B, N, K1

@@ -12,7 +12,9 @@ kernel (counter name) ← replaced TPU kernel; its plain PyTorch version:
 * ``gather_osolve`` ← ``_kernel_gather_osolve`` (O, solve in the kernel,
   uniform index); ``_osolve_plain`` + ``_resample_plain``;
 * ``gather_xsolve`` ← ``_kernel_gather_xsolve`` (X, solve in the kernel,
-  uniform index); ``_xsolve_plain`` + ``_resample_plain``;
+  uniform index; the kernel searches the first exceedance from a bracket
+  on the cutoff-frequency table, :func:`cutoff_table`);
+  ``_xsolve_plain`` + ``_resample_plain``;
 * ``gather`` ← ``_kernel_gather`` (solve on the host, uniform index);
   :func:`prepare_profile_tables` + ``_resample_plain``;
 * ``sweep`` ← ``_kernel`` (solve on the host, any grid: the segment of
@@ -417,13 +419,16 @@ def ionogram_fast_xla(freq_mhz, den, bmag, bpsi, alt, mode_mult=1.0,
 class KernelArgs:
     """Everything one kernel launch reads, prepared on the inputs' device.
 
-    ``tab`` is the channel-major segment table [B, C, N] (channels as in
+    ``tab`` is the channel-major segment table [B, C, ld] (channels as in
     :func:`_pack_segment_table`, plus cummax(den) as channel 8 for the
-    O-mode in-kernel solve). ``span``/``slope``/``emax``/``valid`` [B, F]
-    are set when the solve runs outside the kernel. ``inv_dalt`` selects
-    the arithmetic index (uniform grid); None the upper-bound one. For
-    ``kind="mxu"``, ``tab`` is the one-hot table [B, 128, K1] of
-    :func:`_mxu_table` and ``n_alt`` the number of altitude nodes.
+    O-mode in-kernel solve) over ``n_alt`` altitude nodes; for kernels 2
+    and 3 (``gather_xsolve``, ``gather``) the rows are zero-padded to a
+    stride ``ld`` of a multiple of 16 bytes (:func:`padded_rows`), which
+    their bulk copies need, else ``ld == n_alt``. ``span``/``slope``/
+    ``emax``/``valid`` [B, F] are set when the solve runs outside the
+    kernel. ``inv_dalt`` selects the arithmetic index (uniform grid);
+    None the upper-bound one. For ``kind="mxu"``, ``tab`` is the one-hot
+    table [B, 128, K1] of :func:`_mxu_table`.
     """
     kind: str
     mode_mult: float
@@ -441,6 +446,22 @@ class KernelArgs:
     n_alt: Optional[int] = None
 
 
+def padded_rows(n_alt, itemsize):
+    """Row stride of kernels 2 and 3's table: ``n_alt`` rounded up to a
+    multiple of 16 bytes (the TMA bulk copy's unit)."""
+    per = 16 // itemsize
+    return -(-n_alt // per) * per
+
+
+def _rows(tab, kind):
+    """``tab`` [B, C, N] with its rows zero-padded for ``kind``."""
+    if kind not in ("gather", "gather_xsolve"):
+        return tab.contiguous()
+    N = tab.shape[2]
+    pad = padded_rows(N, tab.element_size()) - N
+    return torch.nn.functional.pad(tab, (0, pad)).contiguous()
+
+
 def prepare_kernel_args(kind, freq_mhz, den, bmag, bpsi, alt, mode_mult,
                         n_points, inv_dalt):
     """Host prep for one of the four kernels (torch ops on den's device)."""
@@ -449,22 +470,27 @@ def prepare_kernel_args(kind, freq_mhz, den, bmag, bpsi, alt, mode_mult,
     alt_min = torch.amin(alt).reshape(1)
     common = dict(kind=kind, mode_mult=mode_mult, freq_hz=freq_hz,
                   mult=mult, omm=omm, dmult=dmult, alt_min=alt_min,
-                  inv_dalt=inv_dalt)
+                  inv_dalt=inv_dalt, n_alt=den.shape[1])
     if kind in ("gather_osolve", "gather_xsolve"):
         den_t, bmag_t, bpsi_t, alt_t = _flat_extend(den, bmag, bpsi, alt)
         seg = _pack_segment_table(den_t, bmag_t, bpsi_t, alt_t)
         chans = [seg.transpose(1, 2)]
         if kind == "gather_osolve":
             chans.append(torch.cummax(den_t, dim=1).values[:, None, :])
-        return KernelArgs(tab=torch.cat(chans, dim=1).contiguous(), **common)
+        return KernelArgs(tab=_rows(torch.cat(chans, dim=1), kind), **common)
     seg, crit, valid, slope, emax = prepare_profile_tables(
         freq_hz, den, bmag, bpsi, alt, mode_mult)
     tab = (_mxu_table(seg) if kind == "mxu"
-           else seg.transpose(1, 2).contiguous())
-    return KernelArgs(tab=tab, n_alt=den.shape[1],
+           else _rows(seg.transpose(1, 2), kind))
+    return KernelArgs(tab=tab,
                       span=(crit - alt[0]).contiguous(),
                       slope=slope.contiguous(), emax=emax.contiguous(),
                       valid=valid.to(torch.uint8).contiguous(), **common)
+
+
+def _table(a):
+    """The segment table of prepared args without its row padding."""
+    return a.tab[:, :, :a.n_alt]
 
 
 def _osolve_plain(a):
@@ -473,7 +499,7 @@ def _osolve_plain(a):
     Frequency-separable count of cummax(den) < f²/cp², X-space ±1 razor
     correction, crossing geometry in the relative-altitude frame.
     """
-    tab, f = a.tab, a.freq_hz[None, :]
+    tab, f = _table(a), a.freq_hz[None, :]
     B, _, N = tab.shape
     alt_rel, den, dmax = tab[:, 0], tab[:, 2], tab[:, 8]
     cp2 = scalar_like(CP * CP, tab)
@@ -510,7 +536,7 @@ def _xsolve_plain(a):
     The crossing is the first exceedance of the raw s = X+Y; f0/f1 are
     prefix maxima of the same s values, r0 the raw s at k−1.
     """
-    tab, f = a.tab, a.freq_hz[None, :, None]
+    tab, f = _table(a), a.freq_hz[None, :, None]
     B, _, N = tab.shape
     alt_rel, den, bm = tab[:, 0], tab[:, 2], tab[:, 4]
     cp2 = scalar_like(CP * CP, tab)
@@ -532,6 +558,35 @@ def _xsolve_plain(a):
     span, slope, emax = _crossing(f0, f1, a0, a1, r0, exceed[:, :, 0],
                                   valid, 0.0)
     return span, slope, emax, valid
+
+
+# the relative margin in f of kernel 2's cutoff-frequency bracket
+# (derived in csrc/ionogram.cu, ``Margin``)
+XSOLVE_MARGIN = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def cutoff_frequencies(a):
+    """fx_j = (f_H + sqrt(f_H² + 4 f_p²)) / 2 [B, N] on prepared args, the
+    frequency at which s_j = X_j + Y_j = 1 (f_H = |B|·g_p, f_p² =
+    den·cp²), in kernel 2's operation order; +inf at nodes with den or |B|
+    negative or NaN."""
+    tab = _table(a)
+    den, bm = tab[:, 2], tab[:, 4]
+    fh = bm * scalar_like(G_P, tab)
+    fx = (fh + torch.sqrt(fh * fh + 4.0 * (den * scalar_like(CP * CP, tab)))
+          ) * 0.5
+    return torch.where((den >= 0) & (bm >= 0), fx, float("inf"))
+
+
+def cutoff_table(a):
+    """Kernel 2's cutoff-frequency table [B, N]: the prefix maximum cfx_j
+    of :func:`cutoff_frequencies`.
+
+    The kernel's X solve skips the nodes below the first j with cfx_j ≥
+    f·(1 − δ) (no s_j there reaches 1) and declares a pair escaped when
+    there is none (δ = :data:`XSOLVE_MARGIN`).
+    """
+    return torch.cummax(cutoff_frequencies(a), dim=1).values
 
 
 def _uniform_index(pos, n_alt):
@@ -565,7 +620,7 @@ def _resample_plain(a, span, slope, emax):
     gather kernels. Profiles are processed in chunks so that the [b, F, P]
     workspace stays near 2**25 elements.
     """
-    tab = a.tab
+    tab = _table(a)
     B, _, N = tab.shape
     F, P = a.freq_hz.shape[0], a.mult.shape[0]
     mi = a.mult * a.inv_dalt
@@ -726,16 +781,16 @@ def mxu_launch_shape(B, F, n_sm):
 
 
 @functools.lru_cache(maxsize=64)
-def blocks_per_sm(device_index, dtype_code, mode, solve, uniform, C, N):
+def blocks_per_sm(device_index, dtype_code, mode, solve, uniform, C, N, ld):
     """Blocks of ``_WARPS`` warps of one ``csrc/ionogram.cu`` instantiation
     that one SM of CUDA device ``device_index`` holds at once with a
-    [C, N] table: the CUDA occupancy calculator, from the registers the
-    compiler allotted and the block's shared memory."""
+    [C, N] table of row stride ``ld``: the CUDA occupancy calculator, from
+    the registers the compiler allotted and the block's shared memory."""
     from . import cuda_ext
     lib = cuda_ext.load()
     with torch.cuda.device(device_index):
         n = lib.pyrayhf_ionogram_blocks_per_sm(
-            dtype_code, mode, int(solve), int(uniform), C, N, _WARPS)
+            dtype_code, mode, int(solve), int(uniform), C, N, ld, _WARPS)
     if n < 0:
         raise RuntimeError(f"ionogram kernel occupancy: "
                            f"{cuda_ext.error_string(-n)} ({-n})")
@@ -745,20 +800,25 @@ def blocks_per_sm(device_index, dtype_code, mode, solve, uniform, C, N):
 def kernel_layout(a):
     """The :class:`Layout` :func:`launch_kernel` launches prepared args
     ``a`` in, on the card ``a`` lies on."""
-    B, C, N = a.tab.shape
+    B, C, ld = a.tab.shape
+    F, P = a.freq_hz.shape[0], a.mult.shape[0]
     dev = a.tab.device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     bps = blocks_per_sm(dev.index, int(a.tab.dtype == torch.float64),
                         1 if a.mode_mult > 0 else -1,
                         a.kind in ("gather_osolve", "gather_xsolve"),
-                        a.inv_dalt is not None, C, N)
-    return launch_shape(B, a.freq_hz.shape[0], a.mult.shape[0], n_sm, bps)
+                        a.inv_dalt is not None, C, a.n_alt, ld)
+    return launch_shape(B, F, P, n_sm, bps)
 
 
-def ionogram_smem_bytes(C, N, itemsize):
-    """Dynamic shared memory of one ``csrc/ionogram.cu`` block: the [C, N]
-    table and 8 warp sums."""
-    return itemsize * (C * N + 8)
+def ionogram_smem_bytes(kind, C, N, ld, itemsize):
+    """Dynamic shared memory of one ``csrc/ionogram.cu`` block. Kernels 1
+    and 4: the [C, N] table and 8 warp sums. Kernels 2 and 3: 128 bytes of
+    barrier, flag and sums, the 8 channels at row stride ``ld`` and kernel
+    2's cutoff table."""
+    if kind not in ("gather", "gather_xsolve"):
+        return itemsize * (C * N + 8)
+    return 128 + itemsize * (9 if kind == "gather_xsolve" else 8) * ld
 
 
 def launch_kernel(a):
@@ -780,7 +840,8 @@ def launch_kernel(a):
     uniform = a.inv_dalt is not None
     if solve and not uniform:
         raise ValueError("the in-kernel solve needs a uniform grid")
-    B, C, N = tab.shape
+    B, C, ld = tab.shape
+    N = a.n_alt
     F, P = a.freq_hz.shape[0], a.mult.shape[0]
     if N < 2 or F == 0 or B == 0:
         raise ValueError(f"degenerate launch B={B} F={F} N={N}")
@@ -791,7 +852,7 @@ def launch_kernel(a):
         if t.dtype != dtype or t.device != dev or not t.is_contiguous():
             raise ValueError("kernel operands must share dtype and device "
                              "and be contiguous")
-    smem = ionogram_smem_bytes(C, N, tab.element_size())
+    smem = ionogram_smem_bytes(a.kind, C, N, ld, tab.element_size())
     if smem > cuda_ext.MAX_SMEM_BYTES:
         raise ValueError(f"profile table of {smem} bytes exceeds the "
                          f"{cuda_ext.MAX_SMEM_BYTES}-byte shared memory of "
@@ -808,7 +869,7 @@ def launch_kernel(a):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = cuda_ext.load().pyrayhf_ionogram(
             code, mode, int(solve), int(uniform),
-            ptr(tab), C, B, N, ptr(a.mult), ptr(a.omm), ptr(a.dmult), P,
+            ptr(tab), C, B, N, ld, ptr(a.mult), ptr(a.omm), ptr(a.dmult), P,
             ptr(a.freq_hz), F, lay.n_groups, lay.warps, int(lay.per_block),
             ptr(a.span), ptr(a.slope), ptr(a.emax), ptr(a.valid),
             ptr(a.alt_min), float(a.inv_dalt or 0.0), ptr(out), stream)

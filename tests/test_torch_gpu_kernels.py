@@ -5,7 +5,9 @@ built at first use) and skip without a card. Run them on the card with
 ``python -m pytest tests/test_torch_gpu_kernels.py -q -m gpu``.
 Tolerances: f64 identical NaN masks and ≤ 1e-6 km; f32 within 0.1 km of
 the f64 plain result (the accuracy contract) and, on the ionogram
-kernels' edge cases, within 1e-3 km of plain f32 with identical masks;
+kernels' edge cases, within 1e-3 km of plain f32 with identical masks
+(at cutoff frequencies, or 4 f32 ulps of vh where that is more: vh
+reaches ~1e7 km at a constant-|B| profile's gyrofrequency);
 the mxu kernel against kernel 3 ≤ 1e-9 km in f64, and bit for bit, f32
 and f64, where the inputs exercise the edges of its banded products. The
 ray-fan kernel: f64 identical status codes and landing masks, rtol 1e-8,
@@ -672,3 +674,62 @@ def test_fan_kernel_on_more_frequencies_than_a_grid_row(cuda):
     for key in TR.OUTPUTS:
         assert torch.allclose(k[key], p[key], rtol=1e-8, atol=1e-10,
                               equal_nan=True), key
+
+
+# ---- kernels 2 and 3 at the cutoffs (csrc/ionogram.cu gather_kernel) ----
+
+def _razor_freqs(den, bmag, alt, dtype, cuda):
+    """Frequencies [Hz] at each profile's node cutoffs fx_j and prefix
+    maxima cfx_j times (1 ± n ulp), n ≤ 4, in ``dtype`` (kernel 2's
+    bracket meets its exact test there)."""
+    t = [torch.as_tensor(x, dtype=dtype, device=cuda)
+         for x in (np.array([5.0]), den, bmag, np.full_like(den, 45.0), alt)]
+    a = TV.prepare_kernel_args("gather_xsolve", *t, -1.0, 200,
+                               TV.uniform_inv_dalt(t[4]))
+    fx, cfx = TV.cutoff_frequencies(a), TV.cutoff_table(a)
+    nodes = torch.arange(0, fx.shape[1], 11, device=cuda)
+    base = torch.cat([fx[:, nodes], cfx[:, nodes]]).flatten()
+    base = base[torch.isfinite(base) & (base > 0)]
+    fs, up, down = [base], base, base
+    for _ in range(4):
+        up = torch.nextafter(up, torch.full_like(up, np.inf))
+        down = torch.nextafter(down, torch.full_like(down, -np.inf))
+        fs += [up, down]
+    return a, torch.unique(torch.cat(fs))
+
+
+@pytest.mark.parametrize("kind", ["gather_xsolve", "gather"])
+@pytest.mark.parametrize("n_points", [200, 2000])
+def test_gather_kernels_at_cutoff_frequencies(cuda, kind, n_points):
+    """Kernels 2 (the cutoff-frequency bracket, then the exact ballot
+    scan) and 3 against their plain versions with frequencies on node
+    cutoffs ± 4 ulp, on Chapman, E-above-valley, two-peak and constant-|B|
+    profiles: f64 identical NaN masks and ≤ 1e-6 km; f32 identical NaN
+    masks and ≤ 1e-3 km, or 4 f32 ulps of vh where that is more (at the
+    gyrofrequency of a constant-|B| profile vh reaches ~1e7 km); a warp
+    per pair at P = 200, a block per pair at P = 2,000."""
+    import dataclasses
+    *args, _ = _ion_case("mix")
+    freqs, den, bmag, bpsi, alt = args
+    tp = np.stack([2.5e12 * np.exp(-(alt - 300.0) ** 2 / 6050.0)] * 2)
+    tp[1] += 9e11 * np.exp(-(alt - 110.0) ** 2 / 200.0)
+    den = np.concatenate([den, tp, den[:1]])
+    bmag = np.concatenate([bmag, np.full((2, alt.size), 3.2e-5),
+                           np.full((1, alt.size), 4.1e-5)])
+    bpsi = np.concatenate([bpsi, bpsi[:3]])
+    for dtype in (torch.float64, torch.float32):
+        a2, f_hz = _razor_freqs(den, bmag, alt, dtype, cuda)
+        t = [torch.as_tensor(x, dtype=dtype, device=cuda)
+             for x in (f_hz.cpu().numpy() / 1e6, den, bmag, bpsi, alt)]
+        a = TV.prepare_kernel_args(kind, *t, -1.0, n_points,
+                                   TV.uniform_inv_dalt(t[4]))
+        if kind == "gather_xsolve":
+            a = dataclasses.replace(a, freq_hz=f_hz)
+        k = TV.launch_kernel(a).double().cpu().numpy()
+        p = TV.plain_ionogram(a).double().cpu().numpy()
+        assert np.array_equal(np.isnan(k), np.isnan(p))
+        m = np.isfinite(p)
+        assert m.any() and (~m).any()
+        tol = 1e-6 if dtype == torch.float64 else np.maximum(
+            1e-3, 4 * np.finfo(np.float32).eps * np.abs(p[m]))
+        assert (np.abs(k[m] - p[m]) <= tol).all()

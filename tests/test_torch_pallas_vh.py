@@ -465,3 +465,127 @@ def test_altitude_frame_is_relative():
             up = fn(*map(_t, args[:4]), _t(args[4] + 1000.0), mode_mult=mm,
                     **kw)
             _assert_vh(up - 1000.0, base.numpy(), tol=1e-9)
+
+
+# ---- kernel 2's cutoff-frequency bracket (csrc/ionogram.cu) -------------
+
+def _bracket_profiles(kind):
+    """(den, |B|, alt) [B, N] of one kind: Chapman F2, an E layer above a
+    valley, the two-peak pair, or Chapman with |B| constant in height."""
+    rng = np.random.default_rng(17)
+    alt = np.linspace(80.0, 699.0, 311)
+    B = 6
+    hm = rng.uniform(220.0, 380.0, (B, 1))
+    H = rng.uniform(40.0, 70.0, (B, 1))
+    z = (alt - hm) / H
+    den = 10.0 ** rng.uniform(11.0, 12.4, (B, 1)) * np.exp(
+        0.5 * (1.0 - z - np.exp(-z)))
+    bmag = rng.uniform(2.5e-5, 6.5e-5, (B, 1)) * (
+        (6371.0 + alt[0]) / (6371.0 + alt)) ** 3
+    if kind == "e_valley":
+        ze = (alt - rng.uniform(105.0, 120.0, (B, 1))) / 8.0
+        den = den + rng.uniform(0.1, 0.4, (B, 1)) * den.max(1, keepdims=True) \
+            * np.exp(0.5 * (1.0 - ze - np.exp(-ze)))
+    elif kind == "two_peak":
+        f2 = 2.5e12 * np.exp(-(alt - 300.0) ** 2 / (2 * 55.0 ** 2))
+        e_layer = 9e11 * np.exp(-(alt - 110.0) ** 2 / (2 * 10.0 ** 2))
+        den, bmag = np.stack([f2, f2 + e_layer]), np.full((2, alt.size),
+                                                          3.2e-5)
+    elif kind == "flat_b":
+        bmag = np.repeat(bmag[:, :1], alt.size, axis=1)
+    return den, bmag, alt
+
+
+def _razor_case(kind, dtype):
+    """Kernel 2's prepared args (CPU) with frequencies at each profile's
+    node cutoffs fx_j and prefix maxima cfx_j times (1 ± n ulp), n ≤ 4,
+    and the exact first exceedance k_first [B, F] (N where none) of the
+    s = X + Y that ``_xsolve_plain`` tests."""
+    import dataclasses
+    den, bmag, alt = _bracket_profiles(kind)
+    t = [torch.as_tensor(x, dtype=dtype)
+         for x in (np.array([5.0]), den, bmag, np.full_like(den, 45.0), alt)]
+    a = TV.prepare_kernel_args("gather_xsolve", *t, -1.0, 200,
+                               TV.uniform_inv_dalt(t[4]))
+    fx, cfx = TV.cutoff_frequencies(a), TV.cutoff_table(a)
+    nodes = torch.arange(0, fx.shape[1], 7)
+    base = torch.cat([fx[:, nodes], cfx[:, nodes]]).flatten()
+    fs, up, down = [base], base, base
+    for _ in range(4):
+        up = torch.nextafter(up, torch.full_like(up, np.inf))
+        down = torch.nextafter(down, torch.full_like(down, -np.inf))
+        fs += [up, down]
+    a = dataclasses.replace(a, freq_hz=torch.unique(torch.cat(fs)))
+    tab, f = TV._table(a), a.freq_hz[None, :, None]
+    cp2 = torch.tensor(8.97866275 ** 2, dtype=dtype)
+    gp = torch.tensor(2.799249247e10, dtype=dtype)
+    s = tab[:, 2][:, None, :] * cp2 * (1.0 / (f * f)) \
+        + tab[:, 4][:, None, :] * gp / f
+    exceed = s >= 1.0
+    N = tab.shape[2]
+    k_first = torch.where(exceed.any(2),
+                          torch.argmax(exceed.to(torch.uint8), dim=2), N)
+    return a, cfx, k_first
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["chapman", "e_valley", "two_peak",
+                                  "flat_b"])
+def test_cutoff_bracket_never_passes_an_exceedance(kind, dtype):
+    """Kernel 2 searches the first exceedance from j_lo, the first node
+    with cfx_j ≥ f·(1 − δ): on frequencies at node cutoffs ± 4 ulp, the
+    exact first exceedance of ``_xsolve_plain``'s s is never below j_lo
+    (f32 and f64, E layers above valleys, two peaks, constant |B|)."""
+    a, cfx, k_first = _razor_case(kind, dtype)
+    fl = a.freq_hz * (1.0 - TV.XSOLVE_MARGIN[dtype])
+    jlo = torch.searchsorted(cfx.contiguous(),
+                             fl[None, :].expand(cfx.shape[0], -1)
+                             .contiguous())
+    valid = k_first < cfx.shape[1]
+    assert valid.any() and (~valid).any()
+    assert bool((k_first[valid] >= jlo[valid]).all())
+    assert bool((k_first[valid] - jlo[valid] < 32).float().mean() > 0.9)
+    # the same solve as the two scans
+    ref = TV._xsolve_plain(a)
+    assert torch.equal(ref[3], valid)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_escaped_pairs_lie_above_the_cutoff_table(dtype):
+    """Every escaped pair (no node with s ≥ 1) has f·(1 − δ) > cfx_{N−1},
+    so the table alone may declare it escaped, or lies within the margin
+    (f ≤ cfx_{N−1}·(1 + δ)), where the kernel scans; none lies below."""
+    d = TV.XSOLVE_MARGIN[dtype]
+    for kind in ("chapman", "e_valley", "two_peak", "flat_b"):
+        a, cfx, k_first = _razor_case(kind, dtype)
+        escaped = k_first == cfx.shape[1]
+        top = cfx[:, -1:].expand_as(escaped)
+        f = a.freq_hz[None, :].expand_as(escaped)
+        table = f * (1.0 - d) > top
+        margin = f <= top * (1.0 + d)
+        assert bool(escaped.any()) and bool((table | margin)[escaped].all())
+        assert not bool((f[escaped] < top[escaped] * (1.0 - d)).any())
+
+
+@pytest.mark.parametrize("kind,mode_mult", [("gather_xsolve", -1.0),
+                                            ("gather", -1.0),
+                                            ("gather", 1.0)])
+def test_padded_rows_keep_the_plain_version(kind, mode_mult):
+    """Kernels 2 and 3 take their table with rows padded to 16 bytes
+    (``padded_rows``): at N = 181 nodes the f32 rows hold 184 values and
+    the f64 rows 182, the pad is zero, other kernels' rows are unpadded,
+    and the plain version on the padded table matches the JAX sweep."""
+    freqs, den, bmag, bpsi, alt = _workload(B=3, n_alt=181)
+    for dtype, ld in ((torch.float32, 184), (torch.float64, 182)):
+        t = [torch.as_tensor(x, dtype=dtype)
+             for x in (freqs, den, bmag, bpsi, alt)]
+        inv = TV.uniform_inv_dalt(t[4])
+        a = TV.prepare_kernel_args(kind, *t, mode_mult, 200, inv)
+        assert a.tab.shape == (3, 8, ld) and a.n_alt == 181
+        assert a.tab.is_contiguous() and not a.tab[:, :, 181:].any()
+        assert TV.padded_rows(181, a.tab.element_size()) == ld
+        o = TV.prepare_kernel_args("gather_osolve", *t, 1.0, 200, inv)
+        assert o.tab.shape == (3, 9, 181)
+    ref = JV.ionogram_fast_xla(*_j((freqs, den, bmag, bpsi, alt)),
+                               mode_mult=mode_mult, n_points=200)
+    _assert_vh(TV.plain_ionogram(a), ref)

@@ -2,66 +2,85 @@
 """Where the ionogram kernels' time goes (``csrc/ionogram.cu``), on one
 CUDA card, by variants timed in turns.
 
-    git show 5cdf81b:pyrayhf_tpu_torch/csrc/ionogram.cu \\
+    git show eb1db86:pyrayhf_tpu_torch/csrc/ionogram.cu \\
         > build/ionogram_earlier.cu
-    git show 5cdf81b:pyrayhf_tpu_torch/csrc/ionogram_common.cuh \\
+    git show eb1db86:pyrayhf_tpu_torch/csrc/ionogram_common.cuh \\
         > build/ionogram_common_earlier.cuh
     python3 tools/ionogram_attribution.py build/ionogram_earlier.cu \\
         build/ionogram_common_earlier.cuh
 
 The arguments are an earlier ``csrc/ionogram.cu`` and its
-``ionogram_common.cuh``: the kernel that runs the mu' tail on every
-(profile, frequency), finds the sweep's segment by a binary search per
-point and puts one warp on each pair (the form it had before the
-escaped-pair skip). The script writes variants of it and of the current
-source into ``build/ionogram_attribution/`` (git ignores ``build/``), each
-with its header inlined, builds them with ``nvcc`` (the package's flags,
-all at once) and launches each through its own library. Variants, each
-an exact text edit of the current source that fails loudly when its line
-is missing:
+``ionogram_common.cuh`` with the launch signature of that revision (no
+row stride, no persistent grid: ``tab, C, B, N, mult, ..., n_groups,
+warps, per_block, span, ...``), whose kernels 2 and 3 run in the template
+of kernels 1 and 4: the X solve scans every node twice, the block loads
+all 8 channels with a loop of loads, and mult, 1 - mult and dmult come
+from device memory. The script writes variants of it and of the current
+source into ``build/ionogram_attribution/`` (git ignores ``build/``),
+each with its header inlined, builds them with ``nvcc`` (the package's
+flags, all at once) and launches each through its own library. Kernels 2
+and 3 (``gather_kernel``) by variant, each but ``earlier`` an exact text
+edit of the current source that fails loudly when its line is missing,
+or a layout:
 
-* ``earlier``: the earlier kernel, in its own layout (8 warps, contiguous
-  frequency groups);
-* ``skip``: the current source with the sweep's cursor replaced by the
-  binary search and psi's sin and cos as two calls, in the earlier layout
-  (8 warps, as many groups, interleaved): the escaped-pair skip alone;
-* ``skip_walk``: with the cursor as well, in the earlier layout;
-* ``skip_walk_groups``: the same, a warp per pair, with the groups
-  ``launch_shape`` gives the warp layout (from the waves of resident
-  blocks);
-* ``skip_walk_block``: the same in ``launch_shape``'s layout (a block
-  per pair on long grids);
-* ``full``: the current source (one ``sincos`` for psi) in that layout;
-* ``psi_node``: ``full`` with psi's sin and cos taken once per altitude
-  node, and used where the segment's delta psi is 0.
+* ``earlier``: the earlier kernel;
+* ``no_table``: the current source with the X solve's two scans over
+  every node (the earlier ``xsolve``) in place of the cutoff-frequency
+  table (kernel 2 only; against ``earlier``, the bulk copy of the table);
+* ``trim``: only the channels the kernel reads copied (6 of 8; 7 with the
+  solve's altitudes) (not kept);
+* ``stage``: mult, 1 - mult and dmult staged in shared memory at P <=
+  512 (not kept);
+* ``ring``: a persistent grid with two table slots, the next item's
+  table copied while the block works on the current one (the kernel of
+  ``tools/ionogram_ring_variant.cuh`` in place of ``gather_kernel``; not
+  kept);
+* ``uncapped``: f64 registers not capped (80-97 a thread: 2-3 blocks an
+  SM in place of 4);
+* ``cap_f32``: f32 registers capped too, for 6 blocks an SM (40 a thread;
+  not kept);
+* ``full``: the current source.
 
-The variants of the current source all launch in the layout that
-``launch_shape`` gives the current kernel (its registers), so that a
-block-per-pair variant sums in the same order as ``full``. Then the
-current kernel alone is timed over a grid of layouts: a warp per pair
-at 4-8 warps a block and 1-6 frequency groups on the P = 200 cases, a
-block per pair at 4-8 warps on X-20k.
+Each in the layout ``launch_shape`` gives it on its own blocks per SM
+(its library's occupancy entry), as ``kernel_layout`` does for the
+package's kernel.
+
+Kernels 1 and 4 (``ionogram_kernel``) are timed as ``earlier`` and
+``full`` only: their code did not change.
+
+Step 0, before anything runs: the SASS of each library (``cuobjdump
+-sass``, :func:`pyrayhf_tpu_torch.cuda_ext.sass_loops`): for the f32 and
+f64 instantiations of kernels 2 and 3, each loop with its instruction
+count and the fewest instructions one iteration can issue (``path``), its
+MUFU (division, root, sin/cos) and VOTE (ballot) instructions. The tail
+loop is the largest loop with a MUFU.RSQ; the X solve's node loops are
+the others with a MUFU.RCP (the division by f).
 
 Checks, before anything is timed, on ``chip_smoke.py``'s profiles (f32
 and f64, O and X, each kernel kind, the uniform grid and the 620-node
-non-uniform ``alt_nu``): every variant in a warp-per-pair layout equals
-``earlier`` bit for bit (NaN-aware); every variant in the block layout equals
-``full`` bit for bit, and ``full`` is held to the plain version (f64
-identical NaN masks and <= 1e-6 km, f32 <= 1e-3 km of plain f32 and <=
-0.1 km of plain f64). A failed check stops the run.
+non-uniform ``alt_nu``; 26 cases) and on its razor cases (kernel 2 at
+frequencies on each razor profile's node cutoffs fx_j and prefix maxima
+cfx_j times (1 +- n ulp), n <= 4, at P = 200 and 2,000; 4 cases): every
+variant in a warp-per-pair layout equals ``earlier`` bit for bit
+(NaN-aware); every variant in the block layout equals ``full`` bit for
+bit, and ``full`` is held to the plain version (f64 identical NaN masks
+and <= 1e-6 km, f32 <= 1e-3 km of plain f32 and <= 0.1 km of plain f64).
+A failed check stops the run.
 
 Timing: X-20k (B=32, F=175, P=20,000, X mode) through the sweep on the
 uniform grid and on ``alt_nu``; O-200 (B=1024, P=200) through
-``gather_osolve``; X-200 through ``gather_xsolve`` and ``gather``. f32 and
-f64, median of 10 launches after 3 warm-ups (CUDA events), every variant
-timed twice in turns (forward, then backward). Prints one line per
-variant with its layout. Last, the crossover of the layouts: on the
-shapes of ``chip_smoke.py``'s P = 2,000 checks and on wider batches (B
-up to 1,024), the current kernel a warp per pair (``launch_shape``'s warp
-layout) and a block per pair, at P from 512 to 20,000, and the mean and
-worst regret (time over the faster layout's) of ``launch_shape``'s
-choice and of simpler rules over those points. Then the card; the whole
-goes as JSON to ``build/ionogram_attribution/attribution.json``.
+``gather_osolve`` and ``gather`` (O); X-200 through ``gather_xsolve``
+and ``gather``. f32 and f64, median of 10 launches after 3 warm-ups (CUDA
+events), every variant timed twice in turns (forward, then backward),
+with the card's SM clock read under load. Prints one line per variant
+with its layout. Then the current kernel alone over a grid of layouts,
+and the crossover of the layouts: on the shapes of ``chip_smoke.py``'s
+P = 2,000 checks and on wider batches (B up to 1,024), the current kernel
+a warp per pair (``launch_shape``'s warp layout) and a block per pair, at
+P from 512 to 20,000, and the mean and worst regret (time over the
+faster layout's) of ``launch_shape``'s choice and of simpler rules over
+those points. Then the card; the whole goes as JSON to
+``build/ionogram_attribution/attribution.json``.
 """
 
 import argparse
@@ -78,6 +97,7 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 OUT_DIR = REPO / "build" / "ionogram_attribution"
 INCLUDE = '#include "ionogram_common.cuh"\n'
+GATHER = ("gather", "gather_xsolve")
 
 
 # the crossover of the two layouts: the shapes of the checks at P = 2,000
@@ -88,11 +108,45 @@ CROSSOVER = [("sweep X uniform", "sweep", -1.0, "uniform", 32),
              ("gather_xsolve X", "gather_xsolve", -1.0, "uniform", 32),
              ("gather O", "gather", 1.0, "uniform", 64),
              ("sweep X uniform", "sweep", -1.0, "uniform", 128),
-             ("sweep X uniform", "sweep", -1.0, "uniform", 256),
-             ("gather_osolve O", "gather_osolve", 1.0, "uniform", 128),
+             ("gather_xsolve X", "gather_xsolve", -1.0, "uniform", 256),
+             ("gather X", "gather", -1.0, "uniform", 256),
              ("gather_osolve O", "gather_osolve", 1.0, "uniform", 256),
-             ("gather_osolve O", "gather_osolve", 1.0, "uniform", 1024)]
+             ("gather_xsolve X", "gather_xsolve", -1.0, "uniform", 1024)]
 CROSSOVER_P = (512, 1024, 2048, 4096, 8192, 20000)
+
+# the two-scan X solve of the earlier kernel, for ``no_table``
+_XSOLVE_SCANS = """// X mode (_xsolve_tile): first exceedance of the raw s = X + Y; f0 and f1
+// are prefix maxima of the same s values, r0 is the raw s at k-1.
+template <typename T>
+__device__ Solve<T> xsolve(const T* alt, const T* den, const T* bm, int N,
+                           T f, int lane) {
+  const T cp2 = T(kCP * kCP);
+  const T gp = T(kGP);
+  const T inv_f2 = T(1) / (f * f);
+  int kf = N;
+  for (int j = lane; j < N; j += 32) {
+    if (cutoff_x(den, bm, j, cp2, inv_f2, gp, f) >= T(1)) {
+      kf = j;
+      break;
+    }
+  }
+  kf = __reduce_min_sync(kFull, kf);
+  const bool valid = kf < N;
+  const int k = min(max(kf, 1), N - 1);
+  T f0 = -INFINITY;
+  for (int j = lane; j <= k - 1; j += 32) {
+    const T v = cutoff_x(den, bm, j, cp2, inv_f2, gp, f);
+    f0 = v > f0 ? v : f0;
+  }
+  f0 = warp_max(f0);
+  const T s_k = cutoff_x(den, bm, k, cp2, inv_f2, gp, f);
+  const T f1 = s_k > f0 ? s_k : f0;
+  const T r0 = cutoff_x(den, bm, k - 1, cp2, inv_f2, gp, f);
+  const bool first_exceeds = cutoff_x(den, bm, 0, cp2, inv_f2, gp, f) >= T(1);
+  return crossing(f0, f1, alt[k - 1], alt[k], r0, first_exceeds, valid);
+}
+
+"""
 
 
 def rep(s, a, b, n=1):
@@ -108,77 +162,146 @@ def inline(cu, cuh):
     return rep(cu, INCLUDE, cuh.replace("#pragma once\n", "") + "\n")
 
 
-def binary_search(cu):
-    """The sweep's segment by a binary search per point (the earlier way)."""
-    return rep(cu, """        seek(alt, N, x, cur);
-        i0 = min(max(cur.lo - 1, 0), N - 2);""", """        int lo = 0, hi = N;
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (alt[mid] <= x) lo = mid + 1; else hi = mid;
-        }
-        i0 = min(max(lo - 1, 0), N - 2);""")
+def no_table(cu):
+    """Kernel 2's solve by two scans over every node (the earlier way)."""
+    cu = rep(cu, "// The lane's place in the altitude table",
+             _XSOLVE_SCANS + "// The lane's place in the altitude table")
+    cu = rep(cu, "  if constexpr (SOLVE) cutoff_table(den, bmg, N, cfx, "
+                 "part);\n", "")
+    return rep(cu, "xsolve_table(alt, den, bmg, cfx, N, f, lane)",
+               "xsolve(alt, den, bmg, N, f, lane)", 2)
 
 
-_SINCOS = """  T sinp, cosp;  // one call, the same values as sin and cos
-  if constexpr (sizeof(T) == 4) {
-    sincosf(psi, &sinp, &cosp);
-  } else {
-    sincos(psi, &sinp, &cosp);
-  }"""
+_HEAD = "// bytes ahead of the table: the mbarrier, the valid-pair flag, 8 warp"
 
 
-def sin_and_cos(cuh):
-    """``sin`` and ``cos`` of psi as two calls (the earlier way)."""
-    return rep(cuh, _SINCOS, """  const T sinp = sin(psi);
-  const T cosp = cos(psi);""")
+def trim(cu):
+    """Only the channels the kernel reads into shared memory: den, d den,
+    |B|, d|B|, psi, d psi (2-7), and alt (0) for kernel 2's solve."""
+    cu = rep(cu, _HEAD, """// the channels kernels 2 and 3 read, in the order shared memory holds them
+template <bool SOLVE>
+struct Channels {
+  static constexpr int first = SOLVE ? 0 : 2;  // first channel copied
+  static constexpr bool skip_inv = SOLVE;      // channel 1 left out
+  static constexpr int count = 8 - first - (skip_inv ? 1 : 0);
+  static __device__ int row(int c) {           // row of channel c
+    return c - first - (skip_inv && c > 1 ? 1 : 0);
+  }
+};
+""" + _HEAD)
+    cu = rep(cu, "  T* cfx = tb + kRows * ld;",
+             "  T* cfx = tb + Channels<SOLVE>::count * ld;")
+    cu = rep(cu, """        const unsigned bytes = (unsigned)(kRows * ld * sizeof(T));
+        mbar_expect(bar, bytes);
+        bulk_copy(tb, p.tab + (size_t)b * p.C * ld, bytes, bar);""",
+             """        using Ch = Channels<SOLVE>;
+        const T* src = p.tab + (size_t)b * p.C * ld;
+        const unsigned row = (unsigned)(ld * sizeof(T));
+        mbar_expect(bar, Ch::count * row);
+        if (Ch::skip_inv) {
+          bulk_copy(tb, src, row, bar);
+          bulk_copy(tb + ld, src + 2 * ld, (Ch::count - 1) * row, bar);
+        } else {
+          bulk_copy(tb, src + Ch::first * ld, Ch::count * row, bar);
+        }""")
+    cu = rep(cu, """  const T* alt = tb;
+  const T* den = tb + 2 * ld;
+  const T* dden = tb + 3 * ld;
+  const T* bmg = tb + 4 * ld;
+  const T* dbm = tb + 5 * ld;
+  const T* bps = tb + 6 * ld;
+  const T* dbp = tb + 7 * ld;""", """  using Ch = Channels<SOLVE>;
+  const T* alt = SOLVE ? tb + Ch::row(0) * ld : nullptr;
+  const T* den = tb + Ch::row(2) * ld;
+  const T* dden = tb + Ch::row(3) * ld;
+  const T* bmg = tb + Ch::row(4) * ld;
+  const T* dbm = tb + Ch::row(5) * ld;
+  const T* bps = tb + Ch::row(6) * ld;
+  const T* dbp = tb + Ch::row(7) * ld;""")
+    return rep(cu, "  size_t n = (size_t)kRows * ld;",
+               "  size_t n = (size_t)Channels<SOLVE>::count * ld;")
 
 
-def psi_node(cu, cuh):
-    """psi's sin and cos once per node, where the segment's dpsi is 0."""
-    cuh = rep(cuh, """T mup_stable(T X, T Y, T psi_deg, T eps_crit,
-                                        T eps_max, bool& ok_out) {""",
-              """T mup_stable(T X, T Y, T psi_deg, T eps_crit,
-                                        T eps_max, bool& ok_out,
-                                        bool node = false, T sin_node = 0,
-                                        T cos_node = 0) {""")
-    cuh = rep(cuh, _SINCOS, """  T sinp = sin_node, cosp = cos_node;
-  if (!node) {
-    if constexpr (sizeof(T) == 4) {
-      sincosf(psi, &sinp, &cosp);
-    } else {
-      sincos(psi, &sinp, &cosp);
+def stage(cu):
+    """mult, 1 - mult and dmult staged in shared memory (P <= 512)."""
+    cu = rep(cu, _HEAD, "constexpr int kStageP = 512;\n" + _HEAD)
+    cu = rep(cu, "  const int b = blockIdx.x, g = blockIdx.y;\n",
+             "  T* staged = cfx + (SOLVE ? ld : 0);\n"
+             "  const int b = blockIdx.x, g = blockIdx.y;\n")
+    cu = rep(cu, "  __syncthreads();\n  if (!*has) {", """  const T* mult = p.mult;
+  const T* omm = p.omm;
+  const T* dmult = p.dmult;
+  if (P <= kStageP) {
+    for (int i = threadIdx.x; i < P; i += blockDim.x) {
+      staged[i] = p.mult[i];
+      staged[P + i] = p.omm[i];
+      staged[2 * P + i] = p.dmult[i];
     }
-  }""")
-    cuh = rep(cuh, """                                       int q, int P) {""",
-              """                                       int q, int P,
-                                       bool node = false, T sin_node = 0,
-                                       T cos_node = 0) {""")
-    cuh = rep(cuh, "mup_stable<T, MODE>(X, Y, bpv, eps, emax, ok);",
-              "mup_stable<T, MODE>(X, Y, bpv, eps, emax, ok, node, sin_node, "
-              "cos_node);")
-    cu = rep(cu, "sizeof(T) * ((size_t)C * N + kMaxThreads / 32)",
-             "sizeof(T) * ((size_t)(C + 2) * N + kMaxThreads / 32)")
-    cu = rep(cu, "  T* part = s + tab_len;     // the warps' sums (block layout)\n",
-             """  T* sps = s + tab_len;
-  T* cps = sps + N;
-  T* part = cps + N;
-  for (int i = threadIdx.x; i < N; i += blockDim.x) {
-    const T psi = bps[i] * T(kPI / 180.0);
-    sps[i] = sin(psi);
-    cps[i] = cos(psi);
+    mult = staged;
+    omm = staged + P;
+    dmult = staged + 2 * P;
   }
   __syncthreads();
-""")
-    cu = rep(cu, """                                p.dmult[q], p.omm[q], q, p.P);""",
-             """                                p.dmult[q], p.omm[q], q, p.P,
-                                dbp[i0] == T(0), sps[i0], cps[i0]);""")
-    return cu, cuh
+  if (!*has) {""")
+    cu = rep(cu, "const int i0 = uniform_index(span * (p.mult[q] * p.inv_dalt)",
+             "const int i0 = uniform_index(span * (mult[q] * p.inv_dalt)")
+    cu = rep(cu, "                                p.dmult[q], p.omm[q], q, P);",
+             "                                dmult[q], omm[q], q, P);")
+    return rep(cu, "  const size_t smem = K::smem(p.C, p.N, p.ld);",
+               "  const size_t smem = K::smem(p.C, p.N, p.ld) +\n"
+               "      (K::gather && p.P <= kStageP ? 3 * sizeof(T) * p.P : 0);")
+
+
+_BOUNDS = "__launch_bounds__(kMaxThreads, sizeof(T) == 8 ? 4 : 1)"
+
+
+def uncapped(cu):
+    """gather_kernel's registers left to the compiler in f64 too."""
+    return rep(cu, _BOUNDS, "__launch_bounds__(kMaxThreads)")
+
+
+def cap_f32(cu):
+    """gather_kernel's f32 registers capped too, for 6 blocks an SM."""
+    return rep(cu, _BOUNDS,
+               "__launch_bounds__(kMaxThreads, sizeof(T) == 8 ? 4 : 6)")
+
+
+def ring(cu):
+    """The persistent grid with two table slots in place of gather_kernel."""
+    start = "// Kernels 2 (X solve, uniform) and 3 (host solve, uniform): block"
+    end = "// ---- launch ----"
+    if cu.count(start) != 1 or cu.count(end) != 1:
+        raise ValueError("variant edit: gather_kernel's markers not found")
+    i, j = cu.index(start), cu.index(end)
+    cu = cu[:i] + (REPO / "tools" / "ionogram_ring_variant.cuh").read_text() \
+        + "\n" + cu[j:]
+    cu = rep(cu, "  int C, N, ld;       // channels, altitude nodes, row stride",
+             "  int C, N, ld, B;")
+    cu = rep(cu, "Params<T> p{static_cast<const T*>(tab), C, N, ld,",
+             "Params<T> p{static_cast<const T*>(tab), C, N, ld, B,")
+    cu = rep(cu, "size_t n = (size_t)kRows * ld;",
+             "size_t n = (size_t)2 * kRows * ld;")
+    return rep(cu, """  kern<<<dim3(B, p.n_groups), warps * 32, smem, stream>>>(p);""",
+               """  if (K::gather) {
+    int dev = 0, n_sm = 1, bps = 1;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, kern, warps * 32,
+                                                  smem);
+    const int items = B * p.n_groups, room = n_sm * (bps > 0 ? bps : 1);
+    kern<<<items < room ? items : room, warps * 32, smem, stream>>>(p);
+  } else {
+    kern<<<dim3(B, p.n_groups), warps * 32, smem, stream>>>(p);
+  }""")
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("earlier", help="an earlier csrc/ionogram.cu")
     ap.add_argument("earlier_header", help="its ionogram_common.cuh")
+    ap.add_argument("--quick", action="store_true",
+                    help="stop after the variants' timing (no layout grid, "
+                         "no crossover)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -191,13 +314,15 @@ def main():
     card = cs.card_line()
     cu = (cuda_ext.SRC_DIR / "ionogram.cu").read_text()
     cuh = (cuda_ext.SRC_DIR / "ionogram_common.cuh").read_text()
-    pn_cu, pn_cuh = psi_node(cu, cuh)
     srcs = {"earlier": inline(Path(args.earlier).read_text(),
-                          Path(args.earlier_header).read_text()),
-            "skip": inline(binary_search(cu), sin_and_cos(cuh)),
-            "skip_walk": inline(cu, sin_and_cos(cuh)),
-            "cur": inline(cu, cuh),
-            "psi_node": inline(pn_cu, pn_cuh)}
+                              Path(args.earlier_header).read_text()),
+            "no_table": inline(no_table(cu), cuh),
+            "trim": inline(trim(cu), cuh),
+            "stage": inline(stage(cu), cuh),
+            "ring": inline(ring(cu), cuh),
+            "uncapped": inline(uncapped(cu), cuh),
+            "cap_f32": inline(cap_f32(cu), cuh),
+            "cur": inline(cu, cuh)}
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = str(cuda_ext.find_nvcc())
     procs = {}
@@ -220,6 +345,30 @@ def main():
         lib.pyrayhf_ionogram.restype = ctypes.c_int
         libs[name] = lib
     cuda_ext.load()                     # the package's own library
+    res = {"card": card}
+
+    # ---- step 0: the SASS of kernels 2 and 3 -------------------------------
+    print("SASS loops of kernels 2 and 3 (cuobjdump -sass): [instructions, "
+          "fewest and most an iteration issues, MUFU, ballots] per loop; "
+          "tail = the loop with a MUFU.RSQ of the most fewest", flush=True)
+    res["sass"] = {}
+    for name in ("earlier", "cur"):
+        for fn, loops in cuda_ext.sass_loops(OUT_DIR / f"{name}.so").items():
+            kern2 = ("gather_kernel<" in fn and "(bool)1>" in fn) or (
+                "ionogram_kernel<" in fn
+                and "(int)-1, (bool)1, (bool)1>" in fn)
+            kern3 = ("gather_kernel<" in fn and "(bool)0>" in fn) or (
+                "ionogram_kernel<" in fn and "(bool)0, (bool)1>" in fn)
+            if not (kern2 or kern3):
+                continue
+            res["sass"][f"{name} {fn}"] = loops
+            print(f"  {name} {fn}:", flush=True)
+            for lp in loops:
+                print(f"    [{lp['start']:#x}, {lp['end']:#x}] "
+                      f"{lp['instructions']} instr, path {lp['path']}, "
+                      f"longest {lp['longest']}, "
+                      f"{' '.join(lp['mufu']) or 'no MUFU'}, "
+                      f"{lp['vote']} VOTE", flush=True)
 
     dev = torch.device("cuda", 0)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -232,16 +381,13 @@ def main():
                              np.linspace(200.0, 699.0, 380)])
     nu_prof = cs.profiles(rng, 256, alt_nu)
     grids = {"uniform": (alt, main_prof), "alt_nu": (alt_nu, nu_prof)}
+    razor_prof = cs.razor_profiles(alt, *main_prof)
 
-    # (variant, source, layout): "earlier" the earlier kernel's own,
-    # "earlier_shape" its warps and group count (interleaved), "groups"
-    # launch_shape's warp layout, "shape" launch_shape's choice
-    variants = [("earlier", "earlier", "earlier"),
-                ("skip", "skip", "earlier_shape"),
-                ("skip_walk", "skip_walk", "earlier_shape"),
-                ("skip_walk_groups", "skip_walk", "groups"),
-                ("skip_walk_block", "skip_walk", "shape"),
-                ("full", "cur", "shape"), ("psi_node", "psi_node", "shape")]
+    # (variant, source)
+    variants = [("earlier", "earlier"), ("no_table", "no_table"),
+                ("trim", "trim"), ("stage", "stage"), ("ring", "ring"),
+                ("uncapped", "uncapped"), ("cap_f32", "cap_f32"),
+                ("full", "cur")]
 
     def prep(kind, mm, grid, B, P, dtype):
         g, prof = grids[grid]
@@ -251,41 +397,50 @@ def main():
         inv = None if kind == "sweep" else pv.uniform_inv_dalt(t[-1])
         return t, pv.prepare_kernel_args(kind, *t, mm, P, inv)
 
-    def blocks(a):
-        """Blocks an SM holds of the current kernel for args ``a``."""
-        return pv.blocks_per_sm(
-            dev.index, int(a.tab.dtype == torch.float64),
-            1 if a.mode_mult > 0 else -1,
-            a.kind in ("gather_osolve", "gather_xsolve"),
-            a.inv_dalt is not None, *a.tab.shape[1:])
+    def blocks(src, a):
+        """Blocks an SM holds of variant source ``src``'s kernel for args
+        ``a`` (its library's occupancy entry; the earlier one has no row
+        stride)."""
+        lib = libs[src]
+        stride = [] if src == "earlier" else [a.tab.shape[2]]
+        argv = [int(a.tab.dtype == torch.float64),
+                1 if a.mode_mult > 0 else -1,
+                int(a.kind in ("gather_osolve", "gather_xsolve")),
+                int(a.inv_dalt is not None), a.tab.shape[1], a.n_alt,
+                *stride, pv._WARPS]
+        lib.pyrayhf_ionogram_blocks_per_sm.argtypes = [ctypes.c_int] * len(
+            argv)
+        n = lib.pyrayhf_ionogram_blocks_per_sm(*argv)
+        if n < 0:
+            raise RuntimeError(f"{src} occupancy: error {-n}")
+        return n
 
     def launcher(variant, a, layout=None):
-        _, src, lay = next(v for v in variants if v[0] == variant)
+        src = dict(variants)[variant]
         lib = libs[src]
-        B, C, N = a.tab.shape
+        B, C, ld = a.tab.shape
+        N = a.n_alt
         F, P = a.freq_hz.shape[0], a.mult.shape[0]
         dt = int(a.tab.dtype == torch.float64)
         mode = 1 if a.mode_mult > 0 else -1
         solve = a.kind in ("gather_osolve", "gather_xsolve")
         uniform = a.inv_dalt is not None
         out = torch.empty((B, F), dtype=a.tab.dtype, device=dev)
-        f_group, w8 = pv.mxu_launch_shape(B, F, n_sm)
-        if layout is None and lay.startswith("earlier"):
-            layout = ((f_group, w8) if lay == "earlier"
-                      else (-(-F // f_group), w8, 0))
-        elif layout is None:   # the current kernel's, whatever the variant
-            shape = pv.launch_shape(B, F, 1 if lay == "groups" else P, n_sm,
-                                    blocks(a))
-            layout = (shape.n_groups, shape.warps, int(shape.per_block))
+        tab = a.tab
+        if layout is None:   # launch_shape on the variant's own occupancy
+            s = pv.launch_shape(B, F, P, n_sm, blocks(src, a))
+            layout = (s.n_groups, s.warps, int(s.per_block))
+        if src == "earlier" and ld != N:
+            tab = tab[:, :, :N].contiguous()
 
         def ptr(t):
             return ctypes.c_void_p(None if t is None else t.data_ptr())
 
-        argv = [dt, mode, int(solve), int(uniform), ptr(a.tab), C, B, N,
-                ptr(a.mult), ptr(a.omm), ptr(a.dmult), P, ptr(a.freq_hz), F,
-                *layout, ptr(a.span), ptr(a.slope), ptr(a.emax),
-                ptr(a.valid), ptr(a.alt_min),
-                ctypes.c_double(a.inv_dalt or 0.0)]
+        argv = [dt, mode, int(solve), int(uniform), ptr(tab), C, B, N,
+                *([] if src == "earlier" else [ld]), ptr(a.mult),
+                ptr(a.omm), ptr(a.dmult), P, ptr(a.freq_hz), F, *layout]
+        argv += [ptr(a.span), ptr(a.slope), ptr(a.emax), ptr(a.valid),
+                 ptr(a.alt_min), ctypes.c_double(a.inv_dalt or 0.0)]
 
         def go():
             err = lib.pyrayhf_ionogram(
@@ -294,8 +449,14 @@ def main():
             if err:
                 raise RuntimeError(f"{variant}: launch error {err}")
             return out
-        go.layout = layout
+        go.layout = tuple(layout)
         return go
+
+    def names_for(kind):
+        if kind not in GATHER:
+            return ["earlier", "full"]
+        return [v for v, _ in variants
+                if v != "no_table" or kind == "gather_xsolve"]
 
     def diff(o, ref):
         nan = torch.isnan(ref)
@@ -313,15 +474,17 @@ def main():
         o, ref = o.double(), ref.double()
         m = ~torch.isnan(ref) & ~torch.isnan(o)
         d = (o[m] - ref[m]).abs()
+        tol = torch.as_tensor(tol, dtype=torch.float64, device=o.device)
+        tol = tol.expand_as(ref)[m] if tol.ndim else tol
         return (int((torch.isnan(o) != torch.isnan(ref)).sum()),
                 float(d.max()) if d.numel() else 0.0, int((d > tol).sum()))
 
     checks = []
     print("checks: warp layouts bit for bit the earlier kernel, block "
-          "layouts bit for bit full; full vs plain f64 (f64: identical NaN masks, <= 1e-6 km) "
-          "and vs plain f32 (f32: identical NaN masks, <= 1e-3 km); f32 vs "
-          "plain f64 reported beside plain f32 vs plain f64 (0.1 km)",
-          flush=True)
+          "layouts bit for bit full; full vs plain f64 (f64: identical NaN "
+          "masks, <= 1e-6 km) and vs plain f32 (f32: identical NaN masks, "
+          "<= 1e-3 km); f32 vs plain f64 reported beside plain f32 vs "
+          "plain f64 (0.1 km)", flush=True)
     cases = [("sweep", 1.0, "uniform", 64, 200),
              ("sweep", -1.0, "uniform", 64, 200),
              ("sweep", 1.0, "alt_nu", 64, 200),
@@ -333,34 +496,48 @@ def main():
              ("gather_xsolve", -1.0, "uniform", 1024, 200),
              ("gather_xsolve", -1.0, "uniform", 32, 20000),
              ("gather", 1.0, "uniform", 64, 2000),
-             ("gather", -1.0, "uniform", 1024, 200)]
+             ("gather", 1.0, "uniform", 1024, 200),
+             ("gather", -1.0, "uniform", 1024, 200),
+             ("razor", -1.0, "uniform", 12, 200),
+             ("razor", -1.0, "uniform", 12, 2000)]
     failed = []
     for kind, mm, grid, B, P in cases:
         plains = {}
         for dtype in (torch.float64, torch.float32):
-            t, a = prep(kind, mm, grid, B, P, dtype)
-            gos = {v: launcher(v, a) for v, _, _ in variants}
+            if kind == "razor":
+                a = cs.razor_args(torch, pv, razor_prof, alt, P, dtype, dev)
+                t = None
+            else:
+                t, a = prep(kind, mm, grid, B, P, dtype)
+            vs = names_for(a.kind)
+            gos = {v: launcher(v, a) for v in vs}
             outs = {v: go().clone() for v, go in gos.items()}
-            bitwise = {}
-            for v, _, _ in variants[1:]:
-                lay = gos[v].layout
-                block = len(lay) == 3 and lay[2] == 1
-                bitwise[v] = diff(outs[v],
-                                  outs["full" if block else "earlier"])
-            plains[dtype] = plain(kind, mm, t, a, P)
+            # a warp per pair sums in one order whatever the groups: bit
+            # for bit the earlier kernel in a warp layout; a block per pair
+            # in another: bit for bit full in the block layout
+            bitwise, refs = {}, {0: "earlier", 1: "full"}
+            for v in vs[1:]:
+                ref = refs[gos[v].layout[2]]
+                if gos[ref].layout[2] != gos[v].layout[2]:
+                    raise RuntimeError(f"{v}: no reference in its layout "
+                                       f"{gos[v].layout}")
+                bitwise[v] = diff(outs[v], outs[ref])
+            plains[dtype] = plain(a.kind, mm, t, a, P)
             name = (f"{kind} {'O' if mm > 0 else 'X'} {grid} B={B} P={P} "
-                    f"{str(dtype)[6:]}")
+                    f"F={a.freq_hz.shape[0]} {str(dtype)[6:]}")
             if dtype == torch.float64:
                 tol = {"plain f64": within(outs["full"], plains[dtype],
                                            1e-6)}
                 ok = tol["plain f64"][0] == 0 and tol["plain f64"][2] == 0
             else:
                 tol = {"plain f32": within(outs["full"], plains[dtype],
-                                           1e-3),
-                       "plain f64": within(outs["full"],
-                                           plains[torch.float64], 0.1),
-                       "plain f32 vs plain f64": within(
-                           plains[dtype], plains[torch.float64], 0.1)}
+                                           cs.razor_tol_f32(plains[dtype])
+                                           if kind == "razor" else 1e-3)}
+                if kind != "razor":    # razor f32 and f64 f differ
+                    tol["plain f64"] = within(outs["full"],
+                                              plains[torch.float64], 0.1)
+                    tol["plain f32 vs plain f64"] = within(
+                        plains[dtype], plains[torch.float64], 0.1)
                 ok = tol["plain f32"][0] == 0 and tol["plain f32"][2] == 0
             ok = ok and not any(bitwise.values())
             print(f"  {name}: elements differing {bitwise}; full vs "
@@ -369,10 +546,22 @@ def main():
                               for n, (m, e, c) in tol.items())
                   + f"; layouts { {v: g.layout for v, g in gos.items()} }"
                   + ("" if ok else "  <-- FAILED"), flush=True)
+            if not ok:     # the values over tol, for the record
+                ref = plains[dtype].double()
+                o = outs["full"].double()
+                m = ~torch.isnan(ref) & ~torch.isnan(o)
+                d = torch.where(m, (o - ref).abs(), 0.0)
+                for bi, fi in torch.nonzero(d > (1e-6 if dtype ==
+                                                 torch.float64 else 1e-3)
+                                            )[:10].tolist():
+                    print(f"    b={bi} f={float(a.freq_hz[fi])!r} Hz: "
+                          f"kernel {float(o[bi, fi])!r}, plain "
+                          f"{float(ref[bi, fi])!r}", flush=True)
             checks.append(dict(case=name, bitwise=bitwise, vs_plain=tol,
                                ok=ok))
             if not ok:
                 failed.append(name)
+    res["checks"] = checks
     if failed:
         raise RuntimeError(f"checks failed: {failed}")
 
@@ -382,20 +571,21 @@ def main():
                 200),
                ("gather_xsolve X-200", "gather_xsolve", -1.0, "uniform", 1024,
                 200),
-               ("gather X-200", "gather", -1.0, "uniform", 1024, 200)]
+               ("gather X-200", "gather", -1.0, "uniform", 1024, 200),
+               ("gather O-200", "gather", 1.0, "uniform", 1024, 200)]
     print(f"timing: median of 10 after 3 warm-ups, two turns; {card}",
           flush=True)
-    res = {"card": card, "checks": checks}
     for label, kind, mm, grid, B, P in timings:
         for dtype in (torch.float32, torch.float64):
             _, a = prep(kind, mm, grid, B, P, dtype)
-            names = [v for v, _, _ in variants]
+            names = names_for(kind)
             gos = {v: launcher(v, a) for v in names}
             ms = {v: [] for v in names}
             for v in names + names[::-1]:
                 ms[v].append(profiling.time_launch(gos[v], iters=10)[0])
+            clock = cs.sm_clock_under(torch, gos["full"])
             key = f"{label} {str(dtype)[6:]}"
-            res[key] = {}
+            res[key] = {"sm_clock_mhz": clock}
             for v in names:
                 med = statistics.median(ms[v])
                 res[key][v] = dict(ms=ms[v], median_ms=med,
@@ -403,6 +593,11 @@ def main():
                 print(f"  {key} {v}: {ms[v][0]:.4f} / {ms[v][1]:.4f} ms, "
                       f"median {med:.4f}, layout {gos[v].layout}",
                       flush=True)
+            print(f"  {key}: SM clock under load {clock} MHz", flush=True)
+    if args.quick:
+        (OUT_DIR / "attribution.json").write_text(json.dumps(res, indent=1))
+        print(f"card: {card}")
+        return 0
     print("layouts of the current kernel (warps, groups; w: a warp per "
           "pair, b: a block per pair), median of 10 after 3 warm-ups, two "
           "turns", flush=True)
@@ -420,7 +615,7 @@ def main():
             key = f"{label} {str(dtype)[6:]}"
             res[f"layouts {key}"] = {str(lay): m for lay, m in zip(lays, ms)}
             chosen = launcher("full", a).layout
-            print(f"  {key} (launch_shape: {chosen}): " + ", ".join(
+            print(f"  {key} (kernel_layout: {chosen}): " + ", ".join(
                 f"{lay[1]}{'b' if lay[2] else 'w'}{lay[0]} "
                 f"{statistics.median(m):.4f}" for lay, m in zip(lays, ms)),
                 flush=True)
@@ -432,7 +627,12 @@ def main():
             for P in CROSSOVER_P:
                 _, a = prep(kind, mm, grid, B, P, dtype)
                 F = a.freq_hz.shape[0]
-                warp = pv.launch_shape(B, F, 1, n_sm, blocks(a))
+                bps = pv.blocks_per_sm(
+                    dev.index, int(dtype == torch.float64), int(mm),
+                    kind in ("gather_osolve", "gather_xsolve"),
+                    a.inv_dalt is not None, a.tab.shape[1], a.n_alt,
+                    a.tab.shape[2])
+                warp = pv.launch_shape(B, F, 1, n_sm, bps)
                 lays = [(warp.n_groups, warp.warps, 0), (F, pv._WARPS, 1)]
                 gos = [launcher("full", a, lay) for lay in lays]
                 ms = [[], []]
@@ -444,7 +644,7 @@ def main():
                             "warp_layout": list(lays[0]),
                             "chosen": list(launcher("full", a).layout)}
                 print(f"  {key}: warp {med[0]:.4f} ms, block {med[1]:.4f} "
-                      f"ms (block/warp {med[1] / med[0]:.3f}); launch_shape "
+                      f"ms (block/warp {med[1] / med[0]:.3f}); kernel_layout "
                       f"{res[key]['chosen']}", flush=True)
     # each rule's time over the faster layout's, over the crossover points
     rules = {"launch_shape": lambda r: r["chosen"][2] == 1,

@@ -200,10 +200,10 @@ def main():
             k3 = pv.kernel_layout(a3)
             fn, argv = k3_lib.pyrayhf_ionogram, [
                 dt, mode, 0, 1, a3.tab.data_ptr(), a3.tab.shape[1], B,
-                a.n_alt, a.mult.data_ptr(), a.omm.data_ptr(),
-                a.dmult.data_ptr(), a.mult.shape[0], a.freq_hz.data_ptr(),
-                F, k3.n_groups, k3.warps, int(k3.per_block),
-                a.span.data_ptr(), a.slope.data_ptr(),
+                a.n_alt, a3.tab.shape[2], a.mult.data_ptr(),
+                a.omm.data_ptr(), a.dmult.data_ptr(), a.mult.shape[0],
+                a.freq_hz.data_ptr(), F, k3.n_groups, k3.warps,
+                int(k3.per_block), a.span.data_ptr(), a.slope.data_ptr(),
                 a.emax.data_ptr(), a.valid.data_ptr(), a.alt_min.data_ptr(),
                 float(a.inv_dalt), out.data_ptr(), stream]
         else:
