@@ -86,7 +86,28 @@ failure:
    truths at the JAX package's test thresholds; then, with the card idle,
    the same f64 LM call on the first 8 ionograms on the CPU, whose fits
    must equal the card's;
-10. one JSON line of kernels, the card line, and the closing JSON line.
+10. the 1-D oblique link (``link_phase``): Snell fans
+    (``trace_rays_{spherical,cartesian}_snells``) and
+    ``synthesize_oblique_ionogram`` at example 06's width (1,000 km,
+    F=42 from 5 to 25.5 MHz, E=512, 620 nodes; O and X, f64 and f32),
+    timed, with the fan's peak memory and the link MUF, and on six of the
+    frequencies against the same port code on the CPU (f64: every output,
+    identical NaN masks, rtol 1e-10; f32: identical landing masks off
+    the penetration edge); the
+    MUF map of the 10,512-profile global grid (``muf_map``, ranges 500 to
+    3,000 km, O and X, f32, ``engine="auto"``), counters zeroed first and
+    read after: kernels 1 and 2 must have launched and no plain version
+    run, and every MUF lies within one frequency step of the plain f64
+    map with identical NaN rows (the f64 map through the same kernels
+    within 2.5e-8 of it); the adaptive single-ray tracers (DP45,
+    rtol 1e-7, atol 1e-9) on the Gaussian field of the ``gauss_*``
+    goldens, card against CPU (1e-9 on the landing point and group path,
+    the same status and accepted attempts); Faraday rotation and Doppler
+    at example 13's width, card against CPU (rtol 1e-10); and
+    ``retrieve_from_oblique`` at example 12's width (261 nodes, 12
+    frequencies, n_elev 256, 14 steps) on delays synthesised on the card,
+    which must recover its truth to the JAX package's test thresholds;
+11. one JSON line of kernels, the card line, and the closing JSON line.
 
 Profiles are Chapman F2 (+ E above a valley for a quarter of them) from
 ``numpy.random.default_rng(SEED)``; the fan scenes are the tilted Chapman
@@ -94,6 +115,7 @@ slice of ``tools/bench_fan_pallas.py``.
 """
 
 import json
+import pathlib
 import subprocess
 import sys
 import time
@@ -241,6 +263,38 @@ TWO_NODE_F, TWO_NODE_E, TWO_NODE_RANGE = (5.0e6, 7.0e6), 16, 1000.0
 # more frequencies than a launch grid's y extent holds: 65,537 of them on
 # a 16 x 8 grid, 2 elevations, 64 steps of 10 km
 WIDE_F, WIDE_E, WIDE_STEPS, WIDE_STEP = 65537, 2, 64, 10.0
+
+# ---- the 1-D oblique link (link_phase) ------------------------------------
+# example 06's link: 1,000 km, 5.0-25.5 MHz in 0.5 MHz steps, 512 elevations
+# 5-85 deg, on the golden layers (LM_F1: no F1 ledge) over 80-699 km at 1 km
+LINK_D, LINK_F0S, LINK_NELEV = 1000.0, np.arange(5e6, 26e6, 0.5e6), 512
+# six of the 42 frequencies, spread over the band: the card's fans and
+# link ionograms against the same port code on the CPU
+LINK_SUB = [0, 8, 16, 24, 32, 41]
+# f64 card vs CPU: the same operations, summed in another order (nansum,
+# cumsum) and with the card's libm; the JAX package's fan-vs-single bound
+# is 1e-12 (tests/test_tracers.py:123)
+LINK_RTOL = 1e-10
+# f32 card vs CPU: the libm of each rounds μ differently by an ulp or two,
+# which moves a ray that grazes the layer's peak across the penetration
+# edge; a ray whose CPU landing changes when its elevation moves by this
+# much (1e-3 deg: ≥ 13 f32 ulps of the Snell invariant from 5 deg up) is
+# on the edge, and only such rays may land on one side only
+LINK_EDGE_DEG = 1e-3
+MUF_RANGES = [500.0, 1000.0, 2000.0, 3000.0]
+MUF_F64_RTOL = 2.0 * TOL_F64 / 80.0
+# the adaptive single rays: the Gaussian field of the gauss_* goldens
+# (tests/goldens/reference_goldens.npz; its recipe: a 1e12 m^-3 layer at
+# 250 km, 60 km wide, 4e-5 T, 45 deg, at 10 MHz, 0-600 km x 0-1000 km on
+# 200 x 200 nodes), the scipy defaults rtol 1e-7, atol 1e-9, and the
+# steps of tests/test_tracers.py:284,318; card vs CPU to 1e-9
+GRAD_RTOL = 1e-9
+# example 13's Doppler sweep and example 12's inversion
+DOP_FREQS = np.arange(2.0, 13.0, 1.0)
+FARADAY_FREQS = np.array([15e6, 20e6, 30e6, 50e6, 100e6])
+INV_F0S, INV_NELEV, INV_STEPS = np.linspace(5e6, 14e6, 12), 256, 14
+INV_TRUTH = {"Nm": 9e11, "hm": 310.0, "B_bot": 48.0, "B_top": 60.0}
+INV_PRIOR = {"Nm": 6e11, "hm": 270.0, "B_bot": 38.0, "B_top": 60.0}
 
 
 def fan_grid(kind):
@@ -1530,6 +1584,394 @@ def true_height_phase(torch, prt, dev, rng):
     return {"true_height_s": wall}
 
 
+def link_profile(prt, torch, alt):
+    """The link phase's midpoint profile on ``alt`` (host, float64): the
+    golden layers with LM_F1 by the port's edp, a dipole-like |B| of
+    4.5e-5 T at alt[0] and psi 50 deg."""
+    from pyrayhf_tpu_torch import retrieval
+    den, _ = retrieval._build_edp(GOLDEN["F2"], LM_F1, GOLDEN["E"],
+                                  torch.as_tensor(alt), "B_bot")
+    bmag = 4.5e-5 * ((6371.0 + alt[0]) / (6371.0 + alt)) ** 3
+    return den.numpy(), bmag, np.full_like(alt, 50.0)
+
+
+def same_outputs(name, card_out, cpu_out, rtol):
+    """Every key of two output dicts: identical NaN masks, finite values
+    to ``rtol``. Returns the largest relative difference of each key."""
+    worst = {}
+    for k, v in cpu_out.items():
+        a = v.double().numpy()
+        b = card_out[k].double().cpu().numpy()
+        check(a.shape == b.shape, f"{name} {k}: shape {b.shape} vs {a.shape}")
+        check(np.array_equal(np.isnan(a), np.isnan(b)),
+              f"{name} {k}: NaN masks differ")
+        m = np.isfinite(a)
+        # a level in dB relative to max(|level|, 1 dB): the focusing gain
+        # crosses 0 dB
+        floor = 1.0 if k.endswith("_db") else 1e-300
+        rel = np.abs(b[m] - a[m]) / np.maximum(np.abs(a[m]), floor)
+        worst[k] = float(rel.max()) if m.any() else 0.0
+    over = {k: w for k, w in worst.items() if w > rtol}
+    check(not over, f"{name}: relative differences over tolerance {over}; "
+          f"all: {worst}")
+    return worst
+
+
+def path_rows(r, keys):
+    """The path columns ``keys`` of a traced ray as host rows [n, k]."""
+    return np.stack([r[k].double().cpu().numpy() for k in keys], axis=1)
+
+
+def accepted_attempts(r, keys):
+    """Attempts whose state moved (a rejected attempt repeats it)."""
+    y = path_rows(r, keys)
+    return int((y[1:] != y[:-1]).any(axis=1).sum())
+
+
+def link_phase(torch, prt, dev, card, glob):
+    """The 1-D oblique link on the card (phase 10): Snell fans and the link
+    ionogram at full width, the MUF map of the global grid through kernels
+    1 and 2 (counted), the adaptive single-ray tracers, Faraday and
+    Doppler, and the oblique inversion. Every card output that has a CPU
+    counterpart is held to it. Returns (summary dict, launches of kernels
+    1 and 2 by muf_map)."""
+    from pyrayhf_tpu_torch import gradient, profiling
+    from pyrayhf_tpu_torch import pallas_vh as pv
+    from pyrayhf_tpu_torch import retrieval, snell
+
+    cpu = torch.device("cpu")
+    summary = {"card": card}
+    t_phase = time.perf_counter()
+
+    def T(a, dtype=torch.float64, device=dev):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    # ---- 1. Snell fans and the link ionogram ------------------------------
+    alt = np.linspace(80.0, 699.0, N_ALT)
+    den, bmag, bpsi = link_profile(prt, torch, alt)
+    els = np.linspace(5.0, 85.0, LINK_NELEV)
+    F = LINK_F0S.size
+    print(f"link: Snell fans and synthesize_oblique_ionogram, D={LINK_D} km, "
+          f"F={F} ({LINK_F0S[0] / 1e6}-{LINK_F0S[-1] / 1e6} MHz), "
+          f"E={LINK_NELEV}, N={N_ALT} (+ ground node); chunks of "
+          f"{snell.fan_chunk_rows(F, LINK_NELEV, N_ALT + 1, 8, True)} rows "
+          f"(spherical f64) within {snell._FAN_BYTES} bytes; {card}",
+          flush=True)
+    links = {}
+    for geom in ("spherical", "cartesian"):
+        tracer = getattr(prt, f"trace_rays_{geom}_snells")
+        for mode in ("O", "X"):
+            for dt in (torch.float64, torch.float32):
+                prof = [T(a, dt) for a in (alt, den, bmag, bpsi)]
+                tag = f"{geom} {mode} {str(dt)[6:]}"
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                fan = tracer(T(LINK_F0S, dt), T(els, dt), *prof, mode)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                del fan
+                fan_ms, _ = profiling.time_launch(
+                    lambda: tracer(T(LINK_F0S, dt), T(els, dt), *prof, mode),
+                    iters=3, warmup=1)
+                syn_ms, _ = profiling.time_launch(
+                    lambda: prt.synthesize_oblique_ionogram(
+                        T(LINK_F0S, dt), LINK_D, *prof, mode=mode,
+                        geometry=geom, n_elev=LINK_NELEV),
+                    iters=3, warmup=1)
+                out = prt.synthesize_oblique_ionogram(
+                    T(LINK_F0S, dt), LINK_D, *prof, mode=mode, geometry=geom,
+                    n_elev=LINK_NELEV)
+                lo = out["delay_low_sec"].double().cpu().numpy()
+                hit = np.isfinite(lo)
+                muf = float(LINK_F0S[hit].max() / 1e6) if hit.any() else None
+                fr = out["fan_range_km"]
+                check(fr.shape == (F, LINK_NELEV) and fr.dtype == dt,
+                      f"link {tag}: fan shape {tuple(fr.shape)} {fr.dtype}")
+                check(hit.any() and not hit.all(),
+                      f"link {tag}: low rays at {hit.sum()} of {F}")
+                check(np.all(lo[hit] >= LINK_D / 299792.458),
+                      f"link {tag}: a delay below the light time")
+                row = {"fan_ms": fan_ms, "synthesize_ms": syn_ms,
+                       "fan_peak_bytes": peak, "link_muf_mhz": muf,
+                       "landed_share": float(torch.isfinite(fr).float()
+                                             .mean())}
+                links[tag] = row
+                print(f"  {tag}: trace_rays_{geom}_snells {fan_ms:.3f} ms, "
+                      f"synthesize_oblique_ionogram {syn_ms:.3f} ms, fan "
+                      f"peak {peak / 2**30:.3f} GiB above "
+                      f"{base / 2**30:.3f} GiB, rays landed "
+                      f"{row['landed_share']:.3f}, link MUF {muf} MHz",
+                      flush=True)
+                # the same port code on the CPU, six frequencies
+                sub = LINK_F0S[LINK_SUB]
+                c_out = prt.synthesize_oblique_ionogram(
+                    T(sub, dt), LINK_D, *[T(a, dt) for a in
+                                         (alt, den, bmag, bpsi)],
+                    mode=mode, geometry=geom, n_elev=LINK_NELEV)
+                p_out = prt.synthesize_oblique_ionogram(
+                    T(sub, dt, cpu), LINK_D, *[T(a, dt, cpu) for a in
+                                              (alt, den, bmag, bpsi)],
+                    mode=mode, geometry=geom, n_elev=LINK_NELEV)
+                if dt == torch.float64:
+                    row["card_vs_cpu_f64"] = max(same_outputs(
+                        f"link {tag} card vs CPU", c_out, p_out,
+                        LINK_RTOL).values())
+                else:
+                    a = torch.isfinite(p_out["fan_range_km"])
+                    b = torch.isfinite(c_out["fan_range_km"]).cpu()
+                    # rays at the penetration edge: their CPU landing
+                    # changes when the elevation moves by LINK_EDGE_DEG
+                    edge = torch.zeros_like(a)
+                    for sgn in (-1.0, 1.0):
+                        nudged = tracer(T(sub, dt, cpu),
+                                        T(els + sgn * LINK_EDGE_DEG, dt, cpu),
+                                        *[T(v, dt, cpu) for v in
+                                          (alt, den, bmag, bpsi)], mode)
+                        edge |= (torch.isfinite(nudged["ground_range_km"])
+                                 != a)
+                    row["landing_differs"] = int((a != b).sum())
+                    row["edge_rays"] = int(edge.sum())
+                    check(not bool((a != b)[~edge].any()),
+                          f"link {tag}: landing masks card vs CPU differ in "
+                          f"{int(((a != b) & ~edge).sum())} rays off the "
+                          "penetration edge")
+                    d = (c_out["fan_range_km"].cpu() - p_out["fan_range_km"])
+                    row["card_vs_cpu_f32_range_km"] = float(
+                        torch.nan_to_num(d.abs()).max())
+                shown = {k: v for k, v in row.items()
+                         if k.startswith(("card_vs", "edge", "landing"))}
+                print(f"    card vs CPU on {len(sub)} frequencies: {shown}",
+                      flush=True)
+    summary["link"] = links
+
+    # ---- 2. the MUF map of the global grid (kernels 1 and 2) -------------
+    gden, gbmag, gbpsi, galt = glob
+    B = gden.shape[0]
+    print(f"link: muf_map of the {B}-profile global grid, ranges "
+          f"{MUF_RANGES} km, O and X, f32, engine='auto'", flush=True)
+    g32 = [T(a, torch.float32) for a in (gden, gbmag, gbpsi, galt)]
+    torch.cuda.synchronize()
+    pv.reset_counters()
+    t0 = time.perf_counter()
+    maps = {m: prt.muf_map(MUF_RANGES, *g32, mode=m) for m in ("O", "X")}
+    torch.cuda.synchronize()
+    map_s = time.perf_counter() - t0
+    launches, plain = dict(pv.LAUNCHES), dict(pv.PLAIN_CALLS)
+    print(f"  muf_map O and X: {map_s:.3f} s wall; kernel launches "
+          f"{launches}; plain-version calls {plain}", flush=True)
+    check(launches["gather_osolve"] > 0 and launches["gather_xsolve"] > 0,
+          f"muf_map did not launch kernels 1 and 2: {launches}")
+    check(sum(plain.values()) == 0, f"muf_map: plain versions ran {plain}")
+    map_ms = {m: profiling.time_launch(
+        lambda: prt.muf_map(MUF_RANGES, *g32, mode=m), iters=3,
+        warmup=1)[0] for m in ("O", "X")}
+    from pyrayhf_tpu_torch import muf as muf_mod
+    g64 = [T(a) for a in (gden, gbmag, gbpsi, galt)]
+    inv_dalt = pv.uniform_inv_dalt(g64[3])
+    f_ce = float(gbmag.max()) * G_P / 1e6
+    map_err = {}
+    for m, mm, kind in (("O", 1.0, "gather_osolve"),
+                        ("X", -1.0, "gather_xsolve")):
+        host_grid = muf_mod._default_freq_grid(gden, gbmag, m)
+        check(np.array_equal(host_grid, muf_mod._default_freq_grid(
+            g32[0], g32[1], m)), f"muf_map {m}: the f32 map's frequencies")
+        freqs = T(host_grid)
+        # the same route's plain version in f64 (chunks of profiles), and
+        # the secant of each MUF: one vertical frequency step maps to
+        # 0.1 MHz x secant in oblique frequency
+        vh = torch.cat([pv.plain_ionogram(pv.prepare_kernel_args(
+            kind, freqs, g64[0][b:b + 1024], g64[1][b:b + 1024],
+            g64[2][b:b + 1024], g64[3], mm, 200, inv_dalt))
+            for b in range(0, B, 1024)])
+        f_ob = prt.vertical_to_oblique(freqs, vh[None],
+                                       T(MUF_RANGES)[:, None, None])[0]
+        ok = torch.isfinite(f_ob)
+        ref = torch.where(ok.any(-1), torch.where(ok, f_ob, -torch.inf)
+                          .amax(-1), float("nan"))
+        idx = torch.where(ok, f_ob, -torch.inf).argmax(-1)
+        tol = 0.1 * ref / freqs[idx] + 1e-9
+        got = maps[m].double()
+        check(got.shape == (len(MUF_RANGES), B),
+              f"muf_map {m}: shape {tuple(got.shape)}")
+        check(torch.equal(torch.isnan(got), torch.isnan(ref)),
+              f"muf_map {m}: NaN rows differ from the plain f64 map")
+        fin = torch.isfinite(ref)
+        d = (got - ref).abs()
+        over = int((d[fin] > tol[fin]).sum())
+        map_err[m] = {"max_abs_mhz": float(d[fin].max()),
+                      "max_in_steps": float((d[fin] / (tol[fin] - 1e-9))
+                                            .max()),
+                      "over_one_step": over, "nan_share": float(
+                          (~fin).double().mean()),
+                      # MUFs read at a vertical frequency below the
+                      # largest gyrofrequency of the grid
+                      "sub_gyro_share": float(
+                          (freqs[idx][fin] < f_ce).double().mean())}
+        print(f"  muf_map {m} f32 (kernel) vs its plain version f64: "
+              f"{map_err[m]}; MUF {float(ref[fin].min()):.2f}.."
+              f"{float(ref[fin].max()):.2f} MHz; f32 call "
+              f"{map_ms[m]:.3f} ms; {card}", flush=True)
+        check(over == 0, f"muf_map {m}: {over} MUFs more than one "
+              "frequency step from the plain f64 map")
+        # the f64 map through the same kernels: vh within the f64 kernel
+        # tolerance (TOL_F64 km) moves f_ob by at most TOL_F64 / h' of
+        # itself, h' ≥ 80 km
+        got64 = prt.muf_map(MUF_RANGES, *g64, mode=m)
+        check(torch.equal(torch.isnan(got64), torch.isnan(ref)),
+              f"muf_map {m} f64: NaN rows differ from the plain f64 map")
+        rel64 = float(((got64 - ref).abs() / ref)[fin].max())
+        map_err[m]["f64_kernel_vs_plain_rel"] = rel64
+        print(f"  muf_map {m} f64 (kernel) vs its plain version: max "
+              f"relative difference {rel64:.3e} (tol "
+              f"{MUF_F64_RTOL:g})", flush=True)
+        check(rel64 <= MUF_F64_RTOL, f"muf_map {m} f64: {rel64}")
+    summary["muf_map"] = {"profiles": B, "ranges_km": MUF_RANGES,
+                          "launches": {k: launches[k] for k in
+                                       ("gather_osolve", "gather_xsolve")},
+                          "first_call_s": map_s, "ms": map_ms,
+                          "vs_plain_f64": map_err}
+
+    # ---- 3. adaptive single-ray gradient tracers ----------------------------
+    gold = np.load(pathlib.Path(__file__).resolve().parent / "tests"
+                   / "goldens" / "reference_goldens.npz")
+    zg, xg = gold["gauss_alt"], gold["gauss_x_grid"]
+    mu, mup = gold["gauss_mu_field"], gold["gauss_mup_field"]
+    rays = {}
+    for geom, kw, keys, golden in (
+            ("cartesian", dict(step_km=5.0, max_step_km=5.0, z_max_km=600.0,
+                               x_min_km=0.0, x_max_km=1000.0),
+             ("x", "z", "vx", "vz"), "grad_cart_O"),
+            ("spherical", dict(step_km=2.0, max_step_km=2.0,
+                               r_max_km=6371.0 + 600.0, phi_min=-0.1,
+                               phi_max=1000.0 / 6371.0),
+             ("r", "phi", "v_r", "v_phi"), "grad_sph_O")):
+        res = []
+        for where in (dev, cpu):
+            nag = getattr(prt, "build_refractive_index_interpolator_"
+                          + geom)(zg, xg, T(mu, device=where))
+            mupf = prt.build_mup_function(T(mup, device=where), xg, zg,
+                                          geometry=geom)
+            fn = getattr(prt, f"trace_ray_{geom}_gradient")
+            if where == dev:
+                fn(nag, mupf, 0.0, 0.0, 35.0, 4000.0, rtol=1e-7, atol=1e-9,
+                   **kw)                                    # warm-up
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn(nag, mupf, 0.0, 0.0, 35.0, 4000.0, rtol=1e-7, atol=1e-9,
+                   **kw)
+            if where == dev:
+                torch.cuda.synchronize()
+            res.append((r, time.perf_counter() - t0,
+                        dict(gradient.EXIT_STATS)))
+        (rc, tc, sc), (rp, tp, sp) = res
+        acc_c, acc_p = accepted_attempts(rc, keys), accepted_attempts(rp,
+                                                                      keys)
+        errs = {}
+        for k in ("ground_range_km", "group_path_km"):
+            a, b = float(rp[k]), float(rc[k])
+            errs[k] = abs(b - a) / abs(a)
+        land_c = path_rows(rc, ("x", "z"))[-1]
+        land_p = path_rows(rp, ("x", "z"))[-1]
+        errs["landing_point"] = float(np.abs(land_c - land_p).max()
+                                      / np.abs(land_p).max())
+        oracle = gold[golden][1]
+        ours = np.array([float(rc[k]) for k in (
+            "group_path_km", "group_delay_sec", "ground_range_km",
+            "x_apex_km", "z_apex_km")])
+        vs_oracle = float(np.max(np.abs(ours - oracle) / np.abs(oracle)))
+        rays[geom] = {"status": rc["status"], "attempts_run": sc["steps"],
+                      "attempt_budget": sc["of"], "chunks": sc["chunks"],
+                      "accepted": acc_c, "card_s": tc, "cpu_s": tp,
+                      "card_ms_per_attempt": 1e3 * tc / sc["steps"],
+                      "card_vs_cpu": errs, "vs_oracle": vs_oracle}
+        print(f"  adaptive {geom} ray, 35 deg, rtol 1e-7 atol 1e-9: "
+              f"{rays[geom]}", flush=True)
+        check(rc["status"] == rp["status"] == "ground",
+              f"adaptive {geom}: status card {rc['status']} CPU "
+              f"{rp['status']}")
+        check(acc_c == acc_p and sc == sp,
+              f"adaptive {geom}: accepted attempts card {acc_c} CPU {acc_p},"
+              f" exits {sc} {sp}")
+        check(max(errs.values()) <= GRAD_RTOL,
+              f"adaptive {geom}: card vs CPU {errs}")
+        check(vs_oracle < 0.015, f"adaptive {geom}: {vs_oracle} from the "
+              "scipy oracle")
+    summary["adaptive_rays"] = rays
+
+    # ---- 4. Faraday and Doppler ----------------------------------------
+    dalt = np.linspace(80.0, 700.0, 620)
+    dden = 2.5e12 * np.exp(-((dalt - 320.0) / 80.0) ** 2)
+    dprof = (dden, np.full_like(dalt, 4.5e-5), np.full_like(dalt, 35.0),
+             dalt)
+    fr_out = [{"rad": prt.faraday_rotation_vertical(
+        T(FARADAY_FREQS, device=w), *[T(a, device=w) for a in dprof])}
+        for w in (dev, cpu)]
+    fd_err = {"faraday": max(same_outputs("faraday", *fr_out,
+                                          LINK_RTOL).values())}
+    for name, tend in (("uplift", -0.02 * np.gradient(dden, dalt)),
+                       ("tid", dden * 2e-3 * np.sin(
+                           2 * np.pi * (dalt - dalt[0]) / 150.0))):
+        for mode in ("O", "X"):
+            outs = [prt.doppler_shift_vertical(
+                T(DOP_FREQS, device=w), T(dden, device=w),
+                T(tend, device=w), *[T(a, device=w) for a in dprof[1:]],
+                mode=mode) for w in (dev, cpu)]
+            fd_err[f"doppler_{name}_{mode}"] = max(same_outputs(
+                f"doppler {name} {mode}", *outs, LINK_RTOL).values())
+            fd = outs[0]["doppler_hz"].cpu().numpy()
+            check(np.isfinite(fd).sum() >= 5,
+                  f"doppler {name} {mode}: {fd}")
+            if name == "uplift":
+                check(np.all(fd[np.isfinite(fd)] < 0.0),
+                      f"doppler uplift {mode}: a non-negative shift {fd}")
+    print(f"  Faraday and Doppler (N=620, {DOP_FREQS.size} sounding "
+          f"frequencies) card vs CPU, f64, max relative difference: "
+          f"{fd_err}", flush=True)
+    summary["faraday_doppler_card_vs_cpu"] = fd_err
+
+    # ---- 5. retrieve_from_oblique ----------------------------------------
+    ialt = np.linspace(80.0, 600.0, 261)
+    F1, E = {"P": 0.0}, {"Nm": 5e10, "hm": 110.0, "B_bot": 5.0,
+                         "B_top": 7.0}
+    ib, ip = T(np.full_like(ialt, 4.5e-5)), T(np.full_like(ialt, 40.0))
+    edp_t, _ = retrieval._build_edp(INV_TRUTH, F1, E, T(ialt), "B_bot")
+    obs = prt.synthesize_oblique_ionogram(
+        T(INV_F0S), 900.0, T(ialt), edp_t, ib, ip, geometry="spherical",
+        n_elev=INV_NELEV)
+    lo, hi = obs["delay_low_sec"], obs["delay_high_sec"]
+    n_obs = int(torch.isfinite(lo).sum())
+    check(6 <= n_obs < INV_F0S.size, f"inversion: {n_obs} echoes")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dfit, _, edp_f, F2f, hist = prt.retrieve_from_oblique(
+        INV_PRIOR, F1, E, T(INV_F0S), lo, 900.0, T(ialt), ib, ip,
+        geometry="spherical", n_elev=INV_NELEV, steps=INV_STEPS,
+        delay_high_obs_sec=hi)
+    torch.cuda.synchronize()
+    inv_s = time.perf_counter() - t0
+    rel = {k: abs(F2f[k] / INV_TRUTH[k] - 1) for k in ("Nm", "hm", "B_bot")}
+    m = torch.isfinite(lo) & torch.isfinite(dfit)
+    rms = float(torch.sqrt(torch.mean((dfit[m] - lo[m]) ** 2)))
+    summary["oblique_inversion"] = {"wall_s": inv_s, "rel_err": rel,
+                                    "rms_delay_s": rms,
+                                    "echoes": n_obs,
+                                    "history": hist.tolist()}
+    print(f"  retrieve_from_oblique (N=261, F={INV_F0S.size}, spherical, "
+          f"n_elev={INV_NELEV}, {INV_STEPS} steps): {inv_s:.3f} s wall; "
+          f"{summary['oblique_inversion']}", flush=True)
+    # tests/test_oblique_inversion.py:62-74
+    check(max(rel.values()) < 1e-3, f"inversion: parameters {rel}")
+    check(int(m.sum()) >= 6 and rms < 1e-6, f"inversion: rms {rms}")
+    check(hist.shape == (INV_STEPS,) and (hist[-1] < hist[0]
+                                          or hist[-1] < 1e-10),
+          f"inversion: history {hist}")
+    check(abs(float(edp_f.max()) / F2f["Nm"] - 1) < 1e-6,
+          "inversion: the fitted EDP's peak is not the fitted NmF2")
+    summary["wall_s"] = time.perf_counter() - t_phase
+    return summary, summary["muf_map"]["launches"]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1965,13 +2407,20 @@ def main():
     inv_summary = retrieval_phase(torch, prt, dev, card)
     print(f"inversions: {json.dumps(inv_summary)}", flush=True)
 
-    # ---- 10. result lines --------------------------------------------------
+    # ---- 10. the 1-D oblique link ------------------------------------------
+    link_summary, link_launches = link_phase(torch, prt, dev, card,
+                                             (gden, gbmag, gbpsi, alt))
+    print(f"link phase: {json.dumps(link_summary)}", flush=True)
+
+    # ---- 11. result lines --------------------------------------------------
     kernels = []
     for k in REPO_KERNELS:
         row = timing[k]
         kernels.append({
             "name": k, "route": "cuda", "source": SOURCE,
             "replaces": REPO_KERNELS[k], "launches": launches[k],
+            **({"launches_link_phase": link_launches[k]}
+               if k in link_launches else {}),
             "max_abs_err": max(errs[k]), "tol": TOL_F64,
             "main_path_f32_vs_plain_f32": max(main_f32[k]),
             "tol_f32_plain": TOL_F32_PLAIN,

@@ -15,7 +15,15 @@ The PyTorch port of ``pyrayhf_tpu``, slice by slice:
   forward-mode AD in :func:`retrieve_gradient_batch`) and the true-height
   lamination (:func:`retrieve_profile` and its batch and joint O+X forms);
   the tensor-core one-hot resample kernel (``csrc/ionogram_mxu.cu``) is the
-  ``engine="pallas_mxu"`` forward operator.
+  ``engine="pallas_mxu"`` forward operator;
+* the 1-D oblique link: Snell (frequency × elevation) fans of a stratified
+  profile (:func:`trace_rays_spherical_snells` and its Cartesian and
+  single-ray forms), the link's oblique ionogram
+  (:func:`synthesize_oblique_ionogram`), MUF maps over profile batches
+  (:func:`muf_map`, which runs the forward kernels), Faraday rotation and
+  Doppler of the vertical path, the inversion of an oblique ionogram
+  (:func:`retrieve_from_oblique`), the single-ray gradient tracers with the
+  adaptive Dormand–Prince integrator, and the geodesy helpers.
 
 Kernels are built with ``nvcc`` at first use; on CPU tensors every kernel
 wrapper runs its plain PyTorch version instead. Host data (numpy arrays,
@@ -46,7 +54,8 @@ from .retrieval import (minimize_parameters, model_VH, residual_VH,
                         retrieve_gradient, retrieve_gradient_batch)
 from .true_height import (retrieve_profile, retrieve_profile_batch,
                           retrieve_profile_joint)
-from .config import OperatorConfig, RetrievalConfig
+from .config import (GradientTracerConfig, OperatorConfig, RetrievalConfig,
+                     SnellConfig)
 from .io import (load_checkpoint, load_input, profiles_to_torch,
                  save_checkpoint, save_to_file)
 from .fields import (RefractiveField, bilinear,
@@ -61,12 +70,29 @@ from .absorption import (absorption_coefficient, collision_frequency,
 from .ground import (GROUND_PRESETS, fresnel_coefficients,
                      fresnel_coefficients_real, ground_reflection_loss_db,
                      resolve_ground)
-from .gradient import (trace_rays_cartesian_gradient,
+from .gradient import (trace_ray_cartesian_gradient,
+                       trace_ray_spherical_gradient,
+                       trace_rays_cartesian_gradient,
                        trace_rays_spherical_gradient)
 from .pallas_ray import fan_2d_pallas, fan_2d_pallas_available
-from .oblique import synthesize_oblique_ionogram_2d
-from . import (absorption, config, cuda_ext, edp, fields, forward, gradient,
-               grid, ground, interp, io, magnetoionic, oblique, pallas_ray,
-               pallas_vh, profiling, retrieval, true_height)
+from .geodesy import (adjust_longitude, azimuth_between_points, calculate_gcd,
+                      earth_radius_at_latitude, great_circle_point,
+                      oblique_to_vertical, vertical_to_magnetic_angle)
+from .rays import (event_ground, event_x_left, event_x_right, event_z_bottom,
+                   event_z_top, find_turning_point, ray_rhs_cartesian,
+                   rhs_spherical, tan_from_mu_scalar)
+from .snell import (trace_ray_cartesian_snells, trace_ray_spherical_snells,
+                    trace_rays_cartesian_snells, trace_rays_spherical_snells)
+from .oblique import (synthesize_oblique_ionogram,
+                      synthesize_oblique_ionogram_2d)
+from .muf import (muf_from_profile, muf_from_vertical_ionogram, muf_map,
+                  vertical_to_oblique)
+from .faraday import faraday_rotation_vertical
+from .doppler import doppler_shift_vertical, phase_height_and_mask
+from .oblique_inversion import retrieve_from_oblique
+from . import (absorption, config, cuda_ext, doppler, edp, faraday, fields,
+               forward, geodesy, gradient, grid, ground, interp, io,
+               magnetoionic, muf, oblique, oblique_inversion, pallas_ray,
+               pallas_vh, profiling, rays, retrieval, snell, true_height)
 
 __version__ = "0.1.0"

@@ -2,14 +2,17 @@
 
 The port cannot import the JAX package's module (its package ``__init__``
 imports jax), so the parts the ported slices use are copied here
-unchanged: :class:`OperatorConfig`, :class:`RetrievalConfig` and
+unchanged: :class:`OperatorConfig`, :class:`SnellConfig`,
+:class:`GradientTracerConfig`, :class:`RetrievalConfig` and
 :func:`resolve`. Resolution order: an explicitly passed kwarg wins over
 the config field, which wins over the built-in default.
 """
 
 import dataclasses
+from typing import Optional
 
-__all__ = ["OperatorConfig", "RetrievalConfig", "UNSET", "resolve"]
+__all__ = ["OperatorConfig", "SnellConfig", "GradientTracerConfig",
+           "RetrievalConfig", "UNSET", "resolve"]
 
 
 class _Unset:
@@ -54,6 +57,38 @@ class OperatorConfig:
     sharpness: float = 10.0          # stretched-grid exponent (ref :363)
     dh_backoff_km: float = 1e-6      # reflection backoff (ref :378)
     p_chunk: int = 512               # TPU point-axis chunk (accepted, unused)
+
+
+@dataclasses.dataclass(frozen=True)
+class SnellConfig:
+    """Layered Snell tracer knobs (ref :1096, :1460-1473).
+
+    ``dz_target_km``/``apex_boost``/``max_substeps`` mirror the reference's
+    spherical-tracer signature; the implementation integrates the apex with
+    an exact √-substitution, so they are accepted-but-unused there.
+    """
+    mode: str = "O"
+    dz_target_km: float = 1.0
+    apex_boost: float = 200.0
+    max_substeps: int = 400
+    R_E_km: float = 6371.0
+
+
+@dataclasses.dataclass(frozen=True)
+class GradientTracerConfig:
+    """Ray-ODE tracer knobs (ref :1278-1291, :2135-2145).
+
+    ``rtol``/``atol`` of None select fixed-step RK4; setting either turns
+    on the error-controlled Dormand–Prince 5(4) integrator.
+    """
+    step_km: float = 1.0
+    s_max_km: float = 5000.0
+    z_ground_km: float = 0.0
+    z_max_km: float = 1000.0
+    x_min_km: float = -1e6
+    x_max_km: float = 1e6
+    rtol: Optional[float] = None
+    atol: Optional[float] = None
 
 
 @dataclasses.dataclass(frozen=True)

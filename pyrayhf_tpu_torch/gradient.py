@@ -1,18 +1,25 @@
-"""Gradient (ray-ODE) oblique tracers, Cartesian and spherical: fixed step.
+"""Gradient (ray-ODE) oblique tracers, Cartesian and spherical.
 
-Port of the fixed-step part of ``pyrayhf_tpu.gradient`` (reference
-``trace_ray_cartesian_gradient`` ref ``library.py:1271-1457``,
-``trace_ray_spherical_gradient`` ref :2128-2337): RK4 of a fixed step
-with the bilinear-field RHS, rays batched as a tensor dimension (the JAX
-package vmaps a per-ray ``lax.scan``; here the scan is a Python loop over
-steps that advances every ray at once).
+Port of ``pyrayhf_tpu.gradient`` (reference ``trace_ray_cartesian_gradient``
+ref ``library.py:1271-1457``, ``trace_ray_spherical_gradient`` ref
+:2128-2337): fixed-step RK4 or the error-controlled Dormand–Prince 5(4)
+pair with the bilinear-field RHS, rays batched as a tensor dimension (the
+JAX package vmaps a per-ray ``lax.scan``; here the scan is a Python loop
+over steps that advances every ray at once).
 
 * Terminal events (ground/top/lateral bounds, ref :1009-1031) are per-step
   masks: on the step that crosses a boundary the state is linearly
   backtracked to the FIRST crossed event and frozen thereafter.
 * The first ``n_hops − 1`` ground crossings reflect specularly instead.
 * A non-finite state freezes the ray on its last finite state.
-* The direction is renormalised every step.
+* The direction is renormalised every step (every accepted attempt).
+* The adaptive integrator (``rtol``/``atol`` given) runs attempts: a
+  rejected attempt shrinks h and emits an unchanged state; each ray keeps
+  its own h, arc length, status and bounces.
+* The loops stop early once every ray is frozen, checking that every
+  ``_FROZEN_CHECK`` steps (one host read each); a frozen ray never changes
+  again, so the rows left are filled with its final state, as the
+  full-length loop would emit them.
 
 Ray equations (Haselgrove/Budden):
   Cartesian: dr/ds = v,  dv/ds = (∇μ − (∇μ·v)v)/μ
@@ -20,9 +27,8 @@ Ray equations (Haselgrove/Budden):
              dv_r/ds = (μ_r − (∇μ·v)v_r)/μ + v_φ²/r
              dv_φ/ds = (μ_φ/r − (∇μ·v)v_φ)/μ − v_r v_φ/r
 
-Not ported yet: the adaptive Dormand–Prince integrator, the early-exit
-fan integrator and the single-ray ``trace_ray_*_gradient`` wrappers
-(ROADMAP Queue 1).
+Not ported yet: ``_integrate_fan``, the JAX package's early-exit fan
+integrator of the 3-D tracers (ROADMAP Queue 1).
 """
 
 import math
@@ -30,15 +36,21 @@ import math
 import torch
 
 from ._util import as_tensors
+from .config import UNSET, resolve
 from .constants import C_KM_S, R_E
 from .ground import _hypot
 
-__all__ = ["trace_rays_cartesian_gradient", "trace_rays_spherical_gradient"]
+__all__ = ["trace_ray_cartesian_gradient", "trace_ray_spherical_gradient",
+           "trace_rays_cartesian_gradient", "trace_rays_spherical_gradient"]
 
 _STATUS = {"length": 0, "ground": 1, "domain": 2, "attempts": 3}
 _DEG2RAD = math.pi / 180.0
 # steps between the host checks for "every ray frozen" (each is one sync)
 _FROZEN_CHECK = 32
+# the last integration's steps (or attempts) run, of how many, and the
+# chunks of _FROZEN_CHECK steps that ran (set by _integrate and
+# _integrate_adaptive)
+EXIT_STATS = {"steps": 0, "of": 0, "chunks": 0}
 
 
 def _rk4_step(rhs, y, ds):
@@ -56,35 +68,16 @@ def _make_step(rhs, ds, event_value, reflect_slot, max_bounces):
     """
 
     def step(y, alive, status, bounces):
-        y_new = _rk4_step(rhs, y, ds)
-        # renormalise the direction components
-        v = y_new[..., 2:]
-        vmag = torch.sqrt(v[..., :1] * v[..., :1] + v[..., 1:] * v[..., 1:])
-        pos = vmag > 0
-        v = torch.where(pos, v / torch.where(pos, vmag, 1.0), v)
-        y_new = torch.cat([y_new[..., :2], v], dim=-1)
-
-        ev_old = event_value(y)
-        ev_new = event_value(y_new)
-        crossed = (ev_new <= 0.0) & (ev_old > 0.0)            # [..., n_ev]
-        any_cross = crossed.any(dim=-1) & alive
-        # linear backtrack to the first crossing (argmax of the mask)
-        j = torch.argmax(crossed.to(torch.uint8), dim=-1, keepdim=True)
-        eo = torch.gather(ev_old, -1, j)
-        en = torch.gather(ev_new, -1, j)
-        denom = eo - en
-        t = torch.where(denom != 0.0,
-                        eo / torch.where(denom != 0.0, denom, 1.0), 1.0)
-        t = torch.clamp(t, 0.0, 1.0)
-        y_cross = y + t * (y_new - y)
+        y_new = _renormalised(_rk4_step(rhs, y, ds))
+        any_cross, j, y_cross, _ = _first_crossing(y, y_new, event_value(y),
+                                                   event_value(y_new))
+        any_cross = any_cross & alive
         ground_hit = any_cross & (j[..., 0] == 0)
         take_cross = any_cross
         if reflect_slot is not None:
             bounce = ground_hit & (bounces < max_bounces)
-            slot = y_cross[..., reflect_slot:reflect_slot + 1]
-            y_refl = torch.cat([y_cross[..., :reflect_slot], torch.abs(slot),
-                                y_cross[..., reflect_slot + 1:]], dim=-1)
-            y_cross = torch.where(bounce[..., None], y_refl, y_cross)
+            y_cross = torch.where(bounce[..., None],
+                                  _reflect(y_cross, reflect_slot), y_cross)
             bounces = bounces + bounce.to(bounces.dtype)
             any_cross = any_cross & ~bounce
             ground_hit = ground_hit & ~bounce
@@ -105,8 +98,60 @@ def _make_step(rhs, ds, event_value, reflect_slot, max_bounces):
     return step
 
 
+def _renormalised(y):
+    """The state with its direction components (2:4) at unit length."""
+    v = y[..., 2:]
+    vmag = torch.sqrt(v[..., :1] * v[..., :1] + v[..., 1:] * v[..., 1:])
+    pos = vmag > 0
+    v = torch.where(pos, v / torch.where(pos, vmag, 1.0), v)
+    return torch.cat([y[..., :2], v], dim=-1)
+
+
+def _first_crossing(y, y_new, ev_old, ev_new):
+    """The first crossed event per ray: (crossed any, j [..., 1], y backtracked
+    linearly to it, t [..., 1]); j is 0 when none crossed."""
+    crossed = (ev_new <= 0.0) & (ev_old > 0.0)            # [..., n_ev]
+    j = torch.argmax(crossed.to(torch.uint8), dim=-1, keepdim=True)
+    eo = torch.gather(ev_old, -1, j)
+    en = torch.gather(ev_new, -1, j)
+    denom = eo - en
+    t = torch.where(denom != 0.0,
+                    eo / torch.where(denom != 0.0, denom, 1.0), 1.0)
+    t = torch.clamp(t, 0.0, 1.0)
+    return crossed.any(dim=-1), j, y + t * (y_new - y), t
+
+
+def _reflect(y, slot):
+    """Specular ground reflection: |component ``slot``|."""
+    s = y[..., slot:slot + 1]
+    return torch.cat([y[..., :slot], torch.abs(s), y[..., slot + 1:]],
+                     dim=-1)
+
+
+def _run(step, carry, n_steps, early_exit):
+    """Run ``step`` ``n_steps`` times; carry[0] is the state, carry[1] the
+    alive mask. Returns (states, alives, final carry); see the module
+    docstring for the early exit."""
+    ys, alives = [carry[0]], [carry[1]]
+    run = n_steps
+    for i in range(n_steps):
+        carry = step(*carry)
+        ys.append(carry[0])
+        alives.append(carry[1])
+        if (early_exit and (i + 1) % _FROZEN_CHECK == 0 and i + 1 < n_steps
+                and not bool(carry[1].any())):
+            run = i + 1
+            rest = n_steps - run
+            ys.extend([carry[0]] * rest)
+            alives.extend([carry[1]] * rest)
+            break
+    EXIT_STATS.update(steps=run, of=n_steps,
+                      chunks=-(-run // _FROZEN_CHECK))
+    return torch.stack(ys, dim=-2), torch.stack(alives, dim=-1), carry
+
+
 def _integrate(rhs, y0, n_steps, ds, event_value, reflect_slot=None,
-               max_bounces=0):
+               max_bounces=0, early_exit=True):
     """Fixed-step RK4 with freeze-on-event semantics, rays batched.
 
     ``y0``: [..., 4] launch states; ``event_value(y)`` → [..., n_ev]
@@ -114,11 +159,7 @@ def _integrate(rhs, y0, n_steps, ds, event_value, reflect_slot=None,
     the vertical velocity component whose first ``max_bounces`` ground
     crossings (event 0) reflect specularly. Returns (ys [..., n_steps+1,
     4], alive [..., n_steps+1], status [...]) — the scan's outputs.
-
-    A frozen ray never changes again (its state, status and bounce count
-    are absorbing), so once every ray is frozen the remaining rows are its
-    final state with ``alive`` False, exactly what the scan would emit;
-    the loop checks for that every few steps and stops.
+    ``early_exit``: stop once every ray is frozen (same outputs).
     """
     step = _make_step(rhs, ds, event_value, reflect_slot, max_bounces)
     lead = y0.shape[:-1]
@@ -126,18 +167,124 @@ def _integrate(rhs, y0, n_steps, ds, event_value, reflect_slot=None,
     status = torch.full(lead, _STATUS["length"], dtype=torch.int64,
                         device=y0.device)
     bounces = torch.zeros(lead, dtype=torch.int64, device=y0.device)
-    ys, alives = [y0], [alive]
-    y = y0
-    for i in range(n_steps):
-        y, alive, status, bounces = step(y, alive, status, bounces)
-        ys.append(y)
-        alives.append(alive)
-        if (i + 1) % _FROZEN_CHECK == 0 and not bool(alive.any()):
-            rest = n_steps - i - 1
-            ys.extend([y] * rest)
-            alives.extend([alive] * rest)
-            break
-    return (torch.stack(ys, dim=-2), torch.stack(alives, dim=-1), status)
+    ys, alive, (_, _, status, _) = _run(step, (y0, alive, status, bounces),
+                                        n_steps, early_exit)
+    return ys, alive, status
+
+
+# Dormand–Prince 5(4) embedded pair (the same tableau scipy's RK45 uses).
+_DP_A = (
+    (1 / 5,),
+    (3 / 40, 9 / 40),
+    (44 / 45, -56 / 15, 32 / 9),
+    (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
+    (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
+    (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84),
+)
+_DP_B5 = (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0)
+_DP_B4 = (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200,
+          187 / 2100, 1 / 40)
+
+
+def _dp45_step(rhs, y, h):
+    """One Dormand–Prince attempt: (y5, err_vec) for step sizes h [..., 1]."""
+    k = [rhs(y)]
+    for row in _DP_A:
+        acc = torch.zeros_like(y)
+        for a, kk in zip(row, k):
+            acc = acc + a * kk
+        k.append(rhs(y + h * acc))
+    y5 = y
+    err = torch.zeros_like(y)
+    for b5, b4, kk in zip(_DP_B5, _DP_B4, k):
+        y5 = y5 + h * b5 * kk
+        err = err + h * (b5 - b4) * kk
+    return y5, err
+
+
+def _integrate_adaptive(rhs, y0, n_attempts, s_max, h0, rtol, atol, h_max,
+                        event_value, reflect_slot=None, max_bounces=0,
+                        early_exit=True):
+    """Error-controlled DP45 with freeze-on-event semantics, rays batched.
+
+    Same output contract as :func:`_integrate`, but each iteration is an
+    embedded 5(4) ATTEMPT per ray: rejected attempts shrink h and emit an
+    unchanged state (a zero-length path segment); accepted attempts advance
+    s and adapt h with the 0.9·err^(−1/5) controller. A ray freezes at
+    s ≥ ``s_max``, on its first boundary event (linear backtrack) or when
+    an attempt is non-finite even at the minimum step. ``s_max``,
+    ``rtol``, ``atol`` and ``h_max`` are numbers; ``h0`` a 0-d tensor.
+    A ray still alive after all attempts with s < s_max gets the
+    'attempts' status.
+    """
+
+    def attempt(y, alive, h, s, status, bounces):
+        h_try = torch.minimum(h, torch.clamp(s_max - s, min=1e-12))
+        y5, err = _dp45_step(rhs, y, h_try[..., None])
+        scale = atol + rtol * torch.maximum(torch.abs(y), torch.abs(y5))
+        err_norm = torch.amax(torch.abs(err) / scale, dim=-1)
+        ok_num = torch.isfinite(y5).all(dim=-1)
+        # a non-finite attempt (NaN μ-gradient region; or atol=0 with a
+        # zero state component) must SHRINK the step, not take the
+        # err == 0 growth branch of the controller
+        err_norm = torch.where(torch.isfinite(err_norm) & ok_num, err_norm,
+                               math.inf)
+        accept = (err_norm <= 1.0) & ok_num
+        # err_norm = inf → fac 0 → clipped to the 0.2 shrink floor; the
+        # power is taken only where err_norm > 0
+        pos = err_norm > 0.0
+        fac = torch.where(pos, 0.9 * torch.where(pos, err_norm, 1.0) ** -0.2,
+                          5.0)
+        h_new = torch.clamp(h_try * torch.clamp(fac, 0.2, 5.0), 1e-9, h_max)
+        # non-finite even at the minimum step size: it can never succeed
+        dead = ~ok_num & (h_try <= 2e-9)
+        y5 = _renormalised(y5)
+
+        any_cross, j, y_cross, t = _first_crossing(y, y5, event_value(y),
+                                                   event_value(y5))
+        any_cross = any_cross & alive & accept
+        t = t[..., 0]
+        ground_hit = any_cross & (j[..., 0] == 0)
+        if reflect_slot is not None:
+            bounce = ground_hit & (bounces < max_bounces)
+            y_cross = torch.where(bounce[..., None],
+                                  _reflect(y_cross, reflect_slot), y_cross)
+            bounces = bounces + bounce.to(bounces.dtype)
+            any_cross = any_cross & ~bounce
+            ground_hit = ground_hit & ~bounce
+            # a bounce advances s only to the crossing
+            t_adv = torch.where(bounce, t, torch.where(any_cross, t, 1.0))
+        else:
+            t_adv = torch.where(any_cross, t, 1.0)
+        step_ok = alive & accept
+        y_next = torch.where(step_ok[..., None],
+                             torch.where(any_cross[..., None], y_cross, y5),
+                             y)
+        if reflect_slot is not None:
+            y_next = torch.where((step_ok & bounce)[..., None], y_cross,
+                                 y_next)
+        s_next = torch.where(step_ok, s + h_try * t_adv, s)
+        status = torch.where(
+            any_cross,
+            torch.where(ground_hit, _STATUS["ground"], _STATUS["domain"]),
+            status)
+        alive_next = alive & ~any_cross & (s_next < s_max) & ~dead
+        return (y_next, alive_next, torch.where(alive, h_new, h), s_next,
+                status, bounces)
+
+    lead = y0.shape[:-1]
+    kw = dict(device=y0.device)
+    carry = (y0, torch.ones(lead, dtype=torch.bool, **kw),
+             torch.zeros(lead, dtype=y0.dtype, **kw) + h0,
+             torch.zeros(lead, dtype=y0.dtype, **kw),
+             torch.full(lead, _STATUS["length"], dtype=torch.int64, **kw),
+             torch.zeros(lead, dtype=torch.int64, **kw))
+    ys, alive, (_, alive_fin, _, s_fin, status, _) = _run(
+        attempt, carry, n_attempts, early_exit)
+    # alive after every attempt with s < s_max: the attempt budget ran out
+    exhausted = alive_fin & (s_fin < s_max)
+    status = torch.where(exhausted, _STATUS["attempts"], status)
+    return ys, alive, status
 
 
 def _path_metrics(x_path, z_path, ds_seg, mup_mid, status, mu_mid=None):
@@ -185,14 +332,31 @@ def _launch_direction(elevation_deg, spherical):
     return vx / vmag, vz / vmag
 
 
+def _integrator(rhs, y0, n_steps, ds, events, hop, integ):
+    """Fixed-step RK4, or DP45 when ``integ`` holds its numbers (rtol,
+    atol, s_max, h_max); ``integ["early_exit"]`` (default True) for
+    either."""
+    early_exit = integ.get("early_exit", True)
+    if integ.get("s_max") is not None:
+        return _integrate_adaptive(
+            rhs, y0, n_steps, integ["s_max"], ds, integ["rtol"],
+            integ["atol"], integ["h_max"], events, early_exit=early_exit,
+            **hop)
+    return _integrate(rhs, y0, n_steps, ds, events, early_exit=early_exit,
+                      **hop)
+
+
 def _cart_gradient_core(n_and_grad, mup_func, x0, z0, elevation_deg, ds,
                         n_steps, z_ground, z_max, x_min, x_max, n_hops=1,
-                        kappa_func=None):
-    """Fixed-step Cartesian fan: ``elevation_deg`` [...] → metrics [...].
+                        kappa_func=None, **integ):
+    """Cartesian fan: ``elevation_deg`` [...] → metrics [...].
 
     ``x0``, ``z0``, ``ds`` and the bounds are 0-d tensors (or Python
     numbers) in the state's dtype; ``n_and_grad(x, z)`` and the metric
-    callables take [...]-leading queries (see :mod:`.fields`).
+    callables take [...]-leading queries (see :mod:`.fields`). Fixed-step
+    RK4 of ``ds``, or, with ``rtol``/``atol``/``s_max``/``h_max`` given in
+    ``integ``, DP45 attempts from the initial step ``ds``;
+    ``early_exit`` (default True): see the module docstring.
     """
     vx, vz = _launch_direction(elevation_deg, False)
     y0 = torch.stack([torch.zeros_like(vx) + x0, torch.zeros_like(vz) + z0,
@@ -215,7 +379,8 @@ def _cart_gradient_core(n_and_grad, mup_func, x0, z0, elevation_deg, ds,
                             x_max - x], dim=-1)
 
     hop = dict(reflect_slot=3, max_bounces=n_hops - 1) if n_hops > 1 else {}
-    ys, alive, status = _integrate(rhs, y0, n_steps, ds, events, **hop)
+    ys, alive, status = _integrator(rhs, y0, n_steps, ds, events, hop,
+                                    integ)
     x_path, z_path = ys[..., 0], ys[..., 1]
     dx = torch.diff(x_path, dim=-1)
     dz = torch.diff(z_path, dim=-1)
@@ -236,8 +401,8 @@ def _cart_gradient_core(n_and_grad, mup_func, x0, z0, elevation_deg, ds,
 
 def _sph_gradient_core(n_and_grad_rphi, mup_func, x0, z0, elevation_deg, ds,
                        n_steps, re, z_ground, r_max, phi_min, phi_max,
-                       n_hops=1, kappa_func=None):
-    """Fixed-step spherical fan in (r, φ, v_r, v_φ); see the Cartesian."""
+                       n_hops=1, kappa_func=None, **integ):
+    """Spherical fan in (r, φ, v_r, v_φ); see the Cartesian."""
     r0 = re + z0
     phi0 = x0 / re
     v_r, v_phi = _launch_direction(elevation_deg, True)
@@ -265,7 +430,8 @@ def _sph_gradient_core(n_and_grad_rphi, mup_func, x0, z0, elevation_deg, ds,
                             phi - phi_min, phi_max - phi], dim=-1)
 
     hop = dict(reflect_slot=2, max_bounces=n_hops - 1) if n_hops > 1 else {}
-    ys, alive, status = _integrate(rhs, y0, n_steps, ds, events, **hop)
+    ys, alive, status = _integrator(rhs, y0, n_steps, ds, events, hop,
+                                    integ)
     r_path, phi_path = ys[..., 0], ys[..., 1]
     x_path = re * phi_path
     z_path = r_path - re
@@ -335,3 +501,120 @@ def trace_rays_spherical_gradient(n_and_grad_rphi, mup_func, x0_km, z0_km,
     return _sph_gradient_core(n_and_grad_rphi, mup_func, x0, z0, el, ds,
                               n_steps, re_t, zg, rm, pl, ph,
                               n_hops=int(n_hops))
+
+
+def _steps_and_integrator(s_max_km, step_km, rtol, atol, max_step_km,
+                          early_exit):
+    """(step_km, steps or attempts, integrator kwargs) of a single-ray
+    trace: DP45 when rtol or atol is set (twice the fixed-step count of
+    attempts, the reference's defaults for the one not given), else RK4 of
+    ``step_km`` capped by ``max_step_km``."""
+    if rtol is not None or atol is not None:
+        n = 2 * int(round(float(s_max_km) / float(step_km)))
+        return step_km, n, dict(
+            rtol=1e-7 if rtol is None else float(rtol),
+            atol=1e-9 if atol is None else float(atol),
+            s_max=float(s_max_km),
+            h_max=math.inf if max_step_km is None else float(max_step_km),
+            early_exit=bool(early_exit))
+    if max_step_km is not None:
+        step_km = min(step_km, float(max_step_km))
+    return (step_km, int(round(float(s_max_km) / float(step_km))),
+            dict(early_exit=bool(early_exit)))
+
+
+def _with_status(out):
+    """The status code as the JAX function's string (one host read)."""
+    code = int(out.pop("status_code"))
+    out["status"] = {v: k for k, v in _STATUS.items()}[code]
+    out["t"] = None
+    return out
+
+
+def trace_ray_cartesian_gradient(n_and_grad, mup_func, x0_km, z0_km,
+                                 elevation_deg, s_max_km=None, *,
+                                 step_km=None, z_ground_km=None,
+                                 z_min_km=-1.0, z_max_km=None,
+                                 x_min_km=None, x_max_km=None,
+                                 rtol=UNSET, atol=UNSET, max_step_km=None,
+                                 renormalize_every=None, n_hops=1,
+                                 kappa_func=None, config=None,
+                                 early_exit=True):
+    """2-D Cartesian ray-ODE trace of one ray; API-parity with ref
+    :1271-1457 and the JAX function.
+
+    ``n_hops``: the first ``n_hops − 1`` ground contacts reflect
+    specularly. ``kappa_func``: an absorption-coefficient interpolant
+    κ(x, z) [dB/km]; the result then carries ``absorption_db``. With
+    ``rtol``/``atol`` given (the reference's defaults are 1e-7/1e-9) the
+    integrator is the embedded Dormand–Prince 5(4) pair (``step_km`` the
+    initial step, ``max_step_km`` the cap); with both None, fixed-step RK4
+    of ``step_km`` (default 1 km). ``renormalize_every`` and ``z_min_km``
+    are accepted for API compatibility. A
+    :class:`pyrayhf_tpu_torch.config.GradientTracerConfig` passed as
+    ``config`` supplies any knob not given explicitly; an explicit
+    ``rtol=None, atol=None`` forces RK4. ``early_exit``: stop the loop once
+    the ray is frozen (same outputs). Tensors lie on the field's device.
+    """
+    s_max_km = resolve(config, "s_max_km", s_max_km, 5000.0)
+    step_km = resolve(config, "step_km", step_km, 1.0)
+    z_ground_km = resolve(config, "z_ground_km", z_ground_km, 0.0)
+    z_max_km = resolve(config, "z_max_km", z_max_km, 1000.0)
+    x_min_km = resolve(config, "x_min_km", x_min_km, -1e6)
+    x_max_km = resolve(config, "x_max_km", x_max_km, 1e6)
+    rtol = resolve(config, "rtol", rtol, UNSET)
+    atol = resolve(config, "atol", atol, UNSET)
+    del renormalize_every, z_min_km
+    if mup_func is None:
+        raise ValueError(
+            "mup_func must be provided, build it with build_mup_function.")
+    step_km, n_steps, kw = _steps_and_integrator(s_max_km, step_km, rtol,
+                                                 atol, max_step_km,
+                                                 early_exit)
+    x0, z0, el, ds, zg, zm, xl, xh = _like(
+        n_and_grad, x0_km, z0_km, elevation_deg, step_km, z_ground_km,
+        z_max_km, x_min_km, x_max_km)
+    return _with_status(_cart_gradient_core(
+        n_and_grad, mup_func, x0, z0, el, ds, n_steps, zg, zm, xl, xh,
+        n_hops=int(n_hops), kappa_func=kappa_func, **kw))
+
+
+def trace_ray_spherical_gradient(n_and_grad_rphi, mup_func, x0_km, z0_km,
+                                 elevation_deg, s_max_km=None, *,
+                                 R_E=None, z_ground_km=None, r_max_km=None,
+                                 phi_min=-math.pi, phi_max=math.pi,
+                                 step_km=None, rtol=UNSET, atol=UNSET,
+                                 max_step_km=2.0, renormalize_every=None,
+                                 n_hops=1, kappa_func=None, config=None,
+                                 early_exit=True):
+    """2-D spherical ray-ODE trace of one ray; API-parity with ref
+    :2128-2337 and the JAX function.
+
+    ``n_hops``/``kappa_func``/``rtol``/``atol``/``early_exit``: see
+    :func:`trace_ray_cartesian_gradient` (RK4 steps are capped by
+    ``max_step_km``, default 2 km). ``config`` supplies the arc budget
+    (``s_max_km``), step and ground/tolerance knobs; without one the arc
+    budget is 6000 km. Bounds are ``r_max_km`` (default R_E + 1200 km)
+    and ``phi_min``/``phi_max``.
+    """
+    s_max_km = resolve(config, "s_max_km", s_max_km, 6000.0)
+    z_ground_km = resolve(config, "z_ground_km", z_ground_km, 0.0)
+    step_km = resolve(config, "step_km", step_km, 1.0)
+    rtol = resolve(config, "rtol", rtol, UNSET)
+    atol = resolve(config, "atol", atol, UNSET)
+    del renormalize_every
+    if mup_func is None:
+        raise ValueError("mup_func must be provided — build it with "
+                         "build_mup_function(..., geometry='spherical').")
+    re = globals()["R_E"] if R_E is None else float(R_E)
+    if r_max_km is None:
+        r_max_km = re + 1200.0
+    step_km, n_steps, kw = _steps_and_integrator(s_max_km, step_km, rtol,
+                                                 atol, max_step_km,
+                                                 early_exit)
+    x0, z0, el, ds, re_t, zg, rm, pl, ph = _like(
+        n_and_grad_rphi, x0_km, z0_km, elevation_deg, step_km, re,
+        z_ground_km, r_max_km, phi_min, phi_max)
+    return _with_status(_sph_gradient_core(
+        n_and_grad_rphi, mup_func, x0, z0, el, ds, n_steps, re_t, zg, rm, pl,
+        ph, n_hops=int(n_hops), kappa_func=kappa_func, **kw))

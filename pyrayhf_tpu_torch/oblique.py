@@ -1,9 +1,13 @@
-"""Oblique ionograms through a range-dependent (2-D) ionosphere.
+"""Oblique ionograms: the T→R homing problem, batched.
 
-Port of the 2-D part of ``pyrayhf_tpu.oblique``: the whole (frequency ×
-elevation) gradient-ODE fan through an altitude × ground-range slice, then
-the low and high rays that home onto a link of given ground range,
-vectorised over frequencies.
+Port of ``pyrayhf_tpu.oblique``: the whole (frequency × elevation) ray fan
+in one batched call, then the low and high rays that home onto a link of
+given ground range, vectorised over frequencies —
+
+* :func:`synthesize_oblique_ionogram`: the Snell fan of one stratified
+  profile (:mod:`.snell`);
+* :func:`synthesize_oblique_ionogram_2d`: the gradient-ODE fan through an
+  altitude × ground-range slice.
 
 Conventions (as the JAX module):
 
@@ -15,8 +19,8 @@ Conventions (as the JAX module):
 The fan runs on the CUDA fan kernel (``csrc/fan2d.cu``, through
 :func:`pyrayhf_tpu_torch.pallas_ray.fan_2d_pallas`) for CUDA tensors on
 uniform grids, and on the plain gradient-ODE fan of :mod:`.gradient`
-otherwise (``engine="auto"``). The 1-D ``synthesize_oblique_ionogram``
-(Snell fans) is not ported yet (ROADMAP Queue 1).
+otherwise (``engine="auto"``). The Snell fan is plain PyTorch, as it is
+XLA code in the JAX package.
 """
 
 import math
@@ -26,8 +30,10 @@ import torch
 
 from ._util import as_tensors, host_f64
 from .constants import C_KM_S, R_E
+from .magnetoionic import mode_multiplier
 
-__all__ = ["synthesize_oblique_ionogram_2d"]
+__all__ = ["synthesize_oblique_ionogram",
+           "synthesize_oblique_ionogram_2d"]
 
 _DEG2RAD = math.pi / 180.0
 _NAN = float("nan")
@@ -106,6 +112,112 @@ def _ground_loss_db(f0s_hz, elev_deg, ground, n_hops):
     from .ground import ground_reflection_loss_db
     return (n_hops - 1) * ground_reflection_loss_db(f0s_hz, elev_deg,
                                                     ground)
+
+
+def _homing(f0s, ground_range_km, alt, Ne, Babs, bpsi, nu, mode, geometry,
+            n_elev, elev_min_deg, elev_max_deg, max_range_jump_km, n_hops,
+            ground):
+    """:func:`synthesize_oblique_ionogram` on tensors, for profiles
+    ``Ne`` [..., N] (leading dimensions batch whole links: every output
+    gains them in front)."""
+    from .snell import _snell_fan
+
+    if geometry not in ("cartesian", "spherical"):
+        raise ValueError("geometry must be 'cartesian' or 'spherical'")
+    n_hops = int(n_hops)
+    lims, _ = as_tensors([float(elev_min_deg), float(elev_max_deg)], Ne,
+                         dtype=Ne.dtype)
+    elevs = _linspace(lims[0], lims[1], int(n_elev))
+    fan = _snell_fan(f0s, elevs, alt, Ne, Babs, bpsi, nu,
+                     mode_multiplier(mode),
+                     re=None if geometry == "cartesian" else float(R_E))
+    range_fe = fan["ground_range_km"]                     # [..., F, E]
+    delay_fe = fan["group_delay_sec"]
+
+    # per-hop target; physical floor: per-hop chord distance / c
+    # (μ' ≥ 1 ⇒ no ray is faster)
+    D = float(ground_range_km) / n_hops
+    chord = (D if geometry == "cartesian"
+             else 2.0 * R_E * math.sin(0.5 * D / R_E))
+    lo, hi = _crossings(range_fe, (delay_fe, fan["absorption_db"],
+                                   fan["group_path_km"],
+                                   fan["phase_path_km"]),
+                        elevs, D, float(max_range_jump_km), chord / C_KM_S)
+    dl_lo, ab_lo, pa_lo, ph_lo, el_lo, sl_lo = lo
+    dl_hi, ab_hi, pa_hi, ph_hi, el_hi, sl_hi = hi
+    # n identical hops: total path and total dD/dβ both scale by n
+    d_tot = float(ground_range_km)
+    fg_lo = _focusing_gain_db(n_hops * pa_lo, n_hops * sl_lo, el_lo,
+                              d_tot, geometry)
+    fg_hi = _focusing_gain_db(n_hops * pa_hi, n_hops * sl_hi, el_hi,
+                              d_tot, geometry)
+    gl_lo = _ground_loss_db(f0s, el_lo, ground, n_hops)
+    gl_hi = _ground_loss_db(f0s, el_hi, ground, n_hops)
+    return {"delay_low_sec": n_hops * dl_lo,
+            "delay_high_sec": n_hops * dl_hi,
+            "elev_low_deg": el_lo, "elev_high_deg": el_hi,
+            "absorption_low_db": n_hops * ab_lo,
+            "absorption_high_db": n_hops * ab_hi,
+            "group_path_low_km": n_hops * pa_lo,
+            "group_path_high_km": n_hops * pa_hi,
+            "phase_path_low_km": n_hops * ph_lo,
+            "phase_path_high_km": n_hops * ph_hi,
+            "focusing_gain_low_db": fg_lo,
+            "focusing_gain_high_db": fg_hi,
+            "ground_loss_low_db": gl_lo,
+            "ground_loss_high_db": gl_hi,
+            "link_loss_low_db": _link_loss_db(
+                f0s, n_hops * pa_lo, n_hops * ab_lo, fg_lo, gl_lo),
+            "link_loss_high_db": _link_loss_db(
+                f0s, n_hops * pa_hi, n_hops * ab_hi, fg_hi, gl_hi),
+            "fan_range_km": range_fe, "fan_delay_sec": delay_fe,
+            "elevations_deg": elevs}
+
+
+def synthesize_oblique_ionogram(f0s_hz, ground_range_km, alt_km, Ne, Babs,
+                                bpsi, mode="O", geometry="cartesian",
+                                n_elev=512, elev_min_deg=5.0,
+                                elev_max_deg=85.0,
+                                max_range_jump_km=200.0, n_hops=1,
+                                nu=None, ground=None, device=None):
+    """Oblique ionogram for a link of length ``ground_range_km``.
+
+    Traces the full (frequency × elevation) Snell fan of the profile
+    (``alt_km``, ``Ne``, ``Babs``, ``bpsi``) and returns, per frequency,
+    the low- and high-ray group delays [s], launch elevations [deg] and
+    path absorptions [dB] that land at the target range (NaN above the
+    link MUF). Keys, as the JAX function: ``delay_low_sec``,
+    ``delay_high_sec``, ``elev_low_deg``, ``elev_high_deg``,
+    ``absorption_low_db``, ``absorption_high_db``,
+    ``group_path_low_km``/``..._high_km``,
+    ``phase_path_low_km``/``..._high_km``,
+    ``focusing_gain_low_db``/``..._high_db`` (the ionospheric focusing term
+    of the link budget, see :func:`_focusing_gain_db`),
+    ``ground_loss_low_db``/``..._high_db``, ``link_loss_low/high_db`` (the
+    one-way budget: free-space spreading over the group path + absorption
+    + ground loss − focusing, isotropic antennas) and the raw fan
+    (``fan_range_km``, ``fan_delay_sec``, ``elevations_deg``).
+
+    ``geometry``: 'cartesian' (flat Earth) or 'spherical'.
+    ``max_range_jump_km`` rejects crossings interpolated across
+    layer-transition discontinuities of the fan. ``n_hops``: an n-hop ray
+    through this horizontally uniform ionosphere is n identical single hops
+    off a specular ground, so each hop homes at ``D/n`` and delay,
+    absorption and paths scale by n. ``ground``: electrical ground of the
+    n_hops−1 intermediate bounces — ``None`` (perfect reflector, 0 dB), a
+    preset name from :data:`pyrayhf_tpu_torch.ground.GROUND_PRESETS` or an
+    ``(eps_r, sigma)`` pair. ``nu``: collision-frequency override, see
+    :func:`pyrayhf_tpu_torch.absorption.collision_frequency`. Host data
+    goes to the CUDA card unless ``device`` says otherwise
+    (``device="cpu"``); the density's dtype is the working dtype.
+    """
+    from .snell import _fan_inputs
+
+    f0s, _, alt, Ne, Babs, bpsi, nu = _fan_inputs(
+        f0s_hz, 0.0, alt_km, Ne, Babs, bpsi, nu, device)
+    return _homing(f0s, ground_range_km, alt, Ne, Babs, bpsi, nu, mode,
+                   geometry, n_elev, elev_min_deg, elev_max_deg,
+                   max_range_jump_km, n_hops, ground)
 
 
 def _resolve_fan_engine(engine, z_np, x_np, device_type="cpu"):

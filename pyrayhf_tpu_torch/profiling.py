@@ -1,4 +1,4 @@
-"""Timing on the card with CUDA events.
+"""Timing, cost model and device traces (port of ``pyrayhf_tpu.profiling``).
 
 :func:`time_launch` times ``fn(*args)`` on the current CUDA stream: warm-up
 launches first, then one pair of ``torch.cuda.Event`` records around each
@@ -6,13 +6,20 @@ timed launch, one synchronise at the end, and the median. It measures
 device time between the events, so host work that delays the next launch
 shows only when the device waits for it. There is no fallback: without a
 card it raises.
+
+:func:`operator_cost` is the JAX package's analytic flop/byte model of the
+forward operator, and :func:`trace` captures a ``torch.profiler`` trace of
+the card (and the host) into a TensorBoard directory.
 """
 
+import contextlib
+import os
 import statistics
+import tempfile
 
 import torch
 
-__all__ = ["time_launch", "vh_evals_per_s"]
+__all__ = ["time_launch", "vh_evals_per_s", "operator_cost", "trace"]
 
 
 def time_launch(fn, *args, iters=10, warmup=3):
@@ -41,3 +48,37 @@ def time_launch(fn, *args, iters=10, warmup=3):
 def vh_evals_per_s(B, F, ms):
     """(frequency, profile) virtual-height evaluations per second."""
     return B * F / (ms * 1e-3)
+
+
+def operator_cost(B, F, n_points, n_alt, flops_per_point=70):
+    """Analytic cost model of the fused ionogram operator.
+
+    Returns a dict with flops, sweep element-visits, and minimal device
+    bytes — the roofline inputs for one [B, F, n_points] launch over
+    [B, n_alt] profiles (the JAX package's formula, f32 tables).
+    """
+    points = B * F * n_points
+    return {
+        "ah_flops": points * flops_per_point,
+        "sweep_visits": points * n_alt,
+        "hbm_bytes_min": 4 * (B * n_alt * 8 + B * F * 2),
+        "points": points,
+    }
+
+
+@contextlib.contextmanager
+def trace(log_dir=None):
+    """Capture a ``torch.profiler`` trace (CPU, and CUDA when there is a
+    card) into ``log_dir`` (default: ``pyrayhf_trace`` under the
+    temporary directory), in TensorBoard's format. Yields ``log_dir``.
+    """
+    if log_dir is None:
+        log_dir = os.path.join(tempfile.gettempdir(), "pyrayhf_trace")
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                log_dir)):
+        yield log_dir

@@ -36,6 +36,24 @@ def _slice():
                 s_max_km=400.0)
 
 
+def _gradient_ray(**kw):
+    z = np.linspace(0.0, 400.0, 41)
+    x = np.linspace(0.0, 2000.0, 9)
+    mu = np.sqrt(np.clip(1.0 - 0.8 * np.exp(-((z[:, None] - 250.0) / 45.0)
+                                            ** 2), 0.0, None)) * np.ones(9)
+    nag = prt.build_refractive_index_interpolator_cartesian(z, x, mu, **kw)
+    mupf = prt.build_mup_function(1.0 / mu, x, z, **kw)
+    return prt.trace_ray_cartesian_gradient(
+        nag, mupf, 0.0, 0.0, 40.0, 600.0, step_km=20.0, rtol=1e-6,
+        max_step_km=20.0, z_max_km=400.0)["group_path_km"]
+
+
+def _link(**kw):
+    freqs, den, bmag, bpsi, alt = _profile()
+    return dict(f0s_hz=[5e6, 8e6], ground_range_km=600.0, alt_km=alt,
+                Ne=den, Babs=bmag, bpsi=bpsi, n_elev=16, **kw)
+
+
 ENTRY_POINTS = {
     "vertical_forward_operator": lambda **kw: prt.vertical_forward_operator(
         *_profile(), **kw),
@@ -62,6 +80,41 @@ ENTRY_POINTS = {
     "synthesize_oblique_ionogram_2d":
         lambda **kw: prt.synthesize_oblique_ionogram_2d(
             **_slice(), **kw)["fan_range_km"],
+    "synthesize_oblique_ionogram":
+        lambda **kw: prt.synthesize_oblique_ionogram(
+            **_link(**kw))["delay_low_sec"],
+    "trace_rays_spherical_snells":
+        lambda **kw: prt.trace_rays_spherical_snells(
+            [6e6], [20.0, 40.0], *_profile()[4:], *_profile()[1:4],
+            **kw)["group_path_km"],
+    "trace_ray_cartesian_snells":
+        lambda **kw: prt.trace_ray_cartesian_snells(
+            6e6, 30.0, *_profile()[4:], *_profile()[1:4], "X",
+            **kw)["ground_range_km"],
+    "trace_ray_cartesian_gradient": _gradient_ray,
+    "muf_from_profile": lambda **kw: prt.muf_from_profile(
+        [800.0, 1600.0], *_profile()[1:], **kw),
+    "muf_map": lambda **kw: prt.muf_map(1000.0, *_profile(2)[1:], **kw),
+    "vertical_to_oblique": lambda **kw: prt.vertical_to_oblique(
+        [3.0, 5.0], [250.0, 300.0], 1200.0, **kw)[0],
+    "faraday_rotation_vertical": lambda **kw: prt.faraday_rotation_vertical(
+        [30e6, 60e6], *_profile()[1:], **kw),
+    "doppler_shift_vertical": lambda **kw: prt.doppler_shift_vertical(
+        [3.0, 5.0], _profile()[1], 1e-3 * _profile()[1], *_profile()[2:],
+        **kw)["doppler_hz"],
+    "phase_height_and_mask": lambda **kw: prt.phase_height_and_mask(
+        *_profile(), **kw)[0],
+    "retrieve_from_oblique": lambda **kw: prt.retrieve_from_oblique(
+        {"Nm": 2e12, "hm": 300.0, "B_bot": 40.0, "B_top": 60.0}, {"P": 0.0},
+        {"Nm": 5e10, "hm": 110.0, "B_bot": 5.0, "B_top": 7.0}, [6e6, 9e6],
+        [3.2e-3, 3.4e-3], 700.0, *_profile()[4:], *_profile()[2:4],
+        n_elev=8, steps=1, brute_init=False, **kw)[0],
+    "great_circle_point": lambda **kw: prt.great_circle_point(
+        40.0, -100.0, [500.0, 900.0], 63.0, **kw)[0],
+    "calculate_gcd": lambda **kw: prt.calculate_gcd(10.0, 45.0, 30.0, 50.0,
+                                                    **kw),
+    "find_turning_point": lambda **kw: prt.find_turning_point(
+        [0.0, 100.0, 200.0], [1.0, 0.8, 0.4], 0.6, **kw),
 }
 
 
