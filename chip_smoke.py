@@ -84,7 +84,7 @@ failure:
    ``minimize_parameters(method="brute")`` on one of them and
    ``retrieve_profile_batch`` on B=64 Chapman ionograms, each against its
    truths at the JAX package's test thresholds; then, with the card idle,
-   the same f64 LM call on the first 8 ionograms on the CPU, whose fits
+   the same f64 LM call on the first 4 ionograms on the CPU, whose fits
    must equal the card's;
 10. the 1-D oblique link (``link_phase``): Snell fans
     (``trace_rays_{spherical,cartesian}_snells``) and
@@ -107,7 +107,19 @@ failure:
     ``retrieve_from_oblique`` at example 12's width (261 nodes, 12
     frequencies, n_elev 256, 14 steps) on delays synthesised on the card,
     which must recover its truth to the JAX package's test thresholds;
-11. one JSON line of kernels, the card line, and the closing JSON line.
+11. the 3-D slice (``trace3d_phase``; plain PyTorch, no kernel) at
+    example 10's width: ``generate_input_3D`` of a 620 × 36 × 41 =
+    915,120-node volume (card against CPU); ``synthesize_oblique_
+    ionogram_3d`` of example 10's link, 24 frequencies (3.0–14.5 MHz) ×
+    ``home_ray_3d``'s 48 × 9 fan at 2-km steps over 4,000 km, f64 and f32;
+    ``trace_rays_3d`` (48 × 9 at 8 MHz, f64 and f32) and ``trace_ray_3d``
+    fixed-step and adaptive; ``igrf_volume``, ``build_field_3d_aniso``,
+    ``trace_rays_3d_anisotropic`` O and X, ``synthesize_oblique_ionogram_
+    3d_anisotropic`` (12 frequencies, 3–14 MHz) and the gradient of a
+    ray's group delay w.r.t. the Ne table; each call's time, steps run and
+    peak memory, the link MUFs; every f64 result on a subset against the
+    CPU (rtol 1e-9, identical NaN masks; the gradient 1e-6);
+12. one JSON line of kernels, the card line, and the closing JSON line.
 
 Profiles are Chapman F2 (+ E above a valley for a quarter of them) from
 ``numpy.random.default_rng(SEED)``; the fan scenes are the tilted Chapman
@@ -182,7 +194,7 @@ MXU_TILE = 16
 # one station-day at 5-minute cadence: the golden layer parameters of
 # tests/test_edp_retrieval.py:19-36 with hmF2 U(260, 400) km, B_bot
 # U(25, 60) km and NmF2 within ±20% of the golden
-LM_B, LM_STEPS, LM_CPU_B = 288, 25, 8
+LM_B, LM_STEPS, LM_CPU_B = 288, 25, 4
 TH_B = 64
 LM_POP = {"hm": (260.0, 400.0), "B_bot": (25.0, 60.0)}
 GOLDEN = {"F2": {"Nm": 1.17848165e+12, "hm": 365.13828931,
@@ -295,6 +307,30 @@ FARADAY_FREQS = np.array([15e6, 20e6, 30e6, 50e6, 100e6])
 INV_F0S, INV_NELEV, INV_STEPS = np.linspace(5e6, 14e6, 12), 256, 14
 INV_TRUTH = {"Nm": 9e11, "hm": 310.0, "B_bot": 48.0, "B_top": 60.0}
 INV_PRIOR = {"Nm": 6e11, "hm": 270.0, "B_bot": 38.0, "B_top": 60.0}
+
+# ---- the 3-D slice (trace3d_phase) ------------------------------------------
+# example 10's region (examples/10_trace3d.py) on the main path's 620-node
+# altitude axis: 620 x 36 x 41 = 915,120 nodes, from generate_input_3D
+T3D_DATE, T3D_F107 = (2020, 6, 15, 17.0), 140.0
+T3D_LAT, T3D_LON = np.linspace(10.0, 45.0, 36), np.linspace(-90.0, -50.0, 41)
+T3D_ALT = np.linspace(80.0, 699.0, 620)
+# example 10's link (38 N 72 W -> 33 N 72 W) and home_ray_3d's default fan
+T3D_LINK = (38.0, -72.0, 33.0, -72.0)
+T3D_FAN = dict(n_elev=48, n_az=9, step_km=2.0, s_max_km=4000.0)
+T3D_F0S = np.arange(3.0e6, 14.75e6, 0.5e6)          # 24 frequencies
+T3D_SUB = [4, 10, 16]                              # the CPU subset
+T3D_FAN_F0 = 8.0e6
+ANISO_F0S = np.linspace(3.0e6, 14.0e6, 12)
+# the card's f64 against the CPU: the CPU tests' rtol (tests/test_torch_
+# trace3d.py, the JAX package's fan-versus-single bound); the anisotropic
+# fans (and the anisotropic ionogram) at 4-km steps, the CPU side at 2 km
+# would take minutes; the adaptive ray on a 200-km arc (further on, a
+# 1-ulp difference of the card's libm moves its step controller, as the
+# JAX function parts from itself between jit and eager); the field-table
+# gradient of one ray at 4-km steps, as tests/test_trace3d_aniso.py
+T3D_RTOL = 1e-9
+T3D_GRAD_RTOL = 1e-6
+T3D_ADAPTIVE_ARC = 200.0
 
 
 def fan_grid(kind):
@@ -1972,6 +2008,295 @@ def link_phase(torch, prt, dev, card, glob):
     return summary, summary["muf_map"]["launches"]
 
 
+def tensors_only(out):
+    """The tensor values of a tracer's output dict."""
+    return {k: v for k, v in out.items() if hasattr(v, "dim")}
+
+
+def close_3d(name, card_out, cpu_out, rtol):
+    """The 3-D slice's card against CPU rule, the CPU tests' (tests/
+    test_torch_trace3d.py): every tensor key with identical NaN masks (and
+    equal booleans and status codes), finite values within rtol, with an
+    absolute floor of rtol times the channel's largest value on the path
+    channels and 1e-12 of it elsewhere (offsets and gradients near zero).
+    Returns the largest relative difference."""
+    worst = 0.0
+    for k, v in tensors_only(cpu_out).items():
+        a = v.double().numpy()
+        b = card_out[k].double().cpu().numpy()
+        check(a.shape == b.shape, f"{name} {k}: shape {b.shape} vs {a.shape}")
+        check(np.array_equal(np.isnan(a), np.isnan(b)),
+              f"{name} {k}: NaN masks differ")
+        m = np.isfinite(a)
+        if not m.any():
+            continue
+        scale = np.abs(a[m]).max()
+        floor = (rtol if k in ("lat", "lon", "alt", "ecef", "u")
+                 else 1e-12) * scale
+        d = np.abs(b[m] - a[m])
+        over = d > rtol * np.abs(a[m]) + floor
+        check(not over.any(), f"{name} {k}: {int(over.sum())} values over "
+              f"tolerance, worst {d.max():.3e} (scale {scale:.3e})")
+        worst = max(worst, float((d / np.maximum(
+            np.maximum(np.abs(a[m]), floor / rtol), 1e-300)).max()))
+    print(f"    {name}: largest relative difference {worst:.3e} "
+          f"(rtol {rtol:g})", flush=True)
+    return worst
+
+
+def trace3d_phase(torch, prt, dev, card):
+    """The 3-D slice on the card (phase 11): the input volume from the
+    climatology and the IGRF, the fixed-psi link ionogram, fan and single
+    rays, and the anisotropic fans, ionogram and field-table gradient, at
+    example 10's width. Each f64 card result is held against the same
+    call on the CPU on a subset. The slice runs no kernel of its own.
+    Returns a summary dict."""
+    from pyrayhf_tpu_torch import gradient, trace3d, trace3d_aniso
+
+    cpu = torch.device("cpu")
+    here = "card" if dev.type == "cuda" else "CPU"
+    summary = {"card": card}
+    t_phase = time.perf_counter()
+
+    def T(a, dtype=torch.float64, device=dev):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    def run(name, fn, device=dev):
+        """fn() timed on the host clock around a synchronise, with its
+        steps run and the peak memory above the start (card only)."""
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        gradient.EXIT_STATS.update(steps=0, of=0)
+        t0 = time.perf_counter()
+        out = fn()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        row = {"s": sec, "steps": gradient.EXIT_STATS["steps"],
+               "of": gradient.EXIT_STATS["of"]}
+        if device.type == "cuda":
+            row["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        where = "card" if device.type == "cuda" else "CPU"
+        print(f"  {name} ({where}): {sec:.3f} s, steps run {row['steps']} "
+              f"of {row['of']}"
+              + (f", peak {row['peak_bytes'] / 2**30:.3f} GiB"
+                 if "peak_bytes" in row else ""), flush=True)
+        summary[f"{name} {where}"] = row
+        return out
+
+    def muf(out, f0s):
+        lo = out["delay_low_sec"].double().cpu().numpy()
+        hit = np.isfinite(lo)
+        return float(f0s[hit].max() / 1e6) if hit.any() else None
+
+    # ---- 1. the input volume ---------------------------------------------
+    n_nodes = T3D_ALT.size * T3D_LAT.size * T3D_LON.size
+    print(f"3-D: generate_input_3D{T3D_DATE}, F107={T3D_F107}, "
+          f"{T3D_ALT.size} x {T3D_LAT.size} x {T3D_LON.size} = {n_nodes} "
+          f"nodes; {card}", flush=True)
+    gen = (*T3D_DATE, T3D_LAT, T3D_LON, T3D_ALT, T3D_F107)
+    inp = run("generate_input_3D", lambda: prt.generate_input_3D(
+        *gen, device=dev))
+    inp_c = run("generate_input_3D", lambda: prt.generate_input_3D(
+        *gen, device=cpu), cpu)
+    summary["generate_input_3D card vs CPU"] = close_3d(
+        "generate_input_3D card vs CPU",
+        {k: torch.from_numpy(inp[k]) for k in ("den", "bmag", "bpsi")},
+        {k: torch.from_numpy(inp_c[k]) for k in ("den", "bmag", "bpsi")},
+        T3D_RTOL)
+    den, bmag, bpsi = inp["den"], inp["bmag"], inp["bpsi"]
+    check(den.shape == (T3D_ALT.size, T3D_LAT.size, T3D_LON.size)
+          and np.isfinite(den).all() and den.max() > 1e11,
+          f"generate_input_3D: den {den.shape}, max {den.max():.3e}")
+    vol = (T3D_ALT, T3D_LAT, T3D_LON, den, bmag, bpsi)
+
+    # ---- 2. the fixed-psi link ionogram ------------------------------------
+    fan_rays = T3D_F0S.size * T3D_FAN["n_elev"] * T3D_FAN["n_az"]
+    print(f"3-D: synthesize_oblique_ionogram_3d, link {T3D_LINK}, "
+          f"F={T3D_F0S.size} ({T3D_F0S[0] / 1e6}-{T3D_F0S[-1] / 1e6} MHz), "
+          f"O, {T3D_FAN} ({fan_rays} rays in one fan); stacked volumes "
+          f"{6 * T3D_F0S.size * n_nodes * 8 / 2**30:.2f} GiB in f64",
+          flush=True)
+    ions = {}
+    for dt in (torch.float64, torch.float32):
+        tag = str(dt)[6:]
+        ions[tag] = run(f"ionogram {tag}",
+                        lambda: prt.synthesize_oblique_ionogram_3d(
+                            T(T3D_F0S), *T3D_LINK,
+                            *[T(a, dt) for a in vol], **T3D_FAN))
+        summary[f"ionogram {tag} {here}"]["link_muf_mhz"] = muf(ions[tag],
+                                                              T3D_F0S)
+        lo = ions[tag]["delay_low_sec"]
+        check(lo.shape == (T3D_F0S.size,) and lo.dtype == dt,
+              f"ionogram {tag}: {tuple(lo.shape)} {lo.dtype}")
+        hit = torch.isfinite(lo).cpu().numpy()
+        check(hit.any() and not hit.all(),
+              f"ionogram {tag}: low rays at {hit.sum()} of {hit.size}")
+        print(f"    link MUF {summary[f'ionogram {tag} {here}']['link_muf_mhz']}"
+              f" MHz, range {ions[tag]['range_km']:.3f} km, azimuth "
+              f"offsets {ions[tag]['azimuth_offset_low_deg'][hit].abs().max():.4e}"
+              " deg at most", flush=True)
+    m64 = summary[f"ionogram float64 {here}"]["link_muf_mhz"]
+    m32 = summary[f"ionogram float32 {here}"]["link_muf_mhz"]
+    check(abs(m64 - m32) <= 0.5, f"ionogram: MUF f32 {m32} vs f64 {m64}")
+    # the CPU sweeps T3D_SUB's frequencies alone: its rows are held to the
+    # same rows of the card's whole sweep (a ray's steps do not depend on
+    # the other rays of its fan)
+    sub = T3D_F0S[T3D_SUB]
+    i_cpu = run("ionogram subset", lambda: prt.synthesize_oblique_ionogram_3d(
+        T(sub, device=cpu), *T3D_LINK, *[T(a, device=cpu) for a in vol],
+        **T3D_FAN), cpu)
+    summary["ionogram card vs CPU"] = close_3d(
+        "ionogram card vs CPU",
+        {k: v[T3D_SUB] for k, v in tensors_only(ions["float64"]).items()
+         if v.shape == (T3D_F0S.size,)},
+        {k: v for k, v in tensors_only(i_cpu).items()
+         if v.shape == (sub.size,)}, T3D_RTOL)
+    del ions
+
+    # ---- 3. the fixed-psi fan and single rays -------------------------------
+    az0, _, els, azs, _ = trace3d._home_setup(*T3D_LINK, T3D_FAN["n_elev"],
+                                              T3D_FAN["n_az"], 8.0, 5.0,
+                                              75.0, None)
+    fk = dict(step_km=T3D_FAN["step_km"], s_max_km=T3D_FAN["s_max_km"])
+    fans = {}
+    for dt in (torch.float64, torch.float32):
+        tag = str(dt)[6:]
+        fld = run(f"build_field_3d {tag}", lambda: prt.build_field_3d(
+            *[T(a, dt) for a in vol], T3D_FAN_F0))
+        fans[tag] = run(f"trace_rays_3d {tag}", lambda: prt.trace_rays_3d(
+            fld, T3D_LINK[0], T3D_LINK[1], T(els, dt), T(azs, dt), **fk))
+        del fld
+    r64 = fans["float64"]["ground_range_km"].cpu()
+    r32 = fans["float32"]["ground_range_km"].double().cpu()
+    both = torch.isfinite(r64) & torch.isfinite(r32)
+    summary["fan f32 vs f64"] = {
+        "landing_differs": int((torch.isfinite(r64) != torch.isfinite(r32))
+                               .sum()),
+        "landed": int(torch.isfinite(r64).sum()),
+        "median_rel_range": float(((r32 - r64).abs() / r64)[both].median())}
+    print(f"    fan f32 vs f64: {summary['fan f32 vs f64']}", flush=True)
+    check(summary["fan f32 vs f64"]["median_rel_range"] < 1e-3,
+          "fan f32 vs f64: ranges part")
+    fld_c = prt.build_field_3d(*[T(a, device=cpu) for a in vol], T3D_FAN_F0)
+    f_cpu = run("trace_rays_3d float64", lambda: prt.trace_rays_3d(
+        fld_c, T3D_LINK[0], T3D_LINK[1], T(els, device=cpu),
+        T(azs, device=cpu), **fk), cpu)
+    summary["fan card vs CPU"] = close_3d(
+        "trace_rays_3d card vs CPU", tensors_only(fans["float64"]),
+        tensors_only(f_cpu), T3D_RTOL)
+    del fans, f_cpu
+    fld = prt.build_field_3d(*[T(a) for a in vol], T3D_FAN_F0)
+    ray = (T3D_LINK[0], T3D_LINK[1], 20.0, az0)
+    one = run("trace_ray_3d", lambda: prt.trace_ray_3d(fld, *ray, **fk))
+    one_c = run("trace_ray_3d", lambda: prt.trace_ray_3d(fld_c, *ray, **fk),
+                cpu)
+    check(one["status"] == one_c["status"] == "ground",
+          f"trace_ray_3d status {one['status']} / {one_c['status']}")
+    summary["trace_ray_3d card vs CPU"] = close_3d(
+        "trace_ray_3d card vs CPU", tensors_only(one), tensors_only(one_c),
+        T3D_RTOL)
+    ak = dict(step_km=T3D_FAN["step_km"], rtol=1e-7, atol=1e-9,
+              max_step_km=10.0)
+    ad = run("trace_ray_3d adaptive", lambda: prt.trace_ray_3d(
+        fld, *ray, s_max_km=T3D_FAN["s_max_km"], **ak))
+    check(ad["status"] == "ground" and abs(
+        float(ad["ground_range_km"]) / float(one["ground_range_km"]) - 1.0)
+        < 3e-3, f"adaptive ray: {ad['status']}, range "
+        f"{float(ad['ground_range_km'])} vs {float(one['ground_range_km'])}")
+    ad_c = prt.trace_ray_3d(fld_c, *ray, s_max_km=T3D_FAN["s_max_km"], **ak)
+    summary["adaptive ray card vs CPU (not held)"] = {
+        k: float(abs(float(ad[k]) / float(ad_c[k]) - 1.0)) for k in
+        ("ground_range_km", "group_path_km", "group_delay_sec")}
+    print(f"    the whole adaptive ray, card vs CPU (relative): "
+          f"{summary['adaptive ray card vs CPU (not held)']}", flush=True)
+    arcs = [prt.trace_ray_3d(f, *ray, s_max_km=T3D_ADAPTIVE_ARC, **ak)
+            for f in (fld, fld_c)]
+    summary["adaptive arc card vs CPU"] = close_3d(
+        "adaptive arc card vs CPU", *[tensors_only(a) for a in arcs],
+        T3D_RTOL)
+    print(f"    single rays: fixed {float(one['ground_range_km']):.4f} km, "
+          f"adaptive {float(ad['ground_range_km']):.4f} km", flush=True)
+    del fld, fld_c
+
+    # ---- 4. the anisotropic tracers ----------------------------------------
+    bv = run("igrf_volume", lambda: prt.igrf_volume(T3D_ALT, T3D_LAT, T3D_LON,
+                                                     device=dev))
+    afld = run("build_field_3d_aniso", lambda: prt.build_field_3d_aniso(
+        T3D_ALT, T3D_LAT, T3D_LON, T(den), *bv))
+    afld_c = prt.build_field_3d_aniso(T3D_ALT, T3D_LAT, T3D_LON,
+                                      T(den, device=cpu),
+                                      *[b.cpu() for b in bv])
+    close_3d("aniso tables card vs CPU",
+                 {str(i): t for i, t in enumerate(afld["tables"][3:])},
+                 {str(i): t for i, t in enumerate(afld_c["tables"][3:])},
+                 T3D_RTOL)
+    # the fans at 4-km steps (the CPU side at 2 km would take minutes)
+    a4 = dict(step_km=4.0, s_max_km=T3D_FAN["s_max_km"])
+    for mode in ("O", "X"):
+        a = run(f"trace_rays_3d_anisotropic {mode} 4 km",
+                lambda: prt.trace_rays_3d_anisotropic(
+                    afld, T3D_LINK[0], T3D_LINK[1], T(els), T(azs),
+                    T3D_FAN_F0, mode=mode, **a4))
+        landed = float(torch.isfinite(a["ground_range_km"]).float().mean())
+        check(landed > 0.2, f"aniso fan {mode}: {landed} landed")
+        print(f"    {mode}: landed share {landed:.3f}", flush=True)
+        if mode == "O":
+            a_card = a
+    a_cpu = run("trace_rays_3d_anisotropic O 4 km",
+                lambda: prt.trace_rays_3d_anisotropic(
+                    afld_c, T3D_LINK[0], T3D_LINK[1], T(els, device=cpu),
+                    T(azs, device=cpu), T3D_FAN_F0, **a4), cpu)
+    summary["aniso fan card vs CPU"] = close_3d(
+        "aniso fan card vs CPU", tensors_only(a_card), tensors_only(a_cpu),
+        T3D_RTOL)
+    del a_card, a_cpu
+    print(f"3-D: synthesize_oblique_ionogram_3d_anisotropic, "
+          f"F={ANISO_F0S.size} ({ANISO_F0S[0] / 1e6}-{ANISO_F0S[-1] / 1e6} "
+          f"MHz), O, {({**T3D_FAN, **a4})}", flush=True)
+    ai = run("aniso ionogram", lambda:
+             prt.synthesize_oblique_ionogram_3d_anisotropic(
+                 T(ANISO_F0S), *T3D_LINK, afld, **{**T3D_FAN, **a4}))
+    summary[f"aniso ionogram {here}"]["link_muf_mhz"] = muf(ai, ANISO_F0S)
+    hit = torch.isfinite(ai["delay_low_sec"]).cpu().numpy()
+    check(hit.any() and not hit.all(),
+          f"aniso ionogram: low rays at {hit.sum()} of {hit.size}")
+    print(f"    link MUF {summary[f'aniso ionogram {here}']['link_muf_mhz']} MHz",
+          flush=True)
+
+    def grad_of(fld_args, s_max, device):
+        ne = T(den, device=device).requires_grad_(True)
+        f = prt.build_field_3d_aniso(T3D_ALT, T3D_LAT, T3D_LON, ne,
+                                     *fld_args)
+        r = prt.trace_ray_3d_anisotropic(f, *ray, T3D_FAN_F0, step_km=4.0,
+                                         s_max_km=s_max, early_exit=True)
+        g, = torch.autograd.grad(r["group_delay_sec"], ne)
+        return g, r
+
+    g, r = run("field-table gradient", lambda: grad_of(
+        bv, T3D_FAN["s_max_km"], dev))
+    check(r["status"] == "ground" and bool(torch.isfinite(g).all())
+          and bool((g != 0).any()), f"gradient: {r['status']}, finite "
+          f"{bool(torch.isfinite(g).all())}, nonzero {int((g != 0).sum())}")
+    summary["gradient nonzero cells"] = int((g != 0).sum())
+    g_cpu, _ = run("field-table gradient", lambda: grad_of(
+        [b.cpu() for b in bv], T3D_FAN["s_max_km"], cpu), cpu)
+    d = (g.cpu() - g_cpu).abs()
+    worst = float((d / (T3D_GRAD_RTOL * g_cpu.abs()
+                        + 1e-12 * g_cpu.abs().max())).max())
+    summary["gradient card vs CPU (x tol)"] = worst
+    print(f"    gradient: {summary['gradient nonzero cells']} nonzero cells, "
+          f"|g| max {float(g.abs().max()):.4e}; card vs CPU "
+          f"{worst:.3e} of the tolerance", flush=True)
+    check(worst <= 1.0 and bool((g_cpu != 0).any()),
+          "gradient card vs CPU over tolerance")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"3-D phase: {summary['phase_s']:.1f} s; {card}", flush=True)
+    return summary
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2412,7 +2737,11 @@ def main():
                                              (gden, gbmag, gbpsi, alt))
     print(f"link phase: {json.dumps(link_summary)}", flush=True)
 
-    # ---- 11. result lines --------------------------------------------------
+    # ---- 11. the 3-D slice -------------------------------------------------
+    t3d_summary = trace3d_phase(torch, prt, dev, card)
+    print(f"3-D phase: {json.dumps(t3d_summary)}", flush=True)
+
+    # ---- 12. result lines --------------------------------------------------
     kernels = []
     for k in REPO_KERNELS:
         row = timing[k]

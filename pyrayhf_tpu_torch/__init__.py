@@ -23,7 +23,15 @@ The PyTorch port of ``pyrayhf_tpu``, slice by slice:
   (:func:`muf_map`, which runs the forward kernels), Faraday rotation and
   Doppler of the vertical path, the inversion of an oblique ionogram
   (:func:`retrieve_from_oblique`), the single-ray gradient tracers with the
-  adaptive Dormand–Prince integrator, and the geodesy helpers.
+  adaptive Dormand–Prince integrator, and the geodesy helpers;
+* the 3-D slice: input volumes from the climatology and the IGRF
+  (:func:`generate_input_3D`, :func:`calculate_magnetic_field`), the
+  fixed-ψ 3-D tracers with their (elevation × azimuth) homing and the
+  link's oblique ionogram (:func:`trace_rays_3d`, :func:`home_ray_3d`,
+  :func:`synthesize_oblique_ionogram_3d`), and the anisotropic Haselgrove
+  tracers (:func:`trace_rays_3d_anisotropic` and their homing and
+  ionogram), all on the batched early-exit fan integrator; this slice runs
+  no kernel of its own.
 
 Kernels are built with ``nvcc`` at first use; on CPU tensors every kernel
 wrapper runs its plain PyTorch version instead. Host data (numpy arrays,
@@ -56,8 +64,8 @@ from .true_height import (retrieve_profile, retrieve_profile_batch,
                           retrieve_profile_joint)
 from .config import (GradientTracerConfig, OperatorConfig, RetrievalConfig,
                      SnellConfig)
-from .io import (load_checkpoint, load_input, profiles_to_torch,
-                 save_checkpoint, save_to_file)
+from .io import (field_from_numpy, load_checkpoint, load_input,
+                 profiles_to_torch, save_checkpoint, save_to_file)
 from .fields import (RefractiveField, bilinear,
                      build_mup_function,
                      build_refractive_index_interpolator_cartesian,
@@ -90,9 +98,22 @@ from .muf import (muf_from_profile, muf_from_vertical_ionogram, muf_map,
 from .faraday import faraday_rotation_vertical
 from .doppler import doppler_shift_vertical, phase_height_and_mask
 from .oblique_inversion import retrieve_from_oblique
-from . import (absorption, config, cuda_ext, doppler, edp, faraday, fields,
-               forward, geodesy, gradient, grid, ground, interp, io,
-               magnetoionic, muf, oblique, oblique_inversion, pallas_ray,
-               pallas_vh, profiling, rays, retrieval, snell, true_height)
+from .igrf import calculate_magnetic_field
+from .envgen import (find_mean_gradient_error, generate_input_1D,
+                     generate_input_2D, generate_input_3D)
+from .trace3d import (build_field_3d, home_ray_3d,
+                      synthesize_oblique_ionogram_3d, trace_ray_3d,
+                      trace_rays_3d)
+from .trace3d_aniso import (build_field_3d_aniso, igrf_volume,
+                            home_ray_3d_anisotropic,
+                            synthesize_oblique_ionogram_3d_anisotropic,
+                            trace_ray_3d_anisotropic,
+                            trace_rays_3d_anisotropic)
+from . import (absorption, ccir, config, cuda_ext, doppler, edp, envgen,
+               faraday, fields, forward, geodesy, gradient, grid, ground,
+               igrf, igrf13_table, igrf_history, interp, io, magnetoionic,
+               muf, oblique, oblique_inversion, pallas_ray, pallas_vh,
+               profiling, rays, retrieval, snell, trace3d, trace3d_aniso,
+               true_height)
 
 __version__ = "0.1.0"

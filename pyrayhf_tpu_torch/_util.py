@@ -54,8 +54,15 @@ def as_tensors(*xs, dtype=None, device=None):
             for d in floats[1:]:
                 dtype = torch.promote_types(dtype, d)
     return [x.to(dtype) if isinstance(x, torch.Tensor)
-            else torch.as_tensor(np.asarray(x, dtype=np.float64),
-                                 device=dev).to(dtype) for x in xs]
+            else torch.as_tensor(_host_array(x), device=dev).to(dtype)
+            for x in xs]
+
+
+def _host_array(x):
+    """``x`` as a float64 numpy array torch can take (a view with negative
+    strides, e.g. a grid flipped with ``[::-1]``, is copied)."""
+    a = np.asarray(x, dtype=np.float64)
+    return a.copy() if any(s < 0 for s in a.strides) else a
 
 
 def profile_tensors(freq_mhz, den, bmag, bpsi, alt, device=None):

@@ -27,8 +27,13 @@ Ray equations (Haselgrove/Budden):
              dv_r/ds = (μ_r − (∇μ·v)v_r)/μ + v_φ²/r
              dv_φ/ds = (μ_φ/r − (∇μ·v)v_φ)/μ − v_r v_φ/r
 
-Not ported yet: ``_integrate_fan``, the JAX package's early-exit fan
-integrator of the 3-D tracers (ROADMAP Queue 1).
+The fixed-step machinery takes the JAX package's ``v_slice`` (the
+direction components renormalised every step: 2:4 for the 2-D state, 3:6
+for the 3-D ECEF state), ``reflect_fn`` (a position-dependent ground
+mirror, e.g. the 3-D local vertical) and ``renorm_fn`` (a per-step state
+projection replacing the renormalisation: the anisotropic tracer's
+dispersion shell). :func:`_integrate_fan` is the 3-D tracers' batched fan
+integrator: :func:`_integrate` over [R, dim] launch states.
 """
 
 import math
@@ -61,23 +66,29 @@ def _rk4_step(rhs, y, ds):
     return y + (ds / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
 
 
-def _make_step(rhs, ds, event_value, reflect_slot, max_bounces):
-    """Batched step function: state [..., 4] = (position, direction),
-    masks and counts [...]. Semantics of ``pyrayhf_tpu.gradient
-    ._make_step``, ray by ray.
+def _make_step(rhs, ds, event_value, reflect_slot, max_bounces,
+               v_slice=slice(2, 4), reflect_fn=None, renorm_fn=None):
+    """Batched step function: state [..., dim], masks and counts [...].
+    Semantics of ``pyrayhf_tpu.gradient._make_step``, ray by ray.
+    ``reflect_fn`` (a mirror ``y → y``) replaces the default reflection
+    of component ``reflect_slot``; ``renorm_fn`` (a projection ``y → y``)
+    replaces the unit renormalisation of ``v_slice``.
     """
+    reflect_fn = _reflector(reflect_slot, reflect_fn)
 
     def step(y, alive, status, bounces):
-        y_new = _renormalised(_rk4_step(rhs, y, ds))
+        y_new = _rk4_step(rhs, y, ds)
+        y_new = (renorm_fn(y_new) if renorm_fn is not None
+                 else _renormalised(y_new, v_slice))
         any_cross, j, y_cross, _ = _first_crossing(y, y_new, event_value(y),
                                                    event_value(y_new))
         any_cross = any_cross & alive
         ground_hit = any_cross & (j[..., 0] == 0)
         take_cross = any_cross
-        if reflect_slot is not None:
+        if reflect_fn is not None:
             bounce = ground_hit & (bounces < max_bounces)
-            y_cross = torch.where(bounce[..., None],
-                                  _reflect(y_cross, reflect_slot), y_cross)
+            y_cross = torch.where(bounce[..., None], reflect_fn(y_cross),
+                                  y_cross)
             bounces = bounces + bounce.to(bounces.dtype)
             any_cross = any_cross & ~bounce
             ground_hit = ground_hit & ~bounce
@@ -98,13 +109,26 @@ def _make_step(rhs, ds, event_value, reflect_slot, max_bounces):
     return step
 
 
-def _renormalised(y):
-    """The state with its direction components (2:4) at unit length."""
-    v = y[..., 2:]
-    vmag = torch.sqrt(v[..., :1] * v[..., :1] + v[..., 1:] * v[..., 1:])
+def _reflector(reflect_slot, reflect_fn):
+    """The ground mirror: ``reflect_fn``, else |component reflect_slot|,
+    else None (no bounces)."""
+    if reflect_fn is None and reflect_slot is not None:
+        return lambda y: _reflect(y, reflect_slot)
+    return reflect_fn
+
+
+def _renormalised(y, v_slice=slice(2, 4)):
+    """The state with its direction components ``v_slice`` at unit
+    length (the squares summed in component order)."""
+    v = y[..., v_slice]
+    sq = v[..., :1] * v[..., :1]
+    for k in range(1, v.shape[-1]):
+        sq = sq + v[..., k:k + 1] * v[..., k:k + 1]
+    vmag = torch.sqrt(sq)
     pos = vmag > 0
     v = torch.where(pos, v / torch.where(pos, vmag, 1.0), v)
-    return torch.cat([y[..., :2], v], dim=-1)
+    return torch.cat([y[..., :v_slice.start], v, y[..., v_slice.stop:]],
+                     dim=-1)
 
 
 def _first_crossing(y, y_new, ev_old, ev_new):
@@ -128,48 +152,96 @@ def _reflect(y, slot):
                      dim=-1)
 
 
-def _run(step, carry, n_steps, early_exit):
+def _run(step, carry, n_steps, early_exit, check_every=_FROZEN_CHECK):
     """Run ``step`` ``n_steps`` times; carry[0] is the state, carry[1] the
     alive mask. Returns (states, alives, final carry); see the module
-    docstring for the early exit."""
-    ys, alives = [carry[0]], [carry[1]]
+    docstring for the early exit, checked every ``check_every`` steps.
+
+    The rows are written into buffers allocated once (a list of rows
+    stacked at the end would hold the path twice); a state that carries
+    an autograd graph is stacked instead, so the backward sees one node.
+    """
+    y, alive = carry[0], carry[1]
+    graph = torch.is_grad_enabled()
+    if graph:
+        ys, alives = [y], [alive]
+    else:
+        ys = y.new_empty(y.shape[:-1] + (n_steps + 1, y.shape[-1]))
+        alives = alive.new_empty(alive.shape + (n_steps + 1,))
+        ys[..., 0, :] = y
+        alives[..., 0] = alive
     run = n_steps
     for i in range(n_steps):
         carry = step(*carry)
-        ys.append(carry[0])
-        alives.append(carry[1])
-        if (early_exit and (i + 1) % _FROZEN_CHECK == 0 and i + 1 < n_steps
+        if graph:
+            ys.append(carry[0])
+            alives.append(carry[1])
+        else:
+            ys[..., i + 1, :] = carry[0]
+            alives[..., i + 1] = carry[1]
+        if (early_exit and (i + 1) % check_every == 0 and i + 1 < n_steps
                 and not bool(carry[1].any())):
             run = i + 1
-            rest = n_steps - run
-            ys.extend([carry[0]] * rest)
-            alives.extend([carry[1]] * rest)
+            if graph:
+                rest = n_steps - run
+                ys.extend([carry[0]] * rest)
+                alives.extend([carry[1]] * rest)
+            else:
+                ys[..., run + 1:, :] = carry[0][..., None, :]
+                alives[..., run + 1:] = carry[1][..., None]
             break
     EXIT_STATS.update(steps=run, of=n_steps,
-                      chunks=-(-run // _FROZEN_CHECK))
-    return torch.stack(ys, dim=-2), torch.stack(alives, dim=-1), carry
+                      chunks=-(-run // check_every))
+    if graph:
+        return torch.stack(ys, dim=-2), torch.stack(alives, dim=-1), carry
+    return ys, alives, carry
 
 
 def _integrate(rhs, y0, n_steps, ds, event_value, reflect_slot=None,
-               max_bounces=0, early_exit=True):
+               max_bounces=0, early_exit=True, v_slice=slice(2, 4),
+               reflect_fn=None, renorm_fn=None, check_every=_FROZEN_CHECK):
     """Fixed-step RK4 with freeze-on-event semantics, rays batched.
 
-    ``y0``: [..., 4] launch states; ``event_value(y)`` → [..., n_ev]
+    ``y0``: [..., dim] launch states; ``event_value(y)`` → [..., n_ev]
     signed boundary distances (positive inside). ``reflect_slot``: index of
     the vertical velocity component whose first ``max_bounces`` ground
-    crossings (event 0) reflect specularly. Returns (ys [..., n_steps+1,
-    4], alive [..., n_steps+1], status [...]) — the scan's outputs.
-    ``early_exit``: stop once every ray is frozen (same outputs).
+    crossings (event 0) reflect specularly; ``reflect_fn`` a mirror
+    ``y → y`` used instead. ``v_slice``/``renorm_fn``: see
+    :func:`_make_step`. Returns (ys [..., n_steps+1, dim], alive [...,
+    n_steps+1], status [...]) — the scan's outputs. ``early_exit``: stop
+    once every ray is frozen (same outputs).
     """
-    step = _make_step(rhs, ds, event_value, reflect_slot, max_bounces)
+    step = _make_step(rhs, ds, event_value, reflect_slot, max_bounces,
+                      v_slice, reflect_fn, renorm_fn)
     lead = y0.shape[:-1]
     alive = torch.ones(lead, dtype=torch.bool, device=y0.device)
     status = torch.full(lead, _STATUS["length"], dtype=torch.int64,
                         device=y0.device)
     bounces = torch.zeros(lead, dtype=torch.int64, device=y0.device)
     ys, alive, (_, _, status, _) = _run(step, (y0, alive, status, bounces),
-                                        n_steps, early_exit)
+                                        n_steps, early_exit, check_every)
     return ys, alive, status
+
+
+def _integrate_fan(rhs, y0b, n_steps, ds, event_value, reflect_slot=None,
+                   max_bounces=0, v_slice=slice(2, 4), reflect_fn=None,
+                   renorm_fn=None, chunk=125):
+    """The 3-D tracers' batched early-exit fan integrator.
+
+    ``y0b``: [R, dim] launch states. The whole fan advances in one loop
+    that stops once every ray is frozen, checked every ``chunk`` steps
+    (one host read each); the rows left repeat each ray's final state
+    with ``alive`` False, as ``pyrayhf_tpu.gradient._integrate_fan`` fills
+    its tail. ``chunk`` sets only that cadence: the outputs do not depend
+    on it. Returns (ys [R, n_steps+1, dim], alive [R, n_steps+1],
+    status [R]).
+    """
+    chunk = max(1, min(int(chunk), int(n_steps)))
+    return _integrate(rhs, y0b, int(n_steps), ds, event_value,
+                      reflect_slot=reflect_slot, max_bounces=max_bounces,
+                      early_exit=True, v_slice=v_slice,
+                      reflect_fn=reflect_fn, renorm_fn=renorm_fn,
+                      check_every=chunk)
 
 
 # Dormand–Prince 5(4) embedded pair (the same tableau scipy's RK45 uses).
@@ -204,7 +276,8 @@ def _dp45_step(rhs, y, h):
 
 def _integrate_adaptive(rhs, y0, n_attempts, s_max, h0, rtol, atol, h_max,
                         event_value, reflect_slot=None, max_bounces=0,
-                        early_exit=True):
+                        early_exit=True, v_slice=slice(2, 4),
+                        reflect_fn=None):
     """Error-controlled DP45 with freeze-on-event semantics, rays batched.
 
     Same output contract as :func:`_integrate`, but each iteration is an
@@ -215,8 +288,9 @@ def _integrate_adaptive(rhs, y0, n_attempts, s_max, h0, rtol, atol, h_max,
     an attempt is non-finite even at the minimum step. ``s_max``,
     ``rtol``, ``atol`` and ``h_max`` are numbers; ``h0`` a 0-d tensor.
     A ray still alive after all attempts with s < s_max gets the
-    'attempts' status.
+    'attempts' status. ``v_slice``/``reflect_fn``: see :func:`_make_step`.
     """
+    reflect_fn = _reflector(reflect_slot, reflect_fn)
 
     def attempt(y, alive, h, s, status, bounces):
         h_try = torch.minimum(h, torch.clamp(s_max - s, min=1e-12))
@@ -238,17 +312,17 @@ def _integrate_adaptive(rhs, y0, n_attempts, s_max, h0, rtol, atol, h_max,
         h_new = torch.clamp(h_try * torch.clamp(fac, 0.2, 5.0), 1e-9, h_max)
         # non-finite even at the minimum step size: it can never succeed
         dead = ~ok_num & (h_try <= 2e-9)
-        y5 = _renormalised(y5)
+        y5 = _renormalised(y5, v_slice)
 
         any_cross, j, y_cross, t = _first_crossing(y, y5, event_value(y),
                                                    event_value(y5))
         any_cross = any_cross & alive & accept
         t = t[..., 0]
         ground_hit = any_cross & (j[..., 0] == 0)
-        if reflect_slot is not None:
+        if reflect_fn is not None:
             bounce = ground_hit & (bounces < max_bounces)
-            y_cross = torch.where(bounce[..., None],
-                                  _reflect(y_cross, reflect_slot), y_cross)
+            y_cross = torch.where(bounce[..., None], reflect_fn(y_cross),
+                                  y_cross)
             bounces = bounces + bounce.to(bounces.dtype)
             any_cross = any_cross & ~bounce
             ground_hit = ground_hit & ~bounce
@@ -260,7 +334,7 @@ def _integrate_adaptive(rhs, y0, n_attempts, s_max, h0, rtol, atol, h_max,
         y_next = torch.where(step_ok[..., None],
                              torch.where(any_cross[..., None], y_cross, y5),
                              y)
-        if reflect_slot is not None:
+        if reflect_fn is not None:
             y_next = torch.where((step_ok & bounce)[..., None], y_cross,
                                  y_next)
         s_next = torch.where(step_ok, s + h_try * t_adv, s)

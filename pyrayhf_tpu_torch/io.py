@@ -8,7 +8,7 @@ other's file). :func:`profiles_to_torch` carries the JAX side's state
 across: the
 reference-format profile dict of numpy arrays and an ``OperatorConfig``
 become the port's tensors and config, so both packages compute the same
-thing.
+thing. :func:`field_from_numpy` does the same for a 3-D field dict.
 """
 
 import dataclasses
@@ -22,7 +22,8 @@ from ._util import resolve_device
 from .config import OperatorConfig
 
 __all__ = ["save_to_file", "load_input", "save_checkpoint",
-           "load_checkpoint", "profiles_to_torch", "PROFILE_KEYS"]
+           "load_checkpoint", "profiles_to_torch", "field_from_numpy",
+           "PROFILE_KEYS"]
 
 # the array-valued keys of a reference-format profile dict
 PROFILE_KEYS = ("den", "bmag", "bpsi", "alt")
@@ -136,3 +137,21 @@ def profiles_to_torch(inp, device=None, dtype=torch.float64, config=None):
         out["config"] = OperatorConfig(
             **{n: getattr(config, n) for n in names})
     return out
+
+
+def field_from_numpy(field, device=None, dtype=torch.float64):
+    """A 3-D field dict of arrays (e.g. the JAX package's
+    ``build_field_3d`` or ``build_field_3d_aniso`` output, as numpy) →
+    the port's dict of ``dtype`` tensors on ``device`` (the CUDA card
+    unless the caller asks for the CPU). Tuples of arrays (the anisotropic
+    ``tables``) become tuples of tensors.
+    """
+    device = resolve_device(device)
+
+    def conv(v):
+        if isinstance(v, (tuple, list)):
+            return tuple(conv(x) for x in v)
+        return torch.as_tensor(np.asarray(v, dtype=np.float64),
+                               device=device).to(dtype)
+
+    return {k: conv(v) for k, v in field.items()}

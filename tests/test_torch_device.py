@@ -54,6 +54,30 @@ def _link(**kw):
                 Ne=den, Babs=bmag, bpsi=bpsi, n_elev=16, **kw)
 
 
+def _volume():
+    alt = np.linspace(60.0, 400.0, 18)
+    lat = np.linspace(30.0, 40.0, 4)
+    lon = np.linspace(-5.0, 5.0, 4)
+    ne = 5e11 * np.exp(-((alt - 250.0) / 60.0) ** 2)[:, None, None] \
+        * np.ones((1, 4, 4))
+    return alt, lat, lon, ne
+
+
+def _field_3d(**kw):
+    alt, lat, lon, ne = _volume()
+    return prt.build_field_3d(alt, lat, lon, ne, np.full(ne.shape, 4.5e-5),
+                              np.full(ne.shape, 30.0), 6e6, **kw)
+
+
+def _field_aniso(**kw):
+    alt, lat, lon, ne = _volume()
+    return prt.build_field_3d_aniso(alt, lat, lon, ne, 2e-5, 1e-6, 4e-5,
+                                    **kw)
+
+
+FAN_3D = dict(n_elev=4, n_az=3, step_km=50.0, s_max_km=600.0)
+LINK_3D = (38.0, 0.0, 33.0, 0.0)
+
 ENTRY_POINTS = {
     "vertical_forward_operator": lambda **kw: prt.vertical_forward_operator(
         *_profile(), **kw),
@@ -115,6 +139,62 @@ ENTRY_POINTS = {
                                                     **kw),
     "find_turning_point": lambda **kw: prt.find_turning_point(
         [0.0, 100.0, 200.0], [1.0, 0.8, 0.4], 0.6, **kw),
+    "calculate_magnetic_field": lambda **kw: prt.calculate_magnetic_field(
+        2020, 6, 15, [30.0, 40.0], [0.0, 10.0], [100.0, 300.0], **kw)[0],
+    "igrf_field": lambda **kw: prt.igrf.igrf_field(
+        [30.0, 40.0], 10.0, 300.0, geodetic=True, **kw)[3],
+    "climatology_parameters": lambda **kw: prt.envgen.climatology_parameters(
+        2020, 6, 15, 12.0, [30.0, -20.0], [0.0, 100.0], 150.0,
+        **kw)[0]["fo"],
+    "find_mean_gradient_error": lambda **kw: prt.find_mean_gradient_error(
+        -77.0, 38.0, -70.0, 30.0, 2020, 6, 15, 17.0, 140.0, nelem=5,
+        **kw)[0],
+    "eval_ccir_map": lambda **kw: prt.ccir.eval_ccir_map(
+        np.ones((2, 49, 9)), 20.0, 30.0, 40.0, 9.0, 50.0, **kw),
+    "trilinear": lambda **kw: prt.trace3d.trilinear(
+        [100.0, 200.0], 35.0, 0.0, *_volume(), **kw),
+    "build_field_3d": lambda **kw: _field_3d(**kw)["dmu_dalt"],
+    "build_field_3d_batch": lambda **kw: prt.trace3d.build_field_3d_batch(
+        *_volume(), 4.5e-5, 30.0, [5e6, 6e6], **kw)["mu"],
+    "trace_ray_3d": lambda **kw: prt.trace_ray_3d(
+        _field_3d(**kw), 35.0, 0.0, 30.0, 10.0, step_km=50.0,
+        s_max_km=600.0)["group_path_km"],
+    "trace_rays_3d": lambda **kw: prt.trace_rays_3d(
+        _field_3d(**kw), 35.0, 0.0, [20.0, 40.0], [0.0, 90.0], step_km=50.0,
+        s_max_km=600.0)["ground_range_km"],
+    "home_ray_3d": lambda **kw: prt.home_ray_3d(
+        _field_3d(**kw), *LINK_3D, **FAN_3D)["delay_low_sec"],
+    "synthesize_oblique_ionogram_3d":
+        lambda **kw: prt.synthesize_oblique_ionogram_3d(
+            [5e6, 7e6], *LINK_3D, *_volume(), 4.5e-5, 30.0, **FAN_3D,
+            **kw)["delay_low_sec"],
+    "igrf_volume": lambda **kw: prt.igrf_volume(*_volume()[:3], **kw)[0],
+    "build_field_3d_aniso": lambda **kw: _field_aniso(**kw)["tables"][3],
+    "trace_ray_3d_anisotropic": lambda **kw: prt.trace_ray_3d_anisotropic(
+        _field_aniso(**kw), 35.0, 0.0, 30.0, 0.0, 6e6, step_km=50.0,
+        s_max_km=300.0)["group_delay_sec"],
+    "trace_rays_3d_anisotropic": lambda **kw: prt.trace_rays_3d_anisotropic(
+        _field_aniso(**kw), 35.0, 0.0, [20.0, 40.0], [0.0], 6e6,
+        step_km=50.0, s_max_km=300.0)["group_delay_sec"],
+    "home_ray_3d_anisotropic": lambda **kw: prt.home_ray_3d_anisotropic(
+        _field_aniso(**kw), *LINK_3D, 6e6, **FAN_3D)["delay_low_sec"],
+    "synthesize_oblique_ionogram_3d_anisotropic":
+        lambda **kw: prt.synthesize_oblique_ionogram_3d_anisotropic(
+            [5e6, 7e6], *LINK_3D, _field_aniso(**kw),
+            **FAN_3D)["delay_low_sec"],
+}
+
+# the input generators return the JAX functions' dicts of numpy arrays;
+# they compute where the caller asks
+GENERATORS = {
+    "generate_input_1D": lambda **kw: prt.generate_input_1D(
+        2020, 6, 15, 17.0, 38.0, -77.0, [100.0, 300.0], 140.0, **kw)["den"],
+    "generate_input_2D": lambda **kw: prt.generate_input_2D(
+        2020, 6, 15, 17.0, 38.0, -77.0, 200.0, [100.0, 300.0], 600.0, 30.0,
+        140.0, **kw)["den"],
+    "generate_input_3D": lambda **kw: prt.generate_input_3D(
+        2020, 6, 15, 17.0, [30.0, 40.0], [0.0, 5.0, 10.0], [100.0, 300.0],
+        140.0, **kw)["den"],
 }
 
 
@@ -136,6 +216,14 @@ def test_host_data_goes_where_the_caller_asks(no_card, name):
     assert out.dtype == torch.float64
 
 
+@pytest.mark.parametrize("name", list(GENERATORS))
+def test_generators_compute_where_the_caller_asks(no_card, name):
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        GENERATORS[name]()
+    out = GENERATORS[name](device="cpu")
+    assert isinstance(out, np.ndarray) and np.isfinite(out).all()
+
+
 def test_tensors_keep_their_device(no_card):
     """CPU tensors need no request; an explicit device that contradicts
     them raises instead of moving them."""
@@ -148,3 +236,11 @@ def test_tensors_keep_their_device(no_card):
     vh = prt.vertical_forward_operator_batch(freqs, den, bmag, bpsi,
                                              torch.from_numpy(alt))
     assert vh.device.type == "cpu"
+    # a 3-D field built from CPU tensors traces on the CPU
+    alt, lat, lon, ne = _volume()
+    fld = prt.build_field_3d(alt, lat, lon, torch.from_numpy(ne), 4.5e-5,
+                             30.0, 6e6)
+    assert fld["mu"].device.type == "cpu"
+    ray = prt.trace_rays_3d(fld, 35.0, 0.0, [30.0], [0.0], step_km=50.0,
+                            s_max_km=600.0)
+    assert ray["group_path_km"].device.type == "cpu"
