@@ -119,7 +119,23 @@ failure:
     ray's group delay w.r.t. the Ne table; each call's time, steps run and
     peak memory, the link MUFs; every f64 result on a subset against the
     CPU (rtol 1e-9, identical NaN masks; the gradient 1e-6);
-12. one JSON line of kernels, the card line, and the closing JSON line.
+12. mesh sharding (``mesh_phase``): ``ionogram_mesh()`` on the card, a
+    4 x 2 mesh of ``cuda:0`` and a mesh of 2; ``synthesize_ionograms_
+    sharded(engine="pallas")`` O and X on the global grid at F=176 and
+    P=200, X-20k at F=176 (B=32) and X at 5,000 points and B=1024 (where
+    the whole call and a shard take different launch layouts), f32,
+    counters zeroed first and read after
+    (the sweep kernel 8 times a call, no plain version), each against the
+    unsharded ``ionogram_pallas`` on the same tensors (identical NaN
+    masks; bit for bit where the two launch layouts match, else <= 1e-3
+    km) and timed beside it; the same in f64 against plain f64 (<= 1e-6
+    km); the xla engine against the kernel at O-200 B=1024 (<= 1e-3 km
+    f32); ``vh_height_sharded`` at 20,000 points, the retrieval step on
+    the station-day (B=288) and ``doppler_batch_sharded`` on the global
+    grid, f64, against their unsharded forms (rtol 1e-10); and on 2 shards
+    the LM on 48 ionograms (8 steps, rtol 1e-9) and the fixed-psi (rtol
+    1e-12) and anisotropic (1e-9) fans of the 3-D phase's volume;
+13. one JSON line of kernels, the card line, and the closing JSON line.
 
 Profiles are Chapman F2 (+ E above a valley for a quarter of them) from
 ``numpy.random.default_rng(SEED)``; the fan scenes are the tilted Chapman
@@ -331,6 +347,31 @@ ANISO_F0S = np.linspace(3.0e6, 14.0e6, 12)
 T3D_RTOL = 1e-9
 T3D_GRAD_RTOL = 1e-6
 T3D_ADAPTIVE_ARC = 200.0
+
+# ---- mesh sharding (mesh_phase) ---------------------------------------------
+# the sweep kernel through synthesize_ionograms_sharded(engine="pallas") on a
+# 4 x 2 mesh of the one card: the global grid at F = 176 (0.1-17.6 MHz, even
+# for the 'freq' axis) and P = 200, and X-20k (B = 32, P = 20,000); O-200
+# B = 1024 for the xla engine against the kernel
+MESH_FREQS = np.round(np.arange(1, 177) * 0.1, 10)
+MESH_SHAPE = (4, 2)
+# points at which B=1024 x F=176 takes a warp per pair and its [256, 88]
+# blocks a block per pair, for 3 to 8 blocks an SM (launch_shape; at
+# 20,000 points both take a block per pair on an H100 80GB HBM3)
+MESH_P_SPLIT = 5000
+# the height-split quadrature's points; the retrieval step's learning rate
+# (1: the step is the gradient itself, so rtol 1e-10 holds the gradient);
+# the Doppler velocity (km/s) and the stride of the per-profile check; the
+# host-bound LM on the first ionograms of the station-day at 8 steps; the
+# fixed-psi fan at 4-km steps over 1,500 km (the 3-D phase's fan runs
+# 2,000 steps of 2 km, and each shard pays its host time)
+MESH_VH_P, MESH_LR, MESH_DOP_V, MESH_DOP_EVERY = 20000, 1.0, 0.02, 512
+MESH_LM_B, MESH_LM_STEPS = 48, 8
+MESH_FAN = dict(step_km=4.0, s_max_km=1500.0)
+# the fixed-psi fan against its unsharded self, each shard integrating its
+# rays as the whole fan does; the retrieval step and height quadrature
+# against their unsharded forms (partial sums in another order)
+MESH_FAN_RTOL, MESH_SUM_RTOL, MESH_LM_RTOL = 1e-12, 1e-10, 1e-9
 
 
 def fan_grid(kind):
@@ -2044,13 +2085,15 @@ def close_3d(name, card_out, cpu_out, rtol):
     return worst
 
 
-def trace3d_phase(torch, prt, dev, card):
+def trace3d_phase(torch, prt, dev, card, keep=None):
     """The 3-D slice on the card (phase 11): the input volume from the
     climatology and the IGRF, the fixed-psi link ionogram, fan and single
     rays, and the anisotropic fans, ionogram and field-table gradient, at
     example 10's width. Each f64 card result is held against the same
     call on the CPU on a subset. The slice runs no kernel of its own.
-    Returns a summary dict."""
+    Returns a summary dict; a ``keep`` dict receives the volume, the fan's
+    elevations and azimuths, the anisotropic field and its O-mode fan at
+    4-km steps (the mesh phase's unsharded fan)."""
     from pyrayhf_tpu_torch import gradient, trace3d, trace3d_aniso
 
     cpu = torch.device("cpu")
@@ -2252,6 +2295,8 @@ def trace3d_phase(torch, prt, dev, card):
     summary["aniso fan card vs CPU"] = close_3d(
         "aniso fan card vs CPU", tensors_only(a_card), tensors_only(a_cpu),
         T3D_RTOL)
+    if keep is not None:
+        keep.update(vol=vol, els=els, azs=azs, afld=afld, aniso_O=a_card)
     del a_card, a_cpu
     print(f"3-D: synthesize_oblique_ionogram_3d_anisotropic, "
           f"F={ANISO_F0S.size} ({ANISO_F0S[0] / 1e6}-{ANISO_F0S[-1] / 1e6} "
@@ -2295,6 +2340,351 @@ def trace3d_phase(torch, prt, dev, card):
     summary["phase_s"] = time.perf_counter() - t_phase
     print(f"3-D phase: {summary['phase_s']:.1f} s; {card}", flush=True)
     return summary
+
+
+def layout_text(lay):
+    return (f"{'block' if lay.per_block else 'warp'} per pair, "
+            f"{lay.warps} warps, {lay.n_groups} groups")
+
+
+def sharded_vs_unsharded(name, out, ref, bitwise, tol):
+    """Identical NaN masks; every finite value equal where ``bitwise``,
+    else within ``tol`` km. Returns a summary dict."""
+    a, b = out.double().cpu().numpy(), ref.double().cpu().numpy()
+    check(a.shape == b.shape, f"{name}: shape {a.shape} vs {b.shape}")
+    mis = int((np.isnan(a) != np.isnan(b)).sum())
+    m = np.isfinite(a) & np.isfinite(b)
+    d = np.abs(a[m] - b[m])
+    row = {"max_abs_km": float(d.max()) if d.size else 0.0,
+           "differing": int((d != 0).sum()), "finite": int(m.sum()),
+           "nan_mask_differences": mis, "rule": "bit for bit" if bitwise
+           else f"<= {tol:g} km"}
+    print(f"  {name}: {row}", flush=True)
+    check(mis == 0 and m.sum() > 0.1 * m.size,
+          f"{name}: {mis} NaN-mask differences, {int(m.sum())} finite")
+    check(row["differing"] == 0 if bitwise else row["max_abs_km"] <= tol,
+          f"{name}: {row}")
+    return row
+
+
+def mesh_phase(torch, prt, dev, card, glob, main_prof, t3d=None):
+    """Mesh sharding on the card (phase 12): the meshes; the sweep kernel
+    through ``synthesize_ionograms_sharded(engine="pallas")`` on a 4 x 2
+    mesh of the card, f32, counters zeroed first and read after (8
+    launches a call, no plain version), against the unsharded kernel (bit
+    for bit where the two launch layouts match, else <= 1e-3 km), f64
+    against plain f64 and the xla engine against the kernel, timed beside
+    the unsharded call; the plain-torch sharded paths in f64 against their
+    unsharded forms; the host-bound LM and 3-D fans on 2 shards. ``glob``
+    is the global grid (den, bmag, bpsi, alt), ``main_prof`` the O-200
+    profiles (den, bmag, bpsi); ``t3d`` the 3-D phase's ``keep`` (else the
+    volume and the unsharded anisotropic fan are made here). Returns
+    (summary, sweep launches in the counted run)."""
+    from pyrayhf_tpu_torch import parallel as par
+    from pyrayhf_tpu_torch import pallas_vh as pv
+    from pyrayhf_tpu_torch import profiling
+
+    summary = {"card": card}
+    t_phase = time.perf_counter()
+    gden, gbmag, gbpsi, alt = glob
+    den, bmag, bpsi = main_prof
+
+    def T(a, dtype=torch.float64):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        summary[f"{name} s"] = time.perf_counter() - t0
+        print(f"  {name}: {summary[f'{name} s']:.3f} s", flush=True)
+        return out
+
+    # ---- the meshes ------------------------------------------------------
+    m1 = par.ionogram_mesh()
+    m42 = par.ionogram_mesh([dev] * 8, batch_axis=MESH_SHAPE[0])
+    m2 = par.ionogram_mesh([dev] * 2)
+    check(dict(m1.shape) == {"batch": torch.cuda.device_count(), "freq": 1}
+          and dict(m42.shape) == dict(zip(("batch", "freq"), MESH_SHAPE))
+          and dict(m2.shape) == {"batch": 2, "freq": 1},
+          f"meshes {dict(m1.shape)} {dict(m42.shape)} {dict(m2.shape)}")
+    print(f"mesh phase: ionogram_mesh() {dict(m1.shape)}, 8 x {dev} "
+          f"{dict(m42.shape)}, 2 x {dev} {dict(m2.shape)}; {card}",
+          flush=True)
+
+    # ---- the sweep kernel per block, f32, counted -------------------------
+    # (mode, profiles, points, the f64 check's profile stride); at
+    # MESH_P_SPLIT points and B=1024 the whole call takes a warp per pair
+    # and a shard a block per pair (launch_shape), so the two sum each pair
+    # in another order
+    cases = {"global O": (1.0, (gden, gbmag, gbpsi), P_MAIN, 16),
+             "global X": (-1.0, (gden, gbmag, gbpsi), P_MAIN, 16),
+             "X-20k": (-1.0, (den[:B_X20K], bmag[:B_X20K], bpsi[:B_X20K]),
+                       P_X20K, 1),
+             f"X-{MESH_P_SPLIT} B={den.shape[0]}": (
+                 -1.0, (den, bmag, bpsi), MESH_P_SPLIT, 32)}
+    ins = {k: [T(a, torch.float32) for a in (MESH_FREQS, *prof, alt)]
+           for k, (_, prof, _, _) in cases.items()}
+    nb, nf = MESH_SHAPE
+    torch.cuda.synchronize()
+    pv.reset_counters()
+    sh = {}
+    for name, (mm, _, P, _) in cases.items():
+        n0 = pv.LAUNCHES["sweep"]
+        sh[name] = par.synthesize_ionograms_sharded(
+            *ins[name], m42, mode="O" if mm > 0 else "X", n_points=P,
+            engine="pallas")
+        check(pv.LAUNCHES["sweep"] == n0 + nb * nf,
+              f"{name}: {pv.LAUNCHES['sweep'] - n0} sweep launches")
+    torch.cuda.synchronize()
+    launches, plain = dict(pv.LAUNCHES), dict(pv.PLAIN_CALLS)
+    print(f"  sharded kernel path: launches {launches}, plain-version calls "
+          f"{plain}", flush=True)
+    check(launches["sweep"] == nb * nf * len(cases)
+          and sum(launches.values()) == launches["sweep"]
+          and sum(plain.values()) == 0,
+          f"mesh kernel path: launches {launches}, plain {plain}")
+    summary["launches"] = launches["sweep"]
+
+    print(f"  sharded vs unsharded ionogram_pallas (f32): bit for bit where "
+          f"the launch layouts match, else <= {TOL_F32_PLAIN:g} km", flush=True)
+    timing = {}
+    for name, (mm, prof, P, _) in cases.items():
+        fr, d, bm, bp, a = ins[name]
+        B, F = d.shape[0], fr.shape[0]
+        un = pv.ionogram_pallas(fr, d, bm, bp, a, mode_mult=mm, n_points=P)
+        args_u = pv.prepare_kernel_args("sweep", fr, d, bm, bp, a, mm, P,
+                                        None)
+        blocks = [pv.prepare_kernel_args(
+            "sweep", fr[j * F // nf:(j + 1) * F // nf],
+            *(t[i * B // nb:(i + 1) * B // nb] for t in (d, bm, bp)), a, mm,
+            P, None) for i in range(nb) for j in range(nf)]
+        lay_u, lay_s = pv.kernel_layout(args_u), pv.kernel_layout(blocks[0])
+        match = (lay_u.per_block, lay_u.warps) == (lay_s.per_block,
+                                                   lay_s.warps)
+        print(f"  {name}, [{B}, {F}] at P={P}: unsharded "
+              f"{layout_text(lay_u)}; shard [{B // nb}, {F // nf}] "
+              f"{layout_text(lay_s)}", flush=True)
+        row = sharded_vs_unsharded(f"{name} sharded vs unsharded", sh[name],
+                                   un, match, TOL_F32_PLAIN)
+        row.update(layout_unsharded=layout_text(lay_u),
+                   layout_shard=layout_text(lay_s))
+        mode = "O" if mm > 0 else "X"
+
+        def sharded():
+            return par.synthesize_ionograms_sharded(
+                fr, d, bm, bp, a, m42, mode=mode, n_points=P,
+                engine="pallas")
+
+        def unsharded():
+            return pv.ionogram_pallas(fr, d, bm, bp, a, mode_mult=mm,
+                                      n_points=P)
+
+        def shard_kernels():
+            return [pv.launch_kernel(b) for b in blocks]
+
+        row.update({
+            "sharded_ms": profiling.time_launch(sharded,
+                                                iters=TIMING_ITERS)[0],
+            "unsharded_ms": profiling.time_launch(unsharded,
+                                                  iters=TIMING_ITERS)[0],
+            "kernel_ms": profiling.time_launch(pv.launch_kernel, args_u,
+                                               iters=TIMING_ITERS)[0],
+            "shard_kernels_ms": profiling.time_launch(
+                shard_kernels, iters=TIMING_ITERS)[0]})
+        print(f"    {name}: sharded call {row['sharded_ms']:.4f} ms, "
+              f"unsharded call {row['unsharded_ms']:.4f} ms; kernel alone "
+              f"{row['kernel_ms']:.4f} ms, the {nb * nf} shard kernels "
+              f"{row['shard_kernels_ms']:.4f} ms (median of {TIMING_ITERS}, "
+              f"CUDA events); {card}", flush=True)
+        timing[name] = row
+    summary["kernel path"] = timing
+
+    print(f"  sharded f64 vs plain f64 (tol {TOL_F64:g} km; the global grid "
+          f"on every 16th profile, X-{MESH_P_SPLIT} B=1024 on every 32nd)",
+          flush=True)
+    f64 = {}
+    for name, (mm, prof, P, stride) in cases.items():
+        t = [T(a) for a in (MESH_FREQS, *prof, alt)]
+        out = par.synthesize_ionograms_sharded(
+            *t, m42, mode="O" if mm > 0 else "X", n_points=P,
+            engine="pallas")
+        rows = slice(None, None, stride)
+        ref = pv.ionogram_fast_xla(t[0], *(x[rows] for x in t[1:4]), t[4],
+                                   mode_mult=mm, n_points=P)
+        f64[name] = compare(f"{name} sharded f64 vs plain f64", out[rows],
+                            ref, TOL_F64, degenerate_rows(
+                                MESH_FREQS, prof[0][rows], prof[1][rows],
+                                mm), True)
+    summary["f64 vs plain f64 km"] = f64
+    mi = [T(a, torch.float32) for a in (MESH_FREQS, den, bmag, bpsi, alt)]
+    xla, pal = (par.synthesize_ionograms_sharded(*mi, m42, n_points=P_MAIN,
+                                                 engine=e)
+                for e in ("xla", "pallas"))
+    summary["xla vs pallas km"] = compare(
+        f"engine xla vs pallas, O-200 B={den.shape[0]} F={MESH_FREQS.size} "
+        "f32", xla, pal, TOL_F32_PLAIN, np.zeros((1, 1), dtype=bool), True)
+
+    # ---- plain-torch sharded paths, f64 ------------------------------------
+    freqs = MESH_FREQS[:-1]
+    hin = [T(a) for a in (freqs, den[0], bmag[0], bpsi[0], alt)]
+    vh_sh = timed(f"vh_height_sharded P={MESH_VH_P}", lambda:
+                  par.vh_height_sharded(*hin, m42, n_points=MESH_VH_P))
+    vh_un = timed(f"vertical_forward_operator P={MESH_VH_P}", lambda:
+                  prt.vertical_forward_operator(*hin, n_points=MESH_VH_P))
+    summary["vh_height_sharded rel"] = close_rel(
+        "vh_height_sharded vs vertical_forward_operator", vh_sh, vh_un,
+        MESH_SUM_RTOL)
+
+    lm = lm_day(prt)
+    B = lm["obs"].shape[0]
+    theta = {"hm": lm["truth"]["hm"] * 0.95,
+             "bb": lm["truth"]["B_bot"] * 1.1, "nm": lm["truth"]["Nm"]}
+    aux = {"alt": T(lm["alt"]), "bmag": T(lm["bmag"][0]),
+           "bpsi": T(lm["bpsi"][0]), "E": GOLDEN["E"],
+           "B_top": GOLDEN["F2"]["B_top"]}
+    step, loss = timed(f"retrieval_step_sharded B={B}", lambda:
+                       par.retrieval_step_sharded(
+                           {k: T(v) for k, v in theta.items()}, T(lm["obs"]),
+                           T(lm["freqs"]), aux, m42, lr=MESH_LR))
+    ref_step, ref_loss = step_reference(torch, prt, {k: T(v) for k, v in
+                                                     theta.items()},
+                                        T(lm["obs"]), T(lm["freqs"]), aux,
+                                        MESH_LR)
+    summary["retrieval step rel"] = max(
+        close_rel(f"retrieval step {k}", step[k], ref_step[k], MESH_SUM_RTOL)
+        for k in ("hm", "bb", "nm"))
+    close_rel("retrieval step loss", loss, ref_loss, MESH_SUM_RTOL)
+
+    dden = -MESH_DOP_V * np.gradient(gden, alt, axis=1)
+    dop = timed(f"doppler_batch_sharded B={gden.shape[0]}", lambda:
+                par.doppler_batch_sharded(DOP_FREQS, T(gden), T(dden),
+                                          T(gbmag), T(gbpsi), T(alt), m42))
+    worst = 0.0
+    for i in range(0, gden.shape[0], MESH_DOP_EVERY):
+        one = prt.doppler_shift_vertical(DOP_FREQS, T(gden[i]), T(dden[i]),
+                                         T(gbmag[i]), T(gbpsi[i]), T(alt))
+        for k in ("doppler_hz", "phase_height_km"):
+            worst = max(worst, close_rel(f"doppler profile {i} {k}",
+                                         dop[k][i], one[k], MESH_SUM_RTOL,
+                                         quiet=True))
+    fd = dop["doppler_hz"]
+    check(bool((fd[torch.isfinite(fd)] < 0).all()),
+          "doppler: a reflected frequency is not red-shifted by the uplift")
+    summary["doppler rel"] = worst
+    print(f"  doppler_batch_sharded vs doppler_shift_vertical on every "
+          f"{MESH_DOP_EVERY}th profile: largest relative difference "
+          f"{worst:.3e} (rtol {MESH_SUM_RTOL:g})", flush=True)
+
+    # ---- host-bound calls on 2 shards --------------------------------------
+    n = MESH_LM_B
+    guess = dict(GOLDEN["F2"], hm=lm["truth"]["hm"][:n] * 0.95,
+                 B_bot=lm["truth"]["B_bot"][:n] * 1.1)
+    lm_in = (T(lm["freqs"]), T(lm["obs"][:n]), T(lm["alt"]),
+             T(lm["bmag"][:n]), T(lm["bpsi"][:n]))
+    fit_s = timed(f"retrieve_gradient_batch_sharded B={n} on 2 shards",
+                  lambda: par.retrieve_gradient_batch_sharded(
+                      guess, LM_F1, GOLDEN["E"], *lm_in, m2,
+                      steps=MESH_LM_STEPS))[2]
+    fit_u = timed(f"retrieve_gradient_batch B={n}",
+                  lambda: prt.retrieve_gradient_batch(
+                      guess, LM_F1, GOLDEN["E"], *lm_in,
+                      steps=MESH_LM_STEPS, chunk_size=None))[2]
+    summary["LM rel"] = max(
+        close_rel(f"LM {k}", torch.as_tensor(fit_s[k]),
+                  torch.as_tensor(fit_u[k]), MESH_LM_RTOL)
+        for k in ("hm", "B_bot"))
+
+    if t3d is None:
+        t3d = mesh_3d_inputs(torch, prt, dev)
+    vol = [T(a) for a in t3d["vol"]]
+    els, azs = T(t3d["els"]), T(t3d["azs"])
+    fld = prt.build_field_3d(*vol, T3D_FAN_F0)
+    launch = (T3D_LINK[0], T3D_LINK[1], els, azs)
+    f_sh = timed("trace_fan_3d_sharded on 2 shards", lambda:
+                 par.trace_fan_3d_sharded(fld, *launch, m2, **MESH_FAN))
+    f_un = timed("trace_rays_3d", lambda: prt.trace_rays_3d(
+        fld, *launch, **MESH_FAN))
+    summary["fan rel"] = close_3d(
+        "trace_fan_3d_sharded vs trace_rays_3d", tensors_only(f_sh),
+        {k: v.cpu() for k, v in tensors_only(f_un).items()}, MESH_FAN_RTOL)
+    del fld, f_sh, f_un
+    a4 = dict(step_km=4.0, s_max_km=T3D_FAN["s_max_km"])
+    a_sh = timed("trace_fan_3d_aniso_sharded O on 2 shards", lambda:
+                 par.trace_fan_3d_aniso_sharded(
+                     t3d["afld"], *launch, T3D_FAN_F0, m2, mode="O", **a4))
+    a_un = t3d.get("aniso_O")
+    if a_un is None:
+        a_un = timed("trace_rays_3d_anisotropic O", lambda:
+                     prt.trace_rays_3d_anisotropic(
+                         t3d["afld"], *launch, T3D_FAN_F0, mode="O", **a4))
+    summary["aniso fan rel"] = close_3d(
+        "trace_fan_3d_aniso_sharded vs trace_rays_3d_anisotropic",
+        tensors_only(a_sh), {k: v.cpu() for k, v in
+                             tensors_only(a_un).items()}, T3D_RTOL)
+    summary["phase_s"] = time.perf_counter() - t_phase
+    print(f"mesh phase: {summary['phase_s']:.1f} s; {card}", flush=True)
+    return summary, launches["sweep"]
+
+
+def mesh_3d_inputs(torch, prt, dev):
+    """The 3-D phase's volume, fan angles and anisotropic field with its
+    unsharded O-mode fan left out (the mesh phase traces it), for a mesh
+    phase run on its own."""
+    from pyrayhf_tpu_torch import trace3d
+
+    inp = prt.generate_input_3D(*T3D_DATE, T3D_LAT, T3D_LON, T3D_ALT,
+                                T3D_F107, device=dev)
+    vol = (T3D_ALT, T3D_LAT, T3D_LON, inp["den"], inp["bmag"], inp["bpsi"])
+    _, _, els, azs, _ = trace3d._home_setup(*T3D_LINK, T3D_FAN["n_elev"],
+                                            T3D_FAN["n_az"], 8.0, 5.0, 75.0,
+                                            None)
+    bv = prt.igrf_volume(T3D_ALT, T3D_LAT, T3D_LON, device=dev)
+    den = torch.as_tensor(inp["den"], dtype=torch.float64, device=dev)
+    afld = prt.build_field_3d_aniso(T3D_ALT, T3D_LAT, T3D_LON, den, *bv)
+    return {"vol": vol, "els": els, "azs": azs, "afld": afld}
+
+
+def close_rel(name, out, ref, rtol, quiet=False):
+    """Identical NaN masks, finite values within ``rtol``; returns the
+    largest relative difference."""
+    a = out.double().cpu().numpy()
+    b = ref.double().cpu().numpy()
+    check(a.shape == b.shape, f"{name}: shape {a.shape} vs {b.shape}")
+    check(np.array_equal(np.isnan(a), np.isnan(b)),
+          f"{name}: NaN masks differ")
+    m = np.isfinite(b)
+    check(m.any(), f"{name}: no finite value")
+    rel = float((np.abs(a[m] - b[m]) / np.maximum(np.abs(b[m]),
+                                                    1e-300)).max())
+    if not quiet:
+        print(f"  {name}: largest relative difference {rel:.3e} (rtol "
+              f"{rtol:g})", flush=True)
+    check(rel <= rtol, f"{name}: relative difference {rel} over {rtol}")
+    return rel
+
+
+def step_reference(torch, prt, theta, obs, freq, aux, lr, n_points=64):
+    """The unsharded retrieval step: theta - lr * the gradient of the
+    whole batch's loss (the sharded step's model, one batch, autograd)."""
+    th = {k: v.clone().requires_grad_(True) for k, v in theta.items()}
+    hm, bb, nm = (th[k][:, None] for k in ("hm", "bb", "nm"))
+    E = aux["E"]
+    NmF1, _, hmF1, _ = prt.derive_dependent_F1_parameters(0.8, nm, hm, bb,
+                                                          E["hm"])
+    EDP = prt.reconstruct_density_1level(
+        {"Nm": nm, "hm": hm, "B_bot": bb, "B_top": aux["B_top"]},
+        {"Nm": NmF1, "hm": hmF1}, E, aux["alt"])
+    B = obs.shape[0]
+    vh, valid = prt.vh_and_mask(freq, EDP, aux["bmag"].expand(B, -1),
+                                aux["bpsi"].expand(B, -1), aux["alt"],
+                                mode_mult=1.0, n_points=n_points)
+    r = torch.where(valid & torch.isfinite(obs), obs - vh, 0.0)
+    loss = torch.sum(r * r)
+    grads = torch.autograd.grad(loss, [th[k] for k in ("hm", "bb", "nm")])
+    return ({k: (th[k] - lr * g).detach()
+             for k, g in zip(("hm", "bb", "nm"), grads)}, loss.detach())
 
 
 def main():
@@ -2738,10 +3128,18 @@ def main():
     print(f"link phase: {json.dumps(link_summary)}", flush=True)
 
     # ---- 11. the 3-D slice -------------------------------------------------
-    t3d_summary = trace3d_phase(torch, prt, dev, card)
+    keep = {}
+    t3d_summary = trace3d_phase(torch, prt, dev, card, keep)
     print(f"3-D phase: {json.dumps(t3d_summary)}", flush=True)
 
-    # ---- 12. result lines --------------------------------------------------
+    # ---- 12. mesh sharding -------------------------------------------------
+    mesh_summary, mesh_launches = mesh_phase(
+        torch, prt, dev, card, (gden, gbmag, gbpsi, alt), (den, bmag, bpsi),
+        keep)
+    del keep
+    print(f"mesh phase: {json.dumps(mesh_summary)}", flush=True)
+
+    # ---- 13. result lines --------------------------------------------------
     kernels = []
     for k in REPO_KERNELS:
         row = timing[k]
@@ -2750,6 +3148,8 @@ def main():
             "replaces": REPO_KERNELS[k], "launches": launches[k],
             **({"launches_link_phase": link_launches[k]}
                if k in link_launches else {}),
+            **({"launches_mesh_phase": mesh_launches}
+               if k == "sweep" else {}),
             "max_abs_err": max(errs[k]), "tol": TOL_F64,
             "main_path_f32_vs_plain_f32": max(main_f32[k]),
             "tol_f32_plain": TOL_F32_PLAIN,

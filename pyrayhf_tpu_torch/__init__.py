@@ -31,7 +31,11 @@ The PyTorch port of ``pyrayhf_tpu``, slice by slice:
   :func:`synthesize_oblique_ionogram_3d`), and the anisotropic Haselgrove
   tracers (:func:`trace_rays_3d_anisotropic` and their homing and
   ionogram), all on the batched early-exit fan integrator; this slice runs
-  no kernel of its own.
+  no kernel of its own;
+* mesh sharding (:mod:`pyrayhf_tpu_torch.parallel`): a (batch, freq) mesh
+  of torch devices, in which a device may repeat, and sharded ionogram
+  synthesis (the sweep kernel launched once per block), height quadrature,
+  retrieval, 3-D fans and Doppler.
 
 Kernels are built with ``nvcc`` at first use; on CPU tensors every kernel
 wrapper runs its plain PyTorch version instead. Host data (numpy arrays,
@@ -113,7 +117,7 @@ from . import (absorption, ccir, config, cuda_ext, doppler, edp, envgen,
                faraday, fields, forward, geodesy, gradient, grid, ground,
                igrf, igrf13_table, igrf_history, interp, io, magnetoionic,
                muf, oblique, oblique_inversion, pallas_ray, pallas_vh,
-               profiling, rays, retrieval, snell, trace3d, trace3d_aniso,
-               true_height)
+               parallel, profiling, rays, retrieval, snell, trace3d,
+               trace3d_aniso, true_height)
 
 __version__ = "0.1.0"

@@ -85,15 +85,24 @@ def doppler_shift_vertical(freq, den, dden_dt, bmag, bpsi, alt, mode="O",
     dden, dbmag, dbpsi = (zero if t is None
                           else as_tensors(t, den, dtype=den.dtype)[0]
                           for t in (dden_dt, dbmag_dt, dbpsi_dt))
+    fd, hp, dhp = _doppler_core(freq, den, dden, bmag, dbmag, bpsi, dbpsi,
+                                alt, mode_multiplier(mode), n_points)
+    return {"doppler_hz": fd, "phase_height_km": hp, "dhp_dt_km_s": dhp}
+
+
+def _doppler_core(freq_mhz, den, dden, bmag, dbmag, bpsi, dbpsi, alt,
+                  mode_mult, n_points):
+    """(f_D, h_p, dh_p/dt), NaN where escaped, of profiles ``den``/``bmag``/
+    ``bpsi`` [..., N_alt] moving at ``dden``/``dbmag``/``dbpsi``: one
+    forward-mode tangent through :func:`_phase_height`. Every operand is a
+    tensor on one device; a [B, N_alt] stack runs as one batch."""
     with fwAD.dual_level():
         hp, valid = _phase_height(
-            freq, fwAD.make_dual(den, dden), fwAD.make_dual(bmag, dbmag),
-            fwAD.make_dual(bpsi, dbpsi), alt, mode_multiplier(mode),
-            n_points)
+            freq_mhz, fwAD.make_dual(den, dden), fwAD.make_dual(bmag, dbmag),
+            fwAD.make_dual(bpsi, dbpsi), alt, mode_mult, n_points)
         hp, dhp = fwAD.unpack_dual(hp)
         hp = hp.clone()
         dhp = torch.zeros_like(hp) if dhp is None else dhp.clone()
-    fd = -(2.0 * (freq * 1e6) / C_KM_S) * dhp          # [Hz]; dhp in km/s
-    return {"doppler_hz": torch.where(valid, fd, _NAN),
-            "phase_height_km": torch.where(valid, hp, _NAN),
-            "dhp_dt_km_s": torch.where(valid, dhp, _NAN)}
+    fd = -(2.0 * (freq_mhz * 1e6) / C_KM_S) * dhp      # [Hz]; dhp in km/s
+    return (torch.where(valid, fd, _NAN), torch.where(valid, hp, _NAN),
+            torch.where(valid, dhp, _NAN))

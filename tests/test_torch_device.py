@@ -14,6 +14,7 @@ import torch
 
 import pyrayhf_tpu_torch as prt
 from pyrayhf_tpu_torch import io as TIO
+from pyrayhf_tpu_torch import parallel as TP
 
 
 def _profile(B=None):
@@ -244,3 +245,57 @@ def test_tensors_keep_their_device(no_card):
     ray = prt.trace_rays_3d(fld, 35.0, 0.0, [30.0], [0.0], step_km=50.0,
                             s_max_km=600.0)
     assert ray["group_path_km"].device.type == "cpu"
+
+
+# the sharded entry points take the mesh as their device: host data goes to
+# the mesh's devices, and a mesh of CPU devices computes on the CPU
+def _mesh_lm(mesh):
+    freqs, den, bmag, bpsi, alt = _profile(2)
+    return TP.retrieve_gradient_batch_sharded(
+        {"Nm": 2.2e12, "hm": 300.0, "B_bot": 50.0, "B_top": 40.0}, {"P": 0.0},
+        {"Nm": 5e10, "hm": 110.0, "B_bot": 5.0, "B_top": 7.0}, freqs,
+        prt.vertical_forward_operator_batch(*_profile(2), device="cpu"),
+        alt, bmag[0], bpsi[0], mesh, steps=1, n_points=50)[0]
+
+
+MESH_ENTRY_POINTS = {
+    "synthesize_ionograms_sharded xla":
+        lambda mesh: TP.synthesize_ionograms_sharded(*_profile(8), mesh,
+                                                     n_points=50),
+    "synthesize_ionograms_sharded pallas":
+        lambda mesh: TP.synthesize_ionograms_sharded(
+            *_profile(8), mesh, n_points=50, engine="pallas"),
+    "vh_height_sharded": lambda mesh: TP.vh_height_sharded(
+        *_profile(), mesh, n_points=64),
+    "retrieval_step_sharded": lambda mesh: TP.retrieval_step_sharded(
+        {"hm": [300.0, 310.0], "bb": [50.0, 45.0], "nm": [2e12, 2.1e12]},
+        np.full((2, 10), 250.0), _profile()[0],
+        {"alt": _profile()[4], "bmag": _profile()[2], "bpsi": _profile()[3],
+         "E": {"Nm": 5e10, "hm": 110.0, "B_bot": 5.0, "B_top": 7.0},
+         "B_top": 40.0}, mesh)[1],
+    "retrieve_gradient_batch_sharded": _mesh_lm,
+    "trace_fan_3d_sharded": lambda mesh: TP.trace_fan_3d_sharded(
+        _field_3d(device="cpu"), 35.0, 0.0, [20.0, 40.0], [0.0],
+        mesh, step_km=50.0, s_max_km=600.0)["ground_range_km"],
+    "trace_fan_3d_aniso_sharded": lambda mesh: TP.trace_fan_3d_aniso_sharded(
+        _field_aniso(device="cpu"), 35.0, 0.0, [20.0, 40.0], [0.0], 6e6,
+        mesh, step_km=50.0, s_max_km=300.0)["group_delay_sec"],
+    "doppler_batch_sharded": lambda mesh: TP.doppler_batch_sharded(
+        *_profile(2)[:2], 1e-3 * _profile(2)[1], *_profile(2)[2:], mesh,
+        n_points=50)["doppler_hz"],
+}
+
+
+def test_mesh_without_a_card_raises(no_card):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TP.ionogram_mesh()
+    mesh = TP.ionogram_mesh([torch.device("cpu")] * 8, batch_axis=4)
+    assert all(d.type == "cpu" for d in mesh.devices.ravel())
+
+
+@pytest.mark.parametrize("name", list(MESH_ENTRY_POINTS))
+def test_host_data_goes_to_the_mesh(no_card, name):
+    mesh = TP.ionogram_mesh([torch.device("cpu")] * 2)
+    out = MESH_ENTRY_POINTS[name](mesh)
+    assert isinstance(out, torch.Tensor) and out.device.type == "cpu"
+    assert out.dtype == torch.float64

@@ -733,3 +733,28 @@ def test_gather_kernels_at_cutoff_frequencies(cuda, kind, n_points):
         tol = 1e-6 if dtype == torch.float64 else np.maximum(
             1e-3, 4 * np.finfo(np.float32).eps * np.abs(p[m]))
         assert (np.abs(k[m] - p[m]) <= tol).all()
+
+
+@pytest.mark.parametrize("mode_mult", [1.0, -1.0])
+def test_sharded_pallas_launches_once_per_block(cuda, mode_mult):
+    """synthesize_ionograms_sharded(engine="pallas") on a 2×2 mesh of the
+    one card: one sweep launch per block, no plain version, and the
+    unsharded kernel's values bit for bit (both calls take a warp per
+    pair here); interpret=True raises on CUDA tensors."""
+    from pyrayhf_tpu_torch.parallel import (ionogram_mesh,
+                                            synthesize_ionograms_sharded)
+    freqs, den, bmag, bpsi, alt = _case(True)
+    t = [torch.as_tensor(a, device=cuda) for a in (freqs[:-1], den, bmag,
+                                                   bpsi, alt)]
+    mesh = ionogram_mesh([cuda] * 4, batch_axis=2)
+    mode = "O" if mode_mult > 0 else "X"
+    TV.reset_counters()
+    out = synthesize_ionograms_sharded(*t, mesh, mode=mode, engine="pallas")
+    assert TV.LAUNCHES["sweep"] == 4 and sum(TV.PLAIN_CALLS.values()) == 0
+    ref = TV.ionogram_pallas(*t, mode_mult=mode_mult)
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    m = torch.isfinite(ref)
+    assert m.any() and torch.equal(out[m], ref[m])
+    with pytest.raises(ValueError, match="interpret=True"):
+        synthesize_ionograms_sharded(*t, mesh, engine="pallas",
+                                     interpret=True)
