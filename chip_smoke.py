@@ -84,7 +84,7 @@ failure:
    ``minimize_parameters(method="brute")`` on one of them and
    ``retrieve_profile_batch`` on B=64 Chapman ionograms, each against its
    truths at the JAX package's test thresholds; then, with the card idle,
-   the same f64 LM call on the first 4 ionograms on the CPU, whose fits
+   the same f64 LM call on the first 2 ionograms on the CPU, whose fits
    must equal the card's;
 10. the 1-D oblique link (``link_phase``): Snell fans
     (``trace_rays_{spherical,cartesian}_snells``) and
@@ -133,9 +133,26 @@ failure:
     f32); ``vh_height_sharded`` at 20,000 points, the retrieval step on
     the station-day (B=288) and ``doppler_batch_sharded`` on the global
     grid, f64, against their unsharded forms (rtol 1e-10); and on 2 shards
-    the LM on 48 ionograms (8 steps, rtol 1e-9) and the fixed-psi (rtol
+    the LM on 24 ionograms (8 steps, rtol 1e-9) and the fixed-psi (rtol
     1e-12) and anisotropic (1e-9) fans of the 3-D phase's volume;
-13. one JSON line of kernels, the card line, and the closing JSON line.
+13. differentiation through the kernel entry points (``ad_phase``),
+    counters zeroed before each part and read after it:
+    ``torch.func.jvp`` of ``vertical_forward_operator_batch(engine=
+    "auto")`` at O-200 B=1024, O and X, f32 and f64 (kernels 1 and 2, no
+    plain call), the primal equal to the call without AD bit for bit and
+    the tangent to ``torch.func.jvp`` of the plain sweep (first 64
+    profiles; rtol 1e-12 f64, 1e-5 f32); ``jacfwd`` and ``jacrev`` in
+    (density scale, |B| scale, psi offset), f64, through kernels 1-5 (8
+    profiles; kernel 4 at X-20k on 2 profiles and 16 frequencies), each
+    against the plain sweep's and against each other where both are
+    finite (rtol 1e-10); ``torch.func.vmap`` of ``ionogram_pallas_gather``
+    over the global grid cut 4 x 2,628 (one launch, bit for bit the whole
+    call); the parity engine on the global grid with every 8th profile's
+    |B| = 0 (rows equal to their profile alone; f64 equal to ``auto``
+    above 2 MHz, <= 1e-6 km, identical NaN masks); ``fan_2d_pallas``
+    under forward mode, which must raise; the jvp and jacfwd calls timed
+    beside the forward call alone;
+14. one JSON line of kernels, the card line, and the closing JSON line.
 
 Profiles are Chapman F2 (+ E above a valley for a quarter of them) from
 ``numpy.random.default_rng(SEED)``; the fan scenes are the tilted Chapman
@@ -210,7 +227,9 @@ MXU_TILE = 16
 # one station-day at 5-minute cadence: the golden layer parameters of
 # tests/test_edp_retrieval.py:19-36 with hmF2 U(260, 400) km, B_bot
 # U(25, 60) km and NmF2 within ±20% of the golden
-LM_B, LM_STEPS, LM_CPU_B = 288, 25, 4
+# (the CPU side of the card-vs-CPU LM comparison on 2 of them: 4 took
+# ~110 s of the script, with the card idle)
+LM_B, LM_STEPS, LM_CPU_B = 288, 25, 2
 TH_B = 64
 LM_POP = {"hm": (260.0, 400.0), "B_bot": (25.0, 60.0)}
 GOLDEN = {"F2": {"Nm": 1.17848165e+12, "hm": 365.13828931,
@@ -366,12 +385,41 @@ MESH_P_SPLIT = 5000
 # fixed-psi fan at 4-km steps over 1,500 km (the 3-D phase's fan runs
 # 2,000 steps of 2 km, and each shard pays its host time)
 MESH_VH_P, MESH_LR, MESH_DOP_V, MESH_DOP_EVERY = 20000, 1.0, 0.02, 512
-MESH_LM_B, MESH_LM_STEPS = 48, 8
+MESH_LM_B, MESH_LM_STEPS = 24, 8
 MESH_FAN = dict(step_km=4.0, s_max_km=1500.0)
 # the fixed-psi fan against its unsharded self, each shard integrating its
 # rays as the whole fan does; the retrieval step and height quadrature
 # against their unsharded forms (partial sums in another order)
 MESH_FAN_RTOL, MESH_SUM_RTOL, MESH_LM_RTOL = 1e-12, 1e-10, 1e-9
+
+# ---- differentiation through the kernel entry points (ad_phase) ------------
+# torch.func.jvp of the auto operator at O-200 B=1024 (the main path's
+# width), its tangent held to torch.func.jvp of the plain sweep on the first
+# AD_REF_B profiles (each profile is independent); jacfwd against jacrev in
+# (density scale, |B| scale, psi offset) on AD_JAC_B profiles, and kernel 4
+# at X-20k on AD_X20K_B profiles at every AD_X20K_F_EVERY-th frequency:
+# reverse mode through the sweep keeps each of its N-1 segment steps, about
+# 3 x B x F x P values a step (8 GB at the X-20k cut in f64)
+AD_SEED = SEED + 1
+AD_REF_B, AD_JAC_B, AD_X20K_B, AD_X20K_F_EVERY = 64, 8, 2, 11
+# tangent tolerances (the rule's sweep against the plain sweep: the same
+# operations), derivatives between modes and against the sweep (the CPU
+# tests' bound), the parity engine against auto (phase 3's)
+AD_RTOL = {"float64": 1e-12, "float32": 1e-5}
+AD_JAC_RTOL = 1e-10
+# the global grid with every AD_B0_EVERY-th profile without a field, run
+# through the parity engine in chunks of AD_PARITY_CHUNK profiles (each
+# profile is decided on its own); the rows checked against their profile
+# run alone
+AD_B0_EVERY, AD_PARITY_CHUNK = 8, 1024
+AD_ALONE_ROWS = (0, 1, 7, 8, 9, 5000, 10504, 10511)
+# (profile, MHz) of the global grid where the kernels and the parity
+# operator part by more than TOL_F64 in f64 (1.1e-6 to 2.1e-6 km): the JAX
+# package's own kernels and parity operator part there by the same amounts
+# (tests/test_torch_pallas_vh.py); allowed up to AD_PARITY_EXCUSED_TOL
+AD_PARITY_EXCUSED = {"O": ((1274, 12.5), (2919, 8.6), (9339, 10.7)),
+                     "X": ((7318, 2.8), (7342, 2.2))}
+AD_PARITY_EXCUSED_TOL = 3e-6
 
 
 def fan_grid(kind):
@@ -2687,6 +2735,289 @@ def step_reference(torch, prt, theta, obs, freq, aux, lr, n_points=64):
              for k, g in zip(("hm", "bb", "nm"), grads)}, loss.detach())
 
 
+def ad_phase(torch, prt, dev, card, freqs, alt, main_prof, glob, x20k):
+    """Differentiation through the kernel entry points (phase 13).
+
+    Counters zeroed before each part and read after it: ``torch.func.jvp``
+    of ``vertical_forward_operator_batch(engine="auto")`` at O-200 B=1024,
+    O and X, f32 and f64 (kernels 1 and 2 launched, no plain call): the
+    primal equal to the call without AD bit for bit, the tangent to
+    ``torch.func.jvp`` of the plain sweep on the first AD_REF_B profiles;
+    ``jacfwd`` and ``jacrev`` through kernels 1-5 in three parameters,
+    f64, each against the plain sweep's, and against each other where both
+    are finite; ``torch.func.vmap`` of the gather entry over the global
+    grid cut 4 x 2,628 (one launch, equal to the whole call bit for bit);
+    the parity engine on the global grid with every 8th profile's |B| = 0
+    (rows equal to their profile alone, f64 equal to ``auto`` above 2 MHz);
+    the fan kernel under forward mode, which must raise. Returns (summary,
+    launches by kernel over the counted parts).
+    """
+    from pyrayhf_tpu_torch import pallas_vh as pv
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(AD_SEED)
+    den, bmag, bpsi = main_prof
+    gden, gbmag, gbpsi = glob
+    vfo = prt.vertical_forward_operator_batch
+    summary, launches = {}, dict.fromkeys(pv.KERNELS, 0)
+
+    def T(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+    def counted(what, fn):
+        """``fn()`` with the counters zeroed before and read after; returns
+        (its output, the launches, its wall time in ms)."""
+        torch.cuda.synchronize()
+        pv.reset_counters()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        got, plain = dict(pv.LAUNCHES), dict(pv.PLAIN_CALLS)
+        for k in launches:
+            launches[k] += got[k]
+        print(f"  {what}: kernel launches {got}; plain-version calls "
+              f"{plain}", flush=True)
+        check(sum(plain.values()) == 0, f"{what}: plain versions ran")
+        return out, got, ms
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    # ---- jvp of the auto operator at the main path's width ----------------
+    print(f"AD phase: torch.func.jvp of vertical_forward_operator_batch(auto)"
+          f" at O-200 B={den.shape[0]} F={len(freqs)}, along a seeded (den, "
+          f"|B|, psi) direction; tangents against torch.func.jvp of the "
+          f"plain sweep on {AD_REF_B} profiles (rtol {AD_RTOL})", flush=True)
+    dirs = (den * rng.uniform(-1.0, 1.0, den.shape),
+            bmag * rng.uniform(-0.2, 0.2, bmag.shape),
+            rng.uniform(-3.0, 3.0, bpsi.shape))
+    jvp_ms = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        fr, d, b, p, a = (T(x, dtype) for x in (freqs, den, bmag, bpsi, alt))
+        tans = tuple(T(x, dtype) for x in dirs)
+        for mode, mm in (("O", 1.0), ("X", -1.0)):
+            def op(dd, bb, pp):
+                return vfo(fr, dd, bb, pp, a, mode=mode, n_points=P_MAIN)
+            kind = "gather_osolve" if mm > 0 else "gather_xsolve"
+            plain_out, fwd_ms = timed(lambda: op(d, b, p))
+            (primal, tangent), got, t_ms = counted(
+                f"jvp auto {mode} {dname}",
+                lambda: torch.func.jvp(op, (d, b, p), tans))
+            check(got[kind] == 1 and sum(got.values()) == 1,
+                  f"jvp auto {mode} {dname}: launches {got}")
+            check(torch.equal(torch.nan_to_num(primal, nan=-1.0),
+                              torch.nan_to_num(plain_out, nan=-1.0)),
+                  f"jvp auto {mode} {dname}: primal differs from the call "
+                  "without AD")
+            sl = slice(0, AD_REF_B)
+            _, ref = torch.func.jvp(
+                lambda dd, bb, pp: pv.ionogram_fast_xla(
+                    fr, dd, bb, pp, a, mode_mult=mm, n_points=P_MAIN),
+                (d[sl], b[sl], p[sl]), tuple(x[sl] for x in tans))
+            rel = close_rel(f"jvp auto {mode} {dname}: tangent vs the plain "
+                            f"sweep's, first {AD_REF_B} profiles",
+                            tangent[sl], ref, AD_RTOL[dname])
+            check(bool(torch.isfinite(tangent).any()),
+                  f"jvp auto {mode} {dname}: no finite tangent")
+            jvp_ms[f"{mode} {dname}"] = {"forward_ms": fwd_ms,
+                                        "jvp_ms": t_ms, "tangent_rel": rel}
+            print(f"  jvp auto {mode} {dname}: forward alone "
+                  f"{fwd_ms:.3f} ms, jvp {t_ms:.3f} ms; {card}", flush=True)
+            del primal, tangent, ref, plain_out
+    summary["jvp"] = jvp_ms
+    spans = {"jvp_s": time.perf_counter() - t_phase}
+    torch.cuda.empty_cache()
+
+    # ---- jacfwd against jacrev through kernels 1-5 --------------------------
+    print(f"AD phase: jacfwd and jacrev in (density scale, |B| scale, psi "
+          f"offset), f64, through kernels 1-5 ({AD_JAC_B} profiles at "
+          f"O/X-200; kernel 4 at X-20k on {AD_X20K_B} profiles, every "
+          f"{AD_X20K_F_EVERY}th frequency), each against the plain sweep's "
+          f"(rtol {AD_JAC_RTOL})", flush=True)
+    f64 = torch.float64
+    jb = slice(0, AD_JAC_B)
+    small = [T(x, f64) for x in (freqs, den[jb], bmag[jb], bpsi[jb], alt)]
+    xden, xbmag, xbpsi = x20k
+    xf = freqs[::AD_X20K_F_EVERY]
+    xs = slice(0, AD_X20K_B)
+    x_in = [T(x, f64) for x in (xf, xden[xs], xbmag[xs], xbpsi[xs], alt)]
+    cases = {
+        "gather_osolve": (prt.ionogram_pallas_gather, 1.0, small, P_MAIN, {}),
+        "gather_xsolve": (prt.ionogram_pallas_gather, -1.0, small, P_MAIN,
+                          {}),
+        "gather": (prt.ionogram_pallas_gather, -1.0, small, P_MAIN,
+                   {"x_in_kernel_solve": False}),
+        "sweep": (prt.ionogram_pallas, -1.0, x_in, P_X20K, {}),
+        "mxu": (prt.ionogram_pallas_mxu, 1.0, small, P_MAIN, {}),
+    }
+    p0 = torch.tensor([1.0, 1.0, 0.0], dtype=f64, device=dev)
+
+    def scalar(fn, mm, t, P, kw):
+        """The sum of finite virtual heights of q = (density scale, |B|
+        scale, psi offset)."""
+        def f(q):
+            vh = fn(t[0], q[0] * t[1], q[1] * t[2], t[3] + q[2], t[4],
+                    mode_mult=mm, n_points=P, **kw)
+            return torch.where(torch.isfinite(vh), vh, 0.0).sum()
+        return f
+
+    jac, refs = {}, {}
+    for kind, (entry, mm, t, P, kw) in cases.items():
+        f_k = scalar(entry, mm, t, P, kw)
+        _, fwd_ms = timed(lambda: f_k(p0))
+        fwd, got_f, jf_ms = counted(f"jacfwd through {kind}",
+                                    lambda: torch.func.jacfwd(f_k)(p0))
+        rev, got_r, jr_ms = counted(f"jacrev through {kind}",
+                                    lambda: torch.func.jacrev(f_k)(p0))
+        for got in (got_f, got_r):
+            check(got[kind] == 1 and sum(got.values()) == 1,
+                  f"jacfwd/jacrev {kind}: launches {got}")
+        # kernels 1 and 5, and 2 and 3, share their inputs, and so the
+        # sweep's derivatives they are held to
+        key = (mm, id(t), P)
+        if key not in refs:
+            f_ref = scalar(pv.ionogram_fast_xla, mm, t, P, {})
+            refs[key] = (torch.func.jacfwd(f_ref)(p0),
+                         torch.func.jacrev(f_ref)(p0))
+        r_fwd, r_rev = refs[key]
+        e_fwd = close_rel(f"{kind} jacfwd vs the sweep's", fwd, r_fwd,
+                          AD_JAC_RTOL)
+        e_rev = close_rel(f"{kind} jacrev vs the sweep's", rev, r_rev,
+                          AD_JAC_RTOL)
+        both = torch.isfinite(fwd) & torch.isfinite(rev)
+        e_fr = close_rel(f"{kind} jacfwd vs jacrev where both are finite",
+                         fwd[both], rev[both], AD_JAC_RTOL)
+        n_nan = int((~torch.isfinite(rev)).sum())
+        check(bool(torch.isfinite(fwd).all()) and (mm < 0 or n_nan == 0),
+              f"{kind}: jacfwd {fwd.tolist()}, jacrev {rev.tolist()}")
+        jac[kind] = {"jacfwd": fwd.tolist(), "jacrev": rev.tolist(),
+                     "vs_sweep_fwd": e_fwd, "vs_sweep_rev": e_rev,
+                     "fwd_vs_rev": e_fr, "jacrev_nan": n_nan,
+                     "forward_ms": fwd_ms, "jacfwd_ms": jf_ms,
+                     "jacrev_ms": jr_ms}
+        print(f"  {kind}: jacfwd {fwd.tolist()}, jacrev {rev.tolist()} "
+              f"({n_nan} NaN: X-mode reverse mode w.r.t. |B| and psi is "
+              f"NaN in both packages); forward alone {fwd_ms:.3f} ms, "
+              f"jacfwd {jf_ms:.3f} ms, jacrev {jr_ms:.3f} ms; {card}",
+              flush=True)
+    del refs
+    summary["jac"] = jac
+    spans["jac_s"] = time.perf_counter() - t_phase - sum(spans.values())
+    torch.cuda.empty_cache()
+
+    # ---- vmap of the gather entry over the global grid ----------------------
+    n_glob = gden.shape[0]
+    gi = [T(x, torch.float32) for x in (freqs, gden, gbmag, gbpsi, alt)]
+    V = 4
+    whole = prt.ionogram_pallas_gather(*gi, mode_mult=1.0, n_points=P_MAIN)
+    cut = [x.reshape(V, n_glob // V, -1) for x in gi[1:4]]
+    folded, got, _ = counted(
+        f"vmap of ionogram_pallas_gather over {V} x {n_glob // V}",
+        lambda: torch.func.vmap(lambda d, b, p: prt.ionogram_pallas_gather(
+            gi[0], d, b, p, gi[4], mode_mult=1.0, n_points=P_MAIN))(*cut))
+    check(got["gather_osolve"] == 1 and sum(got.values()) == 1,
+          f"vmap fold: launches {got}")
+    same = torch.equal(torch.nan_to_num(folded.reshape(n_glob, -1),
+                                        nan=-1.0),
+                       torch.nan_to_num(whole, nan=-1.0))
+    print(f"  vmap fold {tuple(folded.shape)}: equal to the whole call bit "
+          f"for bit: {same}", flush=True)
+    check(same, "vmap fold differs from the whole call")
+    summary["vmap_fold_bitwise"] = same
+    del whole, folded, cut, gi
+    spans["vmap_s"] = time.perf_counter() - t_phase - sum(spans.values())
+
+    # ---- the parity engine on a grid with field-free profiles ---------------
+    zb = np.asarray(gbmag).copy()
+    zb[::AD_B0_EVERY] = 0.0
+    print(f"AD phase: parity engine on the global grid with every "
+          f"{AD_B0_EVERY}th profile's |B| = 0, f64, in chunks of "
+          f"{AD_PARITY_CHUNK}: rows {AD_ALONE_ROWS} against their profile "
+          f"alone, the grid against auto above 2 MHz (tol {TOL_F64:g} km, "
+          "identical NaN masks)", flush=True)
+    pin = [T(x, f64) for x in (freqs, gden, zb, gbpsi, alt)]
+    par_rows = {}
+    for mode, mm in (("O", 1.0), ("X", -1.0)):
+        parts = [vfo(pin[0], *(x[c:c + AD_PARITY_CHUNK] for x in pin[1:4]),
+                     pin[4], mode=mode, n_points=P_MAIN, engine="parity")
+                 for c in range(0, n_glob, AD_PARITY_CHUNK)]
+        par = torch.cat(parts)
+        worst = 0.0
+        for r in AD_ALONE_ROWS:
+            alone = vfo(pin[0], *(x[r:r + 1] for x in pin[1:4]), pin[4],
+                        mode=mode, n_points=P_MAIN, engine="parity")
+            worst = max(worst, close_rel(f"parity {mode} row {r} vs alone",
+                                         par[r:r + 1], alone, 1e-12,
+                                         quiet=True))
+        fin0 = float(torch.isfinite(par[::AD_B0_EVERY]).double().mean())
+        check(fin0 > 0.15, f"parity {mode}: field-free rows {fin0} finite")
+        auto = vfo(*pin, mode=mode, n_points=P_MAIN)
+        hi = freqs > 2.0
+        excused = np.zeros((n_glob, int(hi.sum())), dtype=bool)
+        for r, f in AD_PARITY_EXCUSED[mode]:
+            excused[r, int(np.argmin(np.abs(freqs[hi] - f)))] = True
+        err = compare(f"parity {mode} vs auto (f64, > 2 MHz)", par[:, hi],
+                      auto[:, hi], AD_PARITY_EXCUSED_TOL,
+                      np.zeros((1, 1), dtype=bool), True)
+        over = over_tol(par[:, hi], auto[:, hi], TOL_F64)
+        print(f"  parity {mode} vs auto: {int(over.sum())} values over "
+              f"{TOL_F64:g} km, at {[tuple(x) for x in np.argwhere(over)]}"
+              f" (allowed: {AD_PARITY_EXCUSED[mode]})", flush=True)
+        check(not (over & ~excused).any(),
+              f"parity {mode} vs auto: values over {TOL_F64} km outside "
+              "the JAX package's own")
+        par_rows[mode] = {"rows_vs_alone_rel": worst,
+                          "field_free_finite": fin0, "vs_auto_km": err}
+        print(f"  parity {mode}: rows vs alone {worst:.3e}, field-free rows "
+              f"finite {fin0:.3f}", flush=True)
+        del parts, par, auto
+    summary["parity_field_free"] = par_rows
+    del pin
+    torch.cuda.empty_cache()
+    spans["parity_s"] = time.perf_counter() - t_phase - sum(spans.values())
+
+    # ---- the fan kernel refuses forward mode ---------------------------------
+    z, x = np.linspace(0.0, 400.0, 41), np.linspace(0.0, 1000.0, 11)
+    mu = torch.full((2, 41, 11), 0.9, dtype=f64, device=dev)
+    fan_args = (torch.full_like(mu, 1.1), torch.zeros_like(mu),
+                torch.tensor([10.0, 30.0], dtype=f64, device=dev), 10.0)
+
+    def fan(m):
+        return prt.fan_2d_pallas(z, x, m, *fan_args,
+                                 n_steps=5)["ground_range_km"]
+    refused = []
+    for how, call in (
+            ("torch.func.jvp", lambda: torch.func.jvp(
+                fan, (mu,), (torch.ones_like(mu),))),
+            ("forward_ad", lambda: forward_ad_call(torch, fan, mu))):
+        try:
+            call()
+        except ValueError as e:
+            refused.append(how)
+            print(f"  fan_2d_pallas under {how}: raised ({e})", flush=True)
+    check(refused == ["torch.func.jvp", "forward_ad"],
+          f"fan_2d_pallas under forward mode did not raise: {refused}")
+    summary["phase_s"] = time.perf_counter() - t_phase
+    summary["parts_s"] = spans
+    spent = ", ".join(f"{k} {v:.1f}" for k, v in spans.items())
+    print(f"AD phase: {summary['phase_s']:.1f} s ({spent}); {card}",
+          flush=True)
+    return summary, launches
+
+
+def forward_ad_call(torch, fn, x):
+    """``fn`` of a forward-mode dual of ``x`` (a ones tangent)."""
+    fwad = torch.autograd.forward_ad
+    with fwad.dual_level():
+        return fn(fwad.make_dual(x, torch.ones_like(x)))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2849,7 +3180,9 @@ def main():
                                   ref, TOL_F64, no_rows, True))
 
     # above the largest gyrofrequency (1.8 MHz): the parity operator and
-    # the kernels treat sub-gyro X rows differently (first-node cutoff)
+    # the kernels treat sub-gyro X rows differently (first-node cutoff), as
+    # the JAX package's own kernels and parity operator do
+    # (tests/test_torch_pallas_vh.py)
     print("reference: kernel path vs parity operator (f64, f > 2 MHz)",
           flush=True)
     fr = freqs[freqs > 2.0]
@@ -3139,7 +3472,16 @@ def main():
     del keep
     print(f"mesh phase: {json.dumps(mesh_summary)}", flush=True)
 
-    # ---- 13. result lines --------------------------------------------------
+    # ---- 13. differentiation through the kernel entry points --------------
+    torch.cuda.empty_cache()
+    ad_summary, ad_launches = ad_phase(
+        torch, prt, dev, card, freqs, alt, (den, bmag, bpsi),
+        (gden, gbmag, gbpsi), (xden, xbmag, xbpsi))
+    print(f"AD phase: {json.dumps(ad_summary)}", flush=True)
+    check(all(ad_launches[k] > 0 for k in pv.KERNELS),
+          f"AD phase: a kernel never launched: {ad_launches}")
+
+    # ---- 14. result lines --------------------------------------------------
     kernels = []
     for k in REPO_KERNELS:
         row = timing[k]
@@ -3150,6 +3492,7 @@ def main():
                if k in link_launches else {}),
             **({"launches_mesh_phase": mesh_launches}
                if k == "sweep" else {}),
+            "launches_ad_phase": ad_launches[k],
             "max_abs_err": max(errs[k]), "tol": TOL_F64,
             "main_path_f32_vs_plain_f32": max(main_f32[k]),
             "tol_f32_plain": TOL_F32_PLAIN,
@@ -3166,6 +3509,7 @@ def main():
             "library_ms": None, "wrapper_ms": row["wrapper_ms"],
             "valid_share": row["valid_share"], "layout": row["layout"],
             "shape": row["shape"], **extra.get(k, {})})
+    mxu_entry["launches_ad_phase"] = ad_launches["mxu"]
     kernels.append(mxu_entry)
     kernels.append(fan_entry)
     print(json.dumps({"kernels": kernels}))

@@ -98,7 +98,9 @@ def scalar_like(v, like):
 
 @functools.lru_cache(maxsize=1024)
 def _scalar(v, dtype, device):
-    with torch.inference_mode(False):
+    # made outside any torch.func transform: a tensor made inside one may
+    # be wrapped at its level, and the cache would hand it to later calls
+    with torch.inference_mode(False), torch._C._DisableFuncTorch():
         return torch.full((), v, dtype=dtype, device=device)
 
 
@@ -113,7 +115,13 @@ def clip(x, lo, hi):
 
 
 def host_f64(a):
-    """A 1-D host grid as a float64 numpy array (tensors are copied)."""
+    """A 1-D host grid as a float64 numpy array (tensors are copied).
+
+    A plain tensor is read with ``torch.func`` transforms set aside, which
+    refuse every host read inside them; a tensor a transform wraps (a grid
+    being differentiated or batched) has no values to read and raises.
+    """
     if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().double().numpy()
+        with torch._C._DisableFuncTorch():
+            a = a.detach().cpu().double().numpy()
     return np.asarray(a, dtype=np.float64)

@@ -21,7 +21,8 @@ from torch.autograd import forward_ad as fwAD
 from ._util import as_tensors, profile_tensors
 from .constants import C_KM_S
 from .grid import regrid_core
-from .magnetoionic import find_mu_mup_masked, find_X, find_Y, mode_multiplier
+from .magnetoionic import (_find_mu_mup_masked, find_X, find_Y,
+                           mode_multiplier)
 
 __all__ = ["phase_height_and_mask", "doppler_shift_vertical"]
 
@@ -34,7 +35,9 @@ def _phase_height(freq_mhz, den, bmag, bpsi, alt, mode_mult, n_points):
     aX = find_X(rg["den"], rg["freq"])
     aY = find_Y(rg["freq"], rg["bmag"])
     mode = "O" if mode_mult > 0 else "X"
-    mu, _, pt_ok = find_mu_mup_masked(aX, aY, rg["bpsi"], mode)
+    # per profile of a [..., N_alt] stack, as the JAX package vmaps it
+    mu, _, pt_ok = _find_mu_mup_masked(aX, aY, rg["bpsi"], mode,
+                                       aX.ndim - 2)
     # mu -> 0 at the reflection height: bounded integrand, no ceiling
     # needed (contrast the mu' ceiling of forward.vh_and_mask)
     pt_ok = pt_ok & (mu >= 0.0)

@@ -19,7 +19,7 @@ import torch
 from ._util import as_tensors, profile_tensors
 from .config import resolve
 from .grid import regrid_core
-from .magnetoionic import (find_X, find_Y, find_mu_mup, find_mu_mup_masked,
+from .magnetoionic import (_find_mu_mup, _find_mu_mup_masked, find_X, find_Y,
                            mode_multiplier)
 
 __all__ = ["find_vh", "vertical_forward_operator",
@@ -41,7 +41,13 @@ def find_vh(X, Y, bpsi, dh, alt_min, mode, arithmetic="stable"):
     ceiling or ≤ 0 is treated as an escape sample (the JAX package's
     documented deviation; f64 results are unaffected).
     """
-    _, mup = find_mu_mup(X, Y, bpsi, mode, arithmetic=arithmetic)
+    return _find_vh(X, Y, bpsi, dh, alt_min, mode, arithmetic, 0)
+
+
+def _find_vh(X, Y, bpsi, dh, alt_min, mode, arithmetic, batch_dims):
+    """:func:`find_vh` with the unmagnetised branch decided for each index
+    of the first ``batch_dims`` axes (``magnetoionic._find_mu_mup``)."""
+    _, mup = _find_mu_mup(X, Y, bpsi, mode, batch_dims, arithmetic=arithmetic)
     dh, _ = as_tensors(dh, mup, dtype=mup.dtype)
     mup = torch.where((mup > 0.0) & (mup <= _MUP_CEILING), mup, float("nan"))
     ih = torch.nansum(mup * dh, dim=-1)
@@ -51,15 +57,19 @@ def find_vh(X, Y, bpsi, dh, alt_min, mode, arithmetic="stable"):
 
 def _forward_core(freq_hz, den, bmag, bpsi, alt, mode_mult, n_points,
                   arithmetic="stable"):
-    """Fused forward operator on [..., N_alt] profiles → [..., N_freq]."""
+    """Fused forward operator on [..., N_alt] profiles → [..., N_freq].
+
+    Each profile is the JAX package's one-profile call (which its batch
+    operator vmaps): the unmagnetised branch is decided per profile, over
+    the [N_freq, n_points] that call sees."""
     rg = regrid_core(freq_hz, den, bmag, bpsi, alt,
                       mode_mult=mode_mult, n_points=n_points)
     aX = find_X(rg["den"], rg["freq"])
     aY = find_Y(rg["freq"], rg["bmag"])
     mode = "O" if mode_mult > 0 else "X"
     alt_min = torch.amin(alt, dim=-1, keepdim=True)
-    return find_vh(aX, aY, rg["bpsi"], rg["dist"], alt_min, mode,
-                   arithmetic=arithmetic)
+    return _find_vh(aX, aY, rg["bpsi"], rg["dist"], alt_min, mode,
+                    arithmetic, aX.ndim - 2)
 
 
 def vertical_forward_operator(freq, den, bmag, bpsi, alt,
@@ -177,7 +187,7 @@ def _phase_core(freq_hz, den, bmag, bpsi, alt, mode_mult, n_points):
     aX = find_X(rg["den"], rg["freq"])
     aY = find_Y(rg["freq"], rg["bmag"])
     mode = "O" if mode_mult > 0 else "X"
-    mu, _ = find_mu_mup(aX, aY, rg["bpsi"], mode)
+    mu, _ = _find_mu_mup(aX, aY, rg["bpsi"], mode, aX.ndim - 2)
     # μ → 0 at the reflection height, so the integrand is bounded; NaN
     # rows are escaped rays
     mu = torch.where(torch.isfinite(mu) & (mu >= 0.0), mu, float("nan"))
@@ -209,7 +219,9 @@ def vh_and_mask(freq_mhz, den, bmag, bpsi, alt, mode_mult=1.0, n_points=200,
 
     ``vh`` equals the parity operator where ``valid``; escaped rays carry
     ``valid=False`` and vh = alt_min (a finite placeholder). Autograd
-    through ``torch.where(valid, vh, 0)`` is finite. ``device``: as for
+    through ``torch.where(valid, vh, 0)`` is finite. [..., N_alt] profiles
+    give [..., N_freq], each profile as the JAX package's one-profile call
+    (the unmagnetised branch decided per profile). ``device``: as for
     :func:`vertical_forward_operator`.
     """
     freq_mhz, den, bmag, bpsi, alt = profile_tensors(freq_mhz, den, bmag,
@@ -219,7 +231,8 @@ def vh_and_mask(freq_mhz, den, bmag, bpsi, alt, mode_mult=1.0, n_points=200,
     aX = find_X(rg["den"], rg["freq"])
     aY = find_Y(rg["freq"], rg["bmag"])
     mode = "O" if mode_mult > 0 else "X"
-    _, mup, pt_ok = find_mu_mup_masked(aX, aY, rg["bpsi"], mode)
+    _, mup, pt_ok = _find_mu_mup_masked(aX, aY, rg["bpsi"], mode,
+                                        aX.ndim - 2)
     pt_ok = pt_ok & (mup > 0.0) & (mup <= _MUP_CEILING)
     contrib = torch.where(pt_ok, mup * rg["dist"], 0.0)
     ih = torch.sum(contrib, dim=-1)

@@ -151,13 +151,17 @@ def _magnetized_mu_mup(X, Y, bpsi_deg, mode_mult, sanitize, naive_o=False):
     return mu, mup, valid
 
 
-def _nanmax_abs_below(Y, y_tol):
-    """``jnp.nanmax(jnp.abs(Y)) < y_tol`` as a 0-d bool tensor (no sync)."""
-    a = torch.abs(Y)
+def _nanmax_abs_below(Y, y_tol, batch_dims=0):
+    """``jnp.nanmax(jnp.abs(Y)) < y_tol`` (no sync) for each index of the
+    first ``batch_dims`` axes, reduced over the others and kept as size-1
+    axes so that it broadcasts against ``Y``: what ``jax.vmap`` over those
+    axes decides. ``batch_dims=0`` decides once over the whole array."""
+    a = torch.abs(Y).flatten(batch_dims)
     nan = torch.isnan(a)
-    m = torch.where(nan, -math.inf, a).amax()
+    m = torch.where(nan, -math.inf, a).amax(dim=-1)
     # all-NaN input: nanmax is NaN and the comparison is False
-    return (m < y_tol) & ~nan.all()
+    below = (m < y_tol) & ~nan.all(dim=-1)
+    return below.reshape(below.shape + (1,) * (Y.ndim - batch_dims))
 
 
 def find_mu_mup(X, Y, bpsi, mode="O", *, y_tol=1e-12, arithmetic="stable"):
@@ -166,8 +170,18 @@ def find_mu_mup(X, Y, bpsi, mode="O", *, y_tol=1e-12, arithmetic="stable"):
     ``X``, ``Y``, ``bpsi`` [deg] are broadcastable; ``mode`` ∈ {'O','X'}.
     ``arithmetic="stable"`` (default) evaluates the O-mode branch with the
     cancellation-free factorisation; ``"reference"`` replicates the
-    reference's expression sequence, rounding error included.
+    reference's expression sequence, rounding error included. The
+    unmagnetised branch is decided once over the whole input.
     """
+    return _find_mu_mup(X, Y, bpsi, mode, 0, y_tol=y_tol,
+                        arithmetic=arithmetic)
+
+
+def _find_mu_mup(X, Y, bpsi, mode, batch_dims, *, y_tol=1e-12,
+                 arithmetic="stable"):
+    """:func:`find_mu_mup` with the unmagnetised branch decided for each
+    index of the first ``batch_dims`` axes (of the broadcast shape): the
+    JAX package's ``vmap`` of the one-profile call over those axes."""
     if arithmetic not in ("stable", "reference"):
         raise ValueError("arithmetic must be 'stable' or 'reference'")
     mm = mode_multiplier(mode)
@@ -178,7 +192,7 @@ def find_mu_mup(X, Y, bpsi, mode="O", *, y_tol=1e-12, arithmetic="stable"):
         X, Y, bpsi, mm, sanitize=False,
         naive_o=(arithmetic == "reference"))
 
-    unmag = _nanmax_abs_below(Y, y_tol)
+    unmag = _nanmax_abs_below(Y, y_tol, batch_dims)
     mu = torch.where(unmag, iso_mu, mag_mu)
     mup = torch.where(unmag, iso_mup, mag_mup)
     return mu, mup
@@ -188,7 +202,15 @@ def find_mu_mup_masked(X, Y, bpsi, mode="O", *, y_tol=1e-12):
     """Gradient-safe variant: (μ, μ', valid) with finite entries everywhere.
 
     Invalid entries carry placeholder finite values and ``valid=False``;
-    downstream code masks with ``torch.where(valid, ..., 0)``.
+    downstream code masks with ``torch.where(valid, ..., 0)``. The
+    unmagnetised branch is decided once over the whole input.
+    """
+    return _find_mu_mup_masked(X, Y, bpsi, mode, 0, y_tol=y_tol)
+
+
+def _find_mu_mup_masked(X, Y, bpsi, mode, batch_dims, *, y_tol=1e-12):
+    """:func:`find_mu_mup_masked` with the unmagnetised branch decided for
+    each index of the first ``batch_dims`` axes (see :func:`_find_mu_mup`).
     """
     mm = mode_multiplier(mode)
     X, Y, bpsi = torch.broadcast_tensors(*as_tensors(X, Y, bpsi))
@@ -201,7 +223,7 @@ def find_mu_mup_masked(X, Y, bpsi, mode="O", *, y_tol=1e-12):
     iso_mu = torch.sqrt(torch.where(iso_valid, mu2, 1.0))
     iso_mup = 1.0 / torch.where(iso_valid, iso_mu, 1.0)
 
-    unmag = _nanmax_abs_below(Y, y_tol)
+    unmag = _nanmax_abs_below(Y, y_tol, batch_dims)
     valid = torch.where(unmag, iso_valid, mag_valid)
     mu = torch.where(unmag, iso_mu, torch.where(mag_valid, mag_mu, 1.0))
     mup = torch.where(unmag, iso_mup, torch.where(mag_valid, mag_mup, 0.0))

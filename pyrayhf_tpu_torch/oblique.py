@@ -231,11 +231,12 @@ def _resolve_fan_engine(engine, z_np, x_np, device_type="cpu"):
     from .pallas_ray import fan_2d_pallas_available
 
     if engine == "auto":
-        if device_type == "cuda" and fan_2d_pallas_available(z_np, x_np):
+        if (device_type == "cuda"
+                and fan_2d_pallas_available(z_np, x_np, None)):
             return "pallas"
         return "xla"
     if engine == "pallas":
-        if not fan_2d_pallas_available(z_np, x_np):
+        if not fan_2d_pallas_available(z_np, x_np, None):
             raise ValueError(
                 "engine='pallas' requires uniform z/x grids; use "
                 "engine='xla' for this geometry")

@@ -94,9 +94,11 @@ class FanGeometry:
     re: float
 
 
-def fan_2d_pallas_available(z_np, x_np):
+def fan_2d_pallas_available(z_np, x_np, n_elev):
     """True when the kernel can run this geometry: uniform z and x grids
-    (the locate is index arithmetic). No table-size gate applies."""
+    (the locate is index arithmetic). ``n_elev`` is the JAX signature's
+    and unused: the card has no VMEM budget to check, so no table-size
+    gate applies."""
     return uniform_axis(host_f64(z_np)) and uniform_axis(host_f64(x_np))
 
 
@@ -109,7 +111,7 @@ def fan_geometry(z_np, x_np, geometry):
     if geometry not in ("cartesian", "spherical"):
         raise ValueError("geometry must be 'cartesian' or 'spherical'")
     z64, x64 = host_f64(z_np), host_f64(x_np)
-    if not fan_2d_pallas_available(z64, x64):
+    if not fan_2d_pallas_available(z64, x64, None):
         raise ValueError("the fan kernel requires uniform z/x grids; use "
                          "engine='xla' for this geometry")
     re = float(R_E)
@@ -293,6 +295,16 @@ def launch_fan(geo, tab, elevs, ds, *, n_steps, n_hops=1, x0=0.0, z0=None):
     return dict(zip(OUTPUTS, out.unbind(0)))
 
 
+def _differentiated(t):
+    """True when autograd, ``torch.autograd.forward_ad`` or a ``torch.func``
+    transform follows ``t``: the kernel reads raw pointers, so its result
+    would carry no derivative (a zero tangent, silently)."""
+    return isinstance(t, torch.Tensor) and (
+        t.requires_grad
+        or torch.autograd.forward_ad.unpack_dual(t).tangent is not None
+        or torch._C._functorch.is_functorch_wrapped_tensor(t))
+
+
 def fan_2d_pallas(z_np, x_np, mu_f, mup_f, kappa_f, elevs, ds, *,
                   geometry="cartesian", n_steps, n_hops=1, x0=0.0,
                   z0=None, interpret=False):
@@ -311,10 +323,10 @@ def fan_2d_pallas(z_np, x_np, mu_f, mup_f, kappa_f, elevs, ds, *,
     if dev.type == "cuda" and interpret:
         raise ValueError("interpret=True has no meaning for a CUDA kernel; "
                          "pass CPU tensors to run the plain version")
-    if any(isinstance(t, torch.Tensor) and t.requires_grad
-           for t in (mu_f, mup_f, kappa_f, elevs, ds)):
-        raise ValueError("the fan kernel has no backward; use engine='xla' "
-                         "of the oblique fan for gradients")
+    if any(_differentiated(t) for t in (mu_f, mup_f, kappa_f, elevs, ds)):
+        raise ValueError("the fan kernel has no backward and no forward-"
+                         "mode rule; use engine='xla' of the oblique fan "
+                         "for derivatives")
     geo = fan_geometry(z_np, x_np, geometry)
     dtype = mu_f.dtype
     elevs = torch.as_tensor(elevs).to(dtype=dtype, device=dev).contiguous()

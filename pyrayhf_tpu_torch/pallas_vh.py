@@ -36,10 +36,13 @@ tensors, and only there; on any other device it raises. ``LAUNCHES``
 counts kernel launches and ``PLAIN_CALLS`` calls of the plain versions, so
 a run can show which of the two it went through.
 
-Gradients: :class:`_PallasAD` (the counterpart of the JAX ``_pallas_ad``
-custom JVP) runs the kernel forward and recomputes the VJP through the
-plain segment sweep :func:`ionogram_fast_xla`, which evaluates the same
-discretisation; the TPU kernels had no backward kernel either.
+Derivatives: :class:`_PallasAD` (the counterpart of the JAX
+``_pallas_ad`` custom JVP) runs the kernel forward and takes every
+derivative (VJP, JVP, under ``torch.func`` transforms and
+``torch.autograd.forward_ad`` alike) through the plain segment sweep
+:func:`ionogram_fast_xla`, which evaluates the same discretisation; the
+TPU kernels had no derivative kernel either. ``vmap`` of a wrapper over a
+profile stack folds into one launch.
 """
 
 import dataclasses
@@ -49,7 +52,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ._util import clip, profile_tensors, scalar_like
+from ._util import clip, host_f64, profile_tensors, scalar_like
 from .config import resolve
 from .constants import CP, G_P
 
@@ -76,8 +79,7 @@ def reset_counters():
 
 def uniform_inv_dalt(alt):
     """1/Δalt for a uniformly spaced grid, else None (reads ``alt`` on host)."""
-    a = (alt.detach().cpu().double().numpy() if isinstance(alt, torch.Tensor)
-         else np.asarray(alt, dtype=np.float64))
+    a = host_f64(alt)
     if a.ndim != 1:
         return None
     d = np.diff(a)
@@ -351,13 +353,15 @@ def _grid_tensors(n_points, like):
 def _grid_tensors_on(n_points, dtype, device):
     # kept per (P, dtype, device), so that a loop of forward calls (the LM
     # retrieval) copies nothing from the host; the one copy to the card
-    # goes from pinned memory without waiting for the stream
+    # goes from pinned memory without waiting for the stream; made outside
+    # any torch.func transform, which could wrap the cached copies
     out = []
-    for a in _stretched_grid_tables(n_points):
-        t = torch.from_numpy(a).to(dtype)
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        out.append(t.to(device))
+    with torch._C._DisableFuncTorch():
+        for a in _stretched_grid_tables(n_points):
+            t = torch.from_numpy(a).to(dtype)
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            out.append(t.to(device))
     return tuple(out)
 
 
@@ -373,8 +377,13 @@ def ionogram_fast_xla(freq_mhz, den, bmag, bpsi, alt, mode_mult=1.0,
     card unless ``device`` says otherwise (``device="cpu"``).
     """
     PLAIN_CALLS["sweep"] += 1
-    freq_mhz, den, bmag, bpsi, alt = profile_tensors(freq_mhz, den, bmag,
-                                                     bpsi, alt, device=device)
+    return _sweep(*profile_tensors(freq_mhz, den, bmag, bpsi, alt,
+                                   device=device), mode_mult, n_points)
+
+
+def _sweep(freq_mhz, den, bmag, bpsi, alt, mode_mult, n_points):
+    """:func:`ionogram_fast_xla` on tensors, uncounted: the derivative
+    rule's calls are not a plain version standing in for a kernel."""
     freq_hz = freq_mhz * 1e6
     B, N = den.shape
 
@@ -968,32 +977,107 @@ def _run(cfg, freq_mhz, den, bmag, bpsi, alt):
     return launch_mxu(a) if kind == "mxu" else launch_kernel(a)
 
 
+def _sweep_of(cfg, xs, at):
+    """:func:`ionogram_fast_xla` under ``cfg`` as a function of the inputs
+    at positions ``at`` of ``xs`` (freq, den, bmag, bpsi, alt), the others
+    held fixed."""
+    def f(*w):
+        args = list(xs)
+        for i, x in zip(at, w):
+            args[i] = x
+        return _sweep(*args, cfg["mode_mult"], cfg["n_points"])
+    return f
+
+
+def _jvp_nesting():
+    """How many ``torch.func`` forward transforms (jvp, jacfwd) are open:
+    0 inside a Function's jvp rule means ``torch.autograd.forward_ad``."""
+    from torch._functorch import eager_transforms
+    return eager_transforms.JVP_NESTING
+
+
 class _PallasAD(torch.autograd.Function):
-    """Kernel forward; VJP recomputed through :func:`ionogram_fast_xla`.
+    """Kernel forward; derivatives through :func:`ionogram_fast_xla`.
 
     Counterpart of the JAX ``_pallas_ad`` custom JVP: the sweep evaluates
     the same discretisation, so its derivatives are the kernel's to their
-    forward agreement.
+    forward agreement. Every mode is covered: ``backward`` is the sweep's
+    ``torch.func.vjp`` (so ``torch.func.grad``/``jacrev``/``hessian`` and
+    double backward compose), ``jvp`` its ``torch.func.jvp`` beside the
+    kernel's primal (``torch.autograd.forward_ad``, ``torch.func.jvp``,
+    ``jacfwd``), and ``vmap`` a hand-written batching rule (the forward
+    hands raw pointers to the CUDA library, so no rule can be generated).
     """
 
     @staticmethod
-    def forward(ctx, cfg, freq_mhz, den, bmag, bpsi, alt):
-        ctx.cfg = cfg
-        ctx.save_for_backward(freq_mhz, den, bmag, bpsi, alt)
+    def forward(cfg, freq_mhz, den, bmag, bpsi, alt):
         return _run(cfg, freq_mhz, den, bmag, bpsi, alt)
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        cfg, *xs = inputs
+        ctx.cfg = cfg
+        ctx.save_for_backward(*xs)
+        ctx.save_for_forward(*xs)
+
+    @staticmethod
     def backward(ctx, g):
-        cfg = ctx.cfg
         needs = ctx.needs_input_grad[1:]
-        with torch.enable_grad():
-            xs = [x.detach().requires_grad_(n)
-                  for x, n in zip(ctx.saved_tensors, needs)]
-            out = ionogram_fast_xla(*xs, mode_mult=cfg["mode_mult"],
-                                    n_points=cfg["n_points"])
-            want = [x for x, n in zip(xs, needs) if n]
-            got = iter(torch.autograd.grad(out, want, g, allow_unused=True))
-        return (None, *[next(got) if n else None for n in needs])
+        at = [i for i, n in enumerate(needs) if n]
+        xs = ctx.saved_tensors
+        if not at:
+            return (None,) * 6
+        _, vjp = torch.func.vjp(_sweep_of(ctx.cfg, xs, at),
+                                *[xs[i] for i in at])
+        got = dict(zip(at, vjp(g)))
+        return (None, *[got.get(i) for i in range(5)])
+
+    @staticmethod
+    def jvp(ctx, _cfg_t, *tangents):
+        # a None tangent is a zero one, as JAX instantiates SymbolicZero
+        xs = ctx.saved_tensors
+        ts = tuple(torch.zeros_like(x) if t is None else t
+                   for x, t in zip(xs, tangents))
+        f = _sweep_of(ctx.cfg, xs, range(5))
+        nesting = _jvp_nesting()
+        if nesting > 1:
+            # PyTorch does not differentiate a Function's jvp rule: an outer
+            # forward transform would read a zero tangent here
+            raise NotImplementedError(
+                "forward mode over forward mode (jacfwd of jacfwd) through "
+                "a kernel entry point; use torch.func.hessian (jacfwd of "
+                "jacrev) or engine='xla'")
+        if nesting == 1:
+            return torch.func.jvp(f, xs, ts)[1]
+        # torch.autograd.forward_ad: its one dual level is open, so
+        # torch.func.jvp cannot open another; make duals on it instead
+        fwad = torch.autograd.forward_ad
+        with fwad._set_fwd_grad_enabled(True):
+            out = f(*[fwad.make_dual(x.detach(), t) for x, t in zip(xs, ts)])
+            return fwad.unpack_dual(out).tangent
+
+    @staticmethod
+    def vmap(info, in_dims, cfg, *xs):
+        """Batching rule. With only den/bmag/bpsi batched (the common case:
+        ``vmap`` over profile stacks, ``jacfwd``'s tangents never reach the
+        forward), the vmapped dim is folded into the profile axis and ONE
+        ``apply`` (one kernel launch) computes [V·B, F]. A batched ``freq``
+        or ``alt`` runs one ``apply`` per slice and stacks them: as correct
+        as JAX's batching of the custom JVP, and V launches slower."""
+        dims = in_dims[1:]
+        V = info.batch_size
+        if dims[0] is None and dims[4] is None:
+            prof = [x.movedim(d, 0) if d is not None
+                    else x.expand(V, *x.shape)
+                    for x, d in zip(xs[1:4], dims[1:4])]
+            B = prof[0].shape[1]
+            flat = [p.reshape(V * B, *p.shape[2:]) for p in prof]
+            out = _PallasAD.apply(cfg, xs[0], *flat, xs[4])
+            return out.reshape(V, B, -1), 0
+        outs = [_PallasAD.apply(cfg, *[x if d is None else x.select(d, v)
+                                       for x, d in zip(xs, dims)])
+                for v in range(V)]
+        return torch.stack(outs), 0
 
 
 def _mode_mult(mode_mult, config):

@@ -26,10 +26,9 @@ devices at the first index of that axis.
 (``csrc/ionogram.cu``) once per (batch, freq) block on CUDA tensors; the
 other functions are plain torch, as they are plain XLA in the JAX package.
 The batched functions decide the unmagnetised branch of the Appleton–
-Hartree index (|Y| < 1e-12 everywhere) over a shard's whole stack, as the
-port's batched operators do, where the JAX package's ``vmap`` decides it per
-profile: the two differ only for a profile without a field in a stack with
-one.
+Hartree index (|Y| < 1e-12 everywhere) per profile, as the JAX package's
+``vmap`` does; :func:`vh_height_sharded` decides it per height shard, as
+each JAX ``shard_map`` shard does.
 """
 
 import collections

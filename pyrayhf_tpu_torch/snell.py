@@ -39,7 +39,7 @@ from .absorption import absorption_coefficient, collision_frequency
 from .config import resolve
 from .constants import C_KM_S, R_E
 from .ground import _hypot
-from .magnetoionic import find_mu_mup, find_X, find_Y, mode_multiplier
+from .magnetoionic import _find_mu_mup, find_X, find_Y, mode_multiplier
 
 __all__ = ["trace_ray_cartesian_snells", "trace_ray_spherical_snells",
            "trace_rays_cartesian_snells", "trace_rays_spherical_snells"]
@@ -222,7 +222,8 @@ def _prep(f0s, alt, ne, babs, bpsi, nu, mode_mult):
     f = f0s[None, :, None]
     X = find_X(ne[:, None, :], f)
     Y = find_Y(f, babs[:, None, :])
-    mu, mup = find_mu_mup(X, Y, bpsi[:, None, :].expand_as(X), mode)
+    # per (profile, frequency), as the JAX package vmaps its prep
+    mu, mup = _find_mu_mup(X, Y, bpsi[:, None, :].expand_as(X), mode, 2)
     mu = torch.where(torch.isfinite(mu) & (mu > 0.0), mu, _NAN)
     mup = torch.where(torch.isfinite(mup) & (mup > 0.0), mup, _NAN)
     kappa = absorption_coefficient(ne[:, None, :], nu[:, None, :], f,

@@ -299,3 +299,20 @@ def test_host_data_goes_to_the_mesh(no_card, name):
     out = MESH_ENTRY_POINTS[name](mesh)
     assert isinstance(out, torch.Tensor) and out.device.type == "cpu"
     assert out.dtype == torch.float64
+
+
+def test_fan_availability_takes_the_jax_signature():
+    """``fan_2d_pallas_available(z_np, x_np, n_elev)``, as the JAX package
+    calls it: ``n_elev`` is accepted and unused (the card has no VMEM
+    gate), so only uniform grids decide, on host grids and tensors."""
+    from pyrayhf_tpu_torch.pallas_ray import fan_2d_pallas_available
+
+    z, x = np.linspace(0.0, 620.0, 621), np.linspace(0.0, 3995.0, 800)
+    for n_elev in (1, 128, 4096):
+        assert fan_2d_pallas_available(z, x, n_elev)
+        assert fan_2d_pallas_available(torch.from_numpy(z), x, n_elev)
+    z_nu = z.copy()
+    z_nu[5] += 0.3
+    assert not fan_2d_pallas_available(z_nu, x, 128)
+    with pytest.raises(TypeError):
+        fan_2d_pallas_available(z, x)

@@ -108,7 +108,7 @@ def test_no_table_size_gate():
     engine's VMEM gate, admitted here (only uniformity is required)."""
     z, x = np.linspace(0.0, 620.0, 621), np.linspace(0.0, 3995.0, 800)
     assert not JR.fan_2d_pallas_available(z, x, 128)
-    assert TR.fan_2d_pallas_available(z, x)
+    assert TR.fan_2d_pallas_available(z, x, 128)
     geo = TR.fan_geometry(z, x, "spherical")
     assert (geo.nz, geo.nx) == (621, 800)
     assert geo.ground == 6371.0 and geo.hi == 3995.0 / 6371.0

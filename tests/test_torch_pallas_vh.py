@@ -20,7 +20,9 @@ import jax
 import jax.numpy as jnp
 from numpy.testing import assert_allclose
 
+import pyrayhf_tpu.forward as JF
 import pyrayhf_tpu.pallas_vh as JV
+import pyrayhf_tpu_torch.forward as TF
 import pyrayhf_tpu_torch.pallas_vh as TV
 
 TOL_KM = 1e-6
@@ -589,3 +591,85 @@ def test_padded_rows_keep_the_plain_version(kind, mode_mult):
     ref = JV.ionogram_fast_xla(*_j((freqs, den, bmag, bpsi, alt)),
                                mode_mult=mode_mult, n_points=200)
     _assert_vh(TV.plain_ionogram(a), ref)
+
+
+def test_sub_gyro_x_rows_differ_between_the_jax_engines_too():
+    """X rows whose first node already exceeds the cutoff (sub-gyro
+    frequencies over a bottom nearly without plasma, under a |B| that
+    falls with height: chip_smoke.py's Chapman profiles): the JAX
+    package's own gather kernel (interpret mode) and its sweep give NaN
+    there, its parity operator alt[0] on three of these four profiles. The
+    port gives the same on each engine, so the difference between the
+    kernels and parity on these rows is inherited, not a fault of the
+    port."""
+    alt = np.linspace(80.0, 550.0, 180)
+    rng = np.random.default_rng(20250901)
+    B = 4
+    nm = 10.0 ** rng.uniform(11.0, np.log10(3e12), B)
+    hm = rng.uniform(220.0, 380.0, B)
+    H = rng.uniform(40.0, 70.0, B)
+    z = (alt[None, :] - hm[:, None]) / H[:, None]
+    den = nm[:, None] * np.exp(0.5 * (1.0 - z - np.exp(-z)))
+    e = rng.uniform(size=B) < 0.25
+    nme = rng.uniform(0.6, 1.2, B) * 0.15 * nm
+    ze = (alt[None, :] - rng.uniform(105.0, 120.0, B)[:, None]) / 8.0
+    den = den + e[:, None] * nme[:, None] * np.exp(
+        0.5 * (1.0 - ze - np.exp(-ze)))
+    b0 = rng.uniform(2.5e-5, 6.5e-5, B)
+    bmag = b0[:, None] * ((6371.0 + alt[0]) / (6371.0 + alt[None, :])) ** 3
+    bpsi = np.broadcast_to(rng.uniform(0.0, 90.0, B)[:, None],
+                           den.shape).copy()
+    freqs = np.array([0.2, 0.5, 0.8, 1.1, 2.0, 2.5])
+    args = (freqs, den, bmag, bpsi, alt)
+    t = [_t(a) for a in args]
+    port = {"gather": TV.ionogram_pallas_gather(*t, mode_mult=-1.0),
+            "sweep": TV.ionogram_pallas(*t, mode_mult=-1.0),
+            "parity": TF.vertical_forward_operator_batch(
+                *t, mode="X", engine="parity")}
+    ref = {"gather": JV.ionogram_pallas_gather(*_j(args), mode_mult=-1.0,
+                                               interpret=True),
+           "sweep": JV.ionogram_fast_xla(*_j(args), mode_mult=-1.0),
+           "parity": JF.vertical_forward_operator_batch(
+               *args, mode="X", engine="parity")}
+    for k in port:
+        _assert_vh(port[k], ref[k])
+    sub = freqs < 1.2                       # below every profile's f_H
+    kern, par = port["gather"].numpy(), port["parity"].numpy()
+    assert np.isnan(kern[:, sub]).all()
+    assert (par[:3, sub] == alt[0]).all() and np.isnan(par[3, sub]).all()
+    # above 2 MHz the engines agree (chip_smoke.py compares them there)
+    _assert_vh(kern[:, freqs > 2.0], par[:, freqs > 2.0])
+
+
+@pytest.mark.parametrize("mode,mm,cases", [
+    ("O", 1.0, ((1274, 12.5), (2919, 8.6), (9339, 10.7))),
+    ("X", -1.0, ((7318, 2.8), (7342, 2.2)))])
+def test_fast_vs_parity_beyond_1e6_km_is_the_jax_packages(mode, mm, cases):
+    """On chip_smoke.py's 10,512-profile global grid (f64) the kernels and
+    the parity operator part by more than 1e-6 km at these (profile, MHz)
+    pairs only: the JAX package's gather kernel (interpret mode) and its
+    parity operator part there by the same 1.1e-6 to 2.1e-6 km, and the
+    port equals the JAX package on each engine."""
+    import chip_smoke as cs
+
+    alt = np.linspace(80.0, 699.0, cs.N_ALT)
+    rng = np.random.default_rng(cs.SEED)
+    cs.profiles(rng, cs.B_MAIN, alt)
+    g = cs.profiles(rng, cs.GLOBAL_GRID[0] * cs.GLOBAL_GRID[1], alt)
+    rows = [r for r, _ in cases]
+    freqs = np.array([f for _, f in cases])
+    den, bmag, bpsi = (np.ascontiguousarray(a[rows]) for a in g)
+    args = (freqs, den, bmag, bpsi, alt)
+    t = [_t(a) for a in args]
+    port_k = TV.ionogram_pallas_gather(*t, mode_mult=mm).numpy()
+    port_p = TF.vertical_forward_operator_batch(*t, mode=mode,
+                                                engine="parity").numpy()
+    jax_k = np.asarray(JV.ionogram_pallas_gather(*_j(args[:4]), alt,
+                                                 mode_mult=mm,
+                                                 interpret=True))
+    jax_p = np.asarray(JF.vertical_forward_operator_batch(
+        *args, mode=mode, engine="parity"))
+    _assert_vh(port_k, jax_k)
+    _assert_vh(port_p, jax_p)
+    for d in (np.diag(port_k - port_p), np.diag(jax_k - jax_p)):
+        assert np.all(np.abs(d) > 1e-6) and np.all(np.abs(d) < 3e-6)

@@ -213,3 +213,29 @@ def test_spherical_f32_rays_stay_finite():
     fin = torch.isfinite(out[torch.float64])
     assert torch.allclose(out[torch.float32][fin].double(),
                           out[torch.float64][fin], rtol=1e-3)
+
+
+@pytest.mark.parametrize("mode", ["O", "X"])
+def test_cartesian_f32_grazing_fan_keeps_to_f64(mode):
+    """The Cartesian apex floor (``pe + 1e-8``, below float32's resolution
+    for p near 1) does not part grazing f32 rays from the JAX package's
+    f64 fan: the same rays land, none at an infinite range, within 2e-4
+    above 0.25° of elevation. At 0.05° the f32 error grows to a few
+    percent from p = μ0·sin(90° − el) itself (1 − p² ≈ 8e-7 is carried by
+    a few float32 ulps); the spherical floor's p·(1 + 4ε) changes that by
+    less than it, so the floor stays the JAX package's."""
+    alt, Ne, B, psi = _chapman()
+    f0s = np.array([5e6, 9e6, 13e6, 17e6])
+    els = np.array([0.05, 0.1, 0.3, 1.0, 2.0, 5.0, 15.0, 45.0])
+    port = TS.trace_rays_cartesian_snells(
+        *[torch.as_tensor(a, dtype=torch.float32)
+          for a in (f0s, els, alt, Ne, B, psi)], mode)["ground_range_km"]
+    ref = np.asarray(JS.trace_rays_cartesian_snells(
+        f0s, els, alt, Ne, B, psi, mode)["ground_range_km"])
+    port = port.double().numpy()
+    assert not np.isinf(port).any()
+    np.testing.assert_array_equal(np.isnan(port), np.isnan(ref))
+    rel = np.abs(port - ref) / np.abs(ref)
+    assert np.isfinite(ref[:, els > 0.25]).sum() > 20
+    assert np.nanmax(rel[:, els > 0.25]) < 2e-4
+    assert np.nanmax(rel) < 0.05
