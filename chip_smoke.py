@@ -420,6 +420,18 @@ AD_ALONE_ROWS = (0, 1, 7, 8, 9, 5000, 10504, 10511)
 AD_PARITY_EXCUSED = {"O": ((1274, 12.5), (2919, 8.6), (9339, 10.7)),
                      "X": ((7318, 2.8), (7342, 2.2))}
 AD_PARITY_EXCUSED_TOL = 3e-6
+# jacfwd of jacfwd in (density scale, |B| scale): kernels 1-3 and 5 on
+# AD_HESS_B profiles at AD_HESS_F frequencies spread over the band, kernel 4
+# at X-20k on 1 profile at 4 of them; against the plain sweep's jacfwd of
+# jacfwd (the same operations: the CPU tests hold both to JAX's). The
+# profiles on every AD_HESS_NODE_EVERY-th node (5 km): a derivative
+# transform costs host time per segment step (3.1-4.7 s a jacfwd of jacfwd
+# on all 620 nodes, H100)
+AD_HESS_B, AD_HESS_F, AD_HESS_X20K_F, AD_HESS_NODE_EVERY = 2, 8, 4, 5
+AD_HESS_RTOL = 1e-12
+# vmap of the fan kernel: 2 field stacks (the typical 512 x 32 slice, its
+# layer as it is and 10 % denser) at F = 8, E = 32, the fan phase's steps
+AD_FAN_F, AD_FAN_E, AD_FAN_DENSER = 8, 32, 1.1
 
 
 def fan_grid(kind):
@@ -2749,8 +2761,13 @@ def ad_phase(torch, prt, dev, card, freqs, alt, main_prof, glob, x20k):
     grid cut 4 x 2,628 (one launch, equal to the whole call bit for bit);
     the parity engine on the global grid with every 8th profile's |B| = 0
     (rows equal to their profile alone, f64 equal to ``auto`` above 2 MHz);
-    the fan kernel under forward mode, which must raise. Returns (summary,
-    launches by kernel over the counted parts).
+    ``jacfwd`` of ``jacfwd`` through kernels 1-5 (f64; one launch each for
+    the primal, no plain version; against the plain sweep's), with ``jvp``
+    of ``jvp`` keeping the kernel's primal bit for bit;
+    ``torch.func.vmap`` of the fan kernel over two field stacks (one
+    launch, bit for bit two separate launches, f32 and f64); the fan kernel
+    under forward mode, which must raise. Returns (summary, launches by
+    kernel over the counted parts, ``fan_2d`` among them).
     """
     from pyrayhf_tpu_torch import pallas_vh as pv
 
@@ -2911,6 +2928,83 @@ def ad_phase(torch, prt, dev, card, freqs, alt, main_prof, glob, x20k):
     spans["jac_s"] = time.perf_counter() - t_phase - sum(spans.values())
     torch.cuda.empty_cache()
 
+    # ---- jacfwd of jacfwd through kernels 1-5 -------------------------------
+    hf = freqs[np.linspace(0, len(freqs) - 1, AD_HESS_F).round().astype(int)]
+    nodes = slice(None, None, AD_HESS_NODE_EVERY)
+    h_alt = alt[nodes]
+    print(f"AD phase: jacfwd of jacfwd in (density scale, |B| scale), f64, "
+          f"through kernels 1-5 ({AD_HESS_B} profiles x {AD_HESS_F} "
+          f"frequencies at O/X-{P_MAIN}; kernel 4 at X-20k on 1 profile x "
+          f"{AD_HESS_X20K_F} frequencies; {len(h_alt)} nodes, every "
+          f"{AD_HESS_NODE_EVERY}th), each against the plain sweep's (rtol "
+          f"{AD_HESS_RTOL}); jvp of jvp keeps the kernel's primal bit for "
+          "bit", flush=True)
+    hb = slice(0, AD_HESS_B)
+    h_small = [T(x, f64) for x in (hf, den[hb, nodes], bmag[hb, nodes],
+                                   bpsi[hb, nodes], h_alt)]
+    h_x = [T(x, f64) for x in (hf[::AD_HESS_F // AD_HESS_X20K_F],
+                               xden[:1, nodes], xbmag[:1, nodes],
+                               xbpsi[:1, nodes], h_alt)]
+    h_cases = {
+        "gather_osolve": (prt.ionogram_pallas_gather, 1.0, h_small, P_MAIN,
+                          {}),
+        "gather_xsolve": (prt.ionogram_pallas_gather, -1.0, h_small, P_MAIN,
+                          {}),
+        "gather": (prt.ionogram_pallas_gather, -1.0, h_small, P_MAIN,
+                   {"x_in_kernel_solve": False}),
+        "sweep": (prt.ionogram_pallas, -1.0, h_x, P_X20K, {}),
+        "mxu": (prt.ionogram_pallas_mxu, 1.0, h_small, P_MAIN, {}),
+    }
+    q0 = torch.ones(2, dtype=f64, device=dev)
+
+    def of_q(fn, mm, t, P, kw):
+        """The ionogram of q = (density scale, |B| scale)."""
+        def f(q):
+            return fn(t[0], q[0] * t[1], q[1] * t[2], t[3], t[4],
+                      mode_mult=mm, n_points=P, **kw)
+        return f
+
+    def hessian(f):
+        return torch.func.jacfwd(torch.func.jacfwd(f))(q0)
+
+    hess, refs = {}, {}
+    for kind, (entry, mm, t, P, kw) in h_cases.items():
+        f_k = of_q(entry, mm, t, P, kw)
+        alone, fwd_ms = timed(lambda: f_k(q0))
+        h, got_h, h_ms = counted(f"jacfwd of jacfwd through {kind}",
+                                 lambda: hessian(f_k))
+        primal, got_p, jj_ms = counted(
+            f"jvp of jvp through {kind}",
+            lambda: torch.func.jvp(
+                lambda q: torch.func.jvp(f_k, (q,), (q0,))[0], (q0,),
+                (q0,))[0])
+        for what, got in (("jacfwd of jacfwd", got_h), ("jvp of jvp", got_p)):
+            check(got[kind] == 1 and sum(got.values()) == 1,
+                  f"{what} {kind}: launches {got}")
+        same = torch.equal(torch.nan_to_num(primal, nan=-1.0),
+                           torch.nan_to_num(alone, nan=-1.0))
+        check(same, f"jvp of jvp {kind}: primal differs from the call "
+              "without AD")
+        key = (mm, id(t), P)
+        if key not in refs:
+            refs[key] = hessian(of_q(pv.ionogram_fast_xla, mm, t, P, {}))
+        err = close_rel(f"{kind} jacfwd of jacfwd {tuple(h.shape)} vs the "
+                        "sweep's", h, refs[key], AD_HESS_RTOL)
+        n_fin = int(torch.isfinite(h).sum())
+        check(n_fin > 0, f"{kind}: no finite second derivative")
+        hess[kind] = {"shape": list(h.shape), "finite": n_fin,
+                      "vs_sweep": err, "primal_bitwise": same,
+                      "forward_ms": fwd_ms, "jacfwd_jacfwd_ms": h_ms,
+                      "jvp_jvp_ms": jj_ms}
+        print(f"  {kind}: {n_fin} finite second derivatives of "
+              f"{h.numel()}; forward alone {fwd_ms:.3f} ms, jacfwd of "
+              f"jacfwd {h_ms:.3f} ms, jvp of jvp {jj_ms:.3f} ms; {card}",
+              flush=True)
+    del refs
+    summary["jacfwd_jacfwd"] = hess
+    spans["hess_s"] = time.perf_counter() - t_phase - sum(spans.values())
+    torch.cuda.empty_cache()
+
     # ---- vmap of the gather entry over the global grid ----------------------
     n_glob = gden.shape[0]
     gi = [T(x, torch.float32) for x in (freqs, gden, gbmag, gbpsi, alt)]
@@ -2982,6 +3076,65 @@ def ad_phase(torch, prt, dev, card, freqs, alt, main_prof, glob, x20k):
     torch.cuda.empty_cache()
     spans["parity_s"] = time.perf_counter() - t_phase - sum(spans.values())
 
+    # ---- vmap of the fan kernel over field stacks ---------------------------
+    from pyrayhf_tpu_torch import oblique, pallas_ray as pr
+    from pyrayhf_tpu_torch import profiling
+    fz, fx, ne, babs, fpsi, nu = fan_scene("typical")
+    f0s = np.linspace(4e6, 30e6, AD_FAN_F)
+    n_steps = int(round(FAN_SMAX / FAN_STEP))
+    print(f"AD phase: torch.func.vmap of fan_2d_pallas over 2 field stacks "
+          f"(the typical {len(fz)} x {len(fx)} slice, its layer and "
+          f"{AD_FAN_DENSER}x denser), F={AD_FAN_F} x E={AD_FAN_E} x "
+          f"{n_steps} steps: one launch, bit for bit two separate launches",
+          flush=True)
+    fan_vmap = {}
+    for dtype in (torch.float32, f64):
+        dname = str(dtype).split(".")[-1]
+        fields = [oblique._fan_fields(T(f0s, dtype), T(ne * s, dtype),
+                                      T(babs, dtype), T(fpsi, dtype),
+                                      T(nu, dtype), "O")
+                  for s in (1.0, AD_FAN_DENSER)]
+        stack = [torch.stack(fs) for fs in zip(*fields)]
+        elevs = torch.linspace(5.0, 85.0, AD_FAN_E, dtype=dtype, device=dev)
+
+        def fan(mu, mup, kap):
+            return pr.fan_2d_pallas(fz, fx, mu, mup, kap, elevs, FAN_STEP,
+                                    n_steps=n_steps)
+
+        def folded():
+            return torch.func.vmap(fan)(*stack)
+
+        def separate():
+            return [fan(*f) for f in fields]
+        torch.cuda.synchronize()
+        pr.reset_counters()
+        out = folded()
+        torch.cuda.synchronize()
+        got = dict(pr.LAUNCHES)
+        print(f"  fan vmap {dname}: fan launches {got}, plain-version calls "
+              f"{dict(pr.PLAIN_CALLS)}", flush=True)
+        check(got["fan_2d"] == 1 and pr.PLAIN_CALLS["fan_2d"] == 0,
+              f"fan vmap {dname}: launches {got}")
+        launches["fan_2d"] = launches.get("fan_2d", 0) + got["fan_2d"]
+        each = separate()
+        same = all(torch.equal(torch.nan_to_num(out[k][v], nan=-7.0),
+                               torch.nan_to_num(each[v][k], nan=-7.0))
+                   for k in pr.OUTPUTS for v in range(2))
+        landed = float(torch.isfinite(out["ground_range_km"]).double().mean())
+        check(same, f"fan vmap {dname}: the fold differs from two launches")
+        check(0.0 < landed < 1.0, f"fan vmap {dname}: landed {landed}")
+        fold_ms, _ = profiling.time_launch(folded, iters=5, warmup=1)
+        sep_ms, _ = profiling.time_launch(separate, iters=5, warmup=1)
+        fan_vmap[dname] = {"bitwise": same, "landed": landed,
+                           "fold_ms": fold_ms, "separate_ms": sep_ms}
+        print(f"  fan vmap {dname}: equal to two launches bit for bit: "
+              f"{same}; landed {landed:.3f}; the fold {fold_ms:.3f} ms, two "
+              f"separate calls {sep_ms:.3f} ms (CUDA events, median of 5, "
+              f"each with its table packing); {card}", flush=True)
+        del fields, stack, out, each
+    summary["fan_vmap"] = fan_vmap
+    spans["fan_vmap_s"] = time.perf_counter() - t_phase - sum(spans.values())
+
     # ---- the fan kernel refuses forward mode ---------------------------------
     z, x = np.linspace(0.0, 400.0, 41), np.linspace(0.0, 1000.0, 11)
     mu = torch.full((2, 41, 11), 0.9, dtype=f64, device=dev)
@@ -2995,13 +3148,17 @@ def ad_phase(torch, prt, dev, card, freqs, alt, main_prof, glob, x20k):
     for how, call in (
             ("torch.func.jvp", lambda: torch.func.jvp(
                 fan, (mu,), (torch.ones_like(mu),))),
-            ("forward_ad", lambda: forward_ad_call(torch, fan, mu))):
+            ("forward_ad", lambda: forward_ad_call(torch, fan, mu)),
+            ("vmap of torch.func.jvp", lambda: torch.func.vmap(
+                lambda m: torch.func.jvp(fan, (m,), (torch.ones_like(m),)))(
+                    mu[None]))):
         try:
             call()
         except ValueError as e:
             refused.append(how)
             print(f"  fan_2d_pallas under {how}: raised ({e})", flush=True)
-    check(refused == ["torch.func.jvp", "forward_ad"],
+    check(refused == ["torch.func.jvp", "forward_ad",
+                      "vmap of torch.func.jvp"],
           f"fan_2d_pallas under forward mode did not raise: {refused}")
     summary["phase_s"] = time.perf_counter() - t_phase
     summary["parts_s"] = spans
@@ -3510,6 +3667,7 @@ def main():
             "valid_share": row["valid_share"], "layout": row["layout"],
             "shape": row["shape"], **extra.get(k, {})})
     mxu_entry["launches_ad_phase"] = ad_launches["mxu"]
+    fan_entry["launches_ad_phase"] = ad_launches["fan_2d"]
     kernels.append(mxu_entry)
     kernels.append(fan_entry)
     print(json.dumps({"kernels": kernels}))

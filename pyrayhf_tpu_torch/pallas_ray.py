@@ -20,8 +20,10 @@ them there (:func:`fan_path`).
 
 ``LAUNCHES`` and ``PLAIN_CALLS`` count kernel launches and plain calls.
 The kernel has no backward (the TPU kernel had no autodiff rule either):
-inputs that require grad raise; ``engine="xla"`` of the oblique fan is
-differentiable through autograd. Unlike the TPU engine, no table-size
+inputs that require grad or carry a tangent raise; ``engine="xla"`` of the
+oblique fan is differentiable through autograd. ``torch.func.vmap`` over
+stacks of fields folds into one launch, as ``pallas_call``'s batching
+rule batches the TPU kernel. Unlike the TPU engine, no table-size
 gate applies: a table set that does not fit the card's memory raises the
 allocator's ``torch.cuda.OutOfMemoryError``.
 """
@@ -297,12 +299,21 @@ def launch_fan(geo, tab, elevs, ds, *, n_steps, n_hops=1, x0=0.0, z0=None):
 
 def _differentiated(t):
     """True when autograd, ``torch.autograd.forward_ad`` or a ``torch.func``
-    transform follows ``t``: the kernel reads raw pointers, so its result
-    would carry no derivative (a zero tangent, silently)."""
-    return isinstance(t, torch.Tensor) and (
-        t.requires_grad
-        or torch.autograd.forward_ad.unpack_dual(t).tangent is not None
-        or torch._C._functorch.is_functorch_wrapped_tensor(t))
+    derivative transform (grad, jvp and the jac* built on them) follows
+    ``t``: the kernel reads raw pointers, so its result would carry no
+    derivative (a zero tangent, silently). A ``vmap`` level alone does
+    not: :class:`_FanKernel` has a batching rule."""
+    if not isinstance(t, torch.Tensor):
+        return False
+    if t.requires_grad or (torch.autograd.forward_ad.unpack_dual(t).tangent
+                           is not None):
+        return True
+    ft = torch._C._functorch
+    while ft.is_functorch_wrapped_tensor(t):
+        if not ft.is_batchedtensor(t):
+            return True
+        t = ft.get_unwrapped(t)
+    return False
 
 
 def fan_2d_pallas(z_np, x_np, mu_f, mup_f, kappa_f, elevs, ds, *,
@@ -315,7 +326,9 @@ def fan_2d_pallas(z_np, x_np, mu_f, mup_f, kappa_f, elevs, ds, *,
     (deg); ``ds``: step (km). Returns a dict of [F, E] tensors (see
     :data:`OUTPUTS`). Runs the CUDA kernel on CUDA tensors and
     :func:`plain_fan` on CPU tensors (``interpret`` has no meaning for a
-    CUDA kernel and raises there); any other device raises.
+    CUDA kernel and raises there); any other device raises. Under
+    ``torch.func.vmap`` (:class:`_FanKernel`) a stack of field sets runs as
+    one launch over the folded frequency axis; derivatives raise.
     """
     dev = mu_f.device
     if dev.type not in ("cuda", "cpu"):
@@ -327,12 +340,59 @@ def fan_2d_pallas(z_np, x_np, mu_f, mup_f, kappa_f, elevs, ds, *,
         raise ValueError("the fan kernel has no backward and no forward-"
                          "mode rule; use engine='xla' of the oblique fan "
                          "for derivatives")
-    geo = fan_geometry(z_np, x_np, geometry)
     dtype = mu_f.dtype
-    elevs = torch.as_tensor(elevs).to(dtype=dtype, device=dev).contiguous()
-    ds = torch.as_tensor(ds).to(dtype=dtype, device=dev)
-    tab = pack_tables(geo, mu_f, mup_f.to(dtype), kappa_f.to(dtype))
-    kw = dict(n_steps=int(n_steps), n_hops=int(n_hops), x0=x0, z0=z0)
-    if dev.type == "cuda":
+    args = (fan_geometry(z_np, x_np, geometry),
+            dict(n_steps=int(n_steps), n_hops=int(n_hops), x0=x0, z0=z0),
+            mu_f, mup_f.to(dtype), kappa_f.to(dtype),
+            torch.as_tensor(elevs).to(dtype=dtype, device=dev),
+            torch.as_tensor(ds).to(dtype=dtype, device=dev))
+    if torch._C._are_functorch_transforms_active():
+        return dict(zip(OUTPUTS, _FanKernel.apply(*args).unbind(0)))
+    return _fan(*args)
+
+
+def _fan(geo, kw, mu_f, mup_f, kappa_f, elevs, ds):
+    """Pack the tables; the kernel on CUDA tensors, its plain version on
+    CPU tensors."""
+    tab = pack_tables(geo, mu_f, mup_f, kappa_f)
+    elevs = elevs.contiguous()
+    if mu_f.device.type == "cuda":
         return launch_fan(geo, tab, elevs, ds, **kw)
     return plain_fan(geo, tab, elevs, ds, **kw)
+
+
+class _FanKernel(torch.autograd.Function):
+    """:func:`fan_2d_pallas` under ``torch.func.vmap``: the output rows
+    [len(OUTPUTS), F, E] of one kernel launch (its plain version on CPU
+    tensors), with a batching rule and no derivative, as the JAX kernel is
+    batched by ``pallas_call``'s rule and has no derivative either."""
+
+    @staticmethod
+    def forward(*args):
+        out = _fan(*args)
+        return torch.stack([out[k] for k in OUTPUTS])
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def vmap(info, in_dims, geo, kw, *xs):
+        """With only the fields batched, the mapped dim folds into the
+        frequency axis (each ray is independent, the kernel's path depends
+        on one frequency's table): ONE launch over [V·F, E]. A batched
+        ``elevs`` or ``ds`` runs one launch per slice."""
+        V = info.batch_size
+        dims = in_dims[2:]
+        if dims[3] is None and dims[4] is None:
+            fields = [x.movedim(d, 0) if d is not None
+                      else x.expand(V, *x.shape)
+                      for x, d in zip(xs[:3], dims[:3])]
+            F = fields[0].shape[1]
+            flat = [f.reshape(V * F, *f.shape[2:]) for f in fields]
+            rows = _FanKernel.apply(geo, kw, *flat, *xs[3:])
+            return rows.reshape(rows.shape[0], V, F, -1), 1
+        outs = [_FanKernel.apply(geo, kw, *[x if d is None else x.select(d, v)
+                                            for x, d in zip(xs, dims)])
+                for v in range(V)]
+        return torch.stack(outs), 0

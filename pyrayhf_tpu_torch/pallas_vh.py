@@ -42,7 +42,11 @@ derivative (VJP, JVP, under ``torch.func`` transforms and
 ``torch.autograd.forward_ad`` alike) through the plain segment sweep
 :func:`ionogram_fast_xla`, which evaluates the same discretisation; the
 TPU kernels had no derivative kernel either. ``vmap`` of a wrapper over a
-profile stack folds into one launch.
+profile stack folds into one launch. PyTorch does not differentiate a
+Function's jvp rule, so under two or more forward transforms (``jacfwd``
+of ``jacfwd``) a wrapper returns the sweep plus :class:`_KernelGap`, the
+kernel's value less the sweep's as a constant: every derivative order is
+the sweep's, as in JAX, and the value stays the kernel's bit for bit.
 """
 
 import dataclasses
@@ -1039,15 +1043,9 @@ class _PallasAD(torch.autograd.Function):
         ts = tuple(torch.zeros_like(x) if t is None else t
                    for x, t in zip(xs, tangents))
         f = _sweep_of(ctx.cfg, xs, range(5))
-        nesting = _jvp_nesting()
-        if nesting > 1:
-            # PyTorch does not differentiate a Function's jvp rule: an outer
-            # forward transform would read a zero tangent here
-            raise NotImplementedError(
-                "forward mode over forward mode (jacfwd of jacfwd) through "
-                "a kernel entry point; use torch.func.hessian (jacfwd of "
-                "jacrev) or engine='xla'")
-        if nesting == 1:
+        # one torch.func forward level at most: _apply sends two or more to
+        # _KernelGap, as PyTorch does not differentiate a Function's jvp
+        if _jvp_nesting() == 1:
             return torch.func.jvp(f, xs, ts)[1]
         # torch.autograd.forward_ad: its one dual level is open, so
         # torch.func.jvp cannot open another; make duals on it instead
@@ -1064,20 +1062,85 @@ class _PallasAD(torch.autograd.Function):
         ``apply`` (one kernel launch) computes [V·B, F]. A batched ``freq``
         or ``alt`` runs one ``apply`` per slice and stacks them: as correct
         as JAX's batching of the custom JVP, and V launches slower."""
-        dims = in_dims[1:]
-        V = info.batch_size
-        if dims[0] is None and dims[4] is None:
-            prof = [x.movedim(d, 0) if d is not None
-                    else x.expand(V, *x.shape)
-                    for x, d in zip(xs[1:4], dims[1:4])]
-            B = prof[0].shape[1]
-            flat = [p.reshape(V * B, *p.shape[2:]) for p in prof]
-            out = _PallasAD.apply(cfg, xs[0], *flat, xs[4])
-            return out.reshape(V, B, -1), 0
-        outs = [_PallasAD.apply(cfg, *[x if d is None else x.select(d, v)
-                                       for x, d in zip(xs, dims)])
-                for v in range(V)]
-        return torch.stack(outs), 0
+        return _fold_profiles(_PallasAD.apply, info, in_dims[1:], cfg, (),
+                              xs)
+
+
+class _KernelGap(torch.autograd.Function):
+    """The kernel's value less the sweep's, a constant to every transform.
+
+    Under two or more forward transforms (``jacfwd`` of ``jacfwd``, ``jvp``
+    of ``jvp``), :func:`_apply` returns ``S + (K − S)``: ``S`` the sweep
+    run through the transforms, so every derivative order is the sweep's,
+    as the JAX custom JVP gives, and ``K − S`` this Function, computed on
+    the innermost primals with no derivative. Where K and S lie within a
+    factor of 2 of each other (two virtual heights of one discretisation,
+    ~1e-9 apart), K − S is exact (Sterbenz) and S + (K − S) is K bit for
+    bit: the primal stays the kernel's. Where S is NaN the gap is K itself.
+    """
+
+    @staticmethod
+    def forward(cfg, s, freq_mhz, den, bmag, bpsi, alt):
+        k = _run(cfg, freq_mhz, den, bmag, bpsi, alt)
+        return torch.where(torch.isnan(s), k, k - s)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(output)
+
+    # a torch.func level calls these even for a non-differentiable output
+    @staticmethod
+    def backward(ctx, g):
+        return (None,) * 7
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        return None
+
+    @staticmethod
+    def vmap(info, in_dims, cfg, s, *xs):
+        """The same fold as :meth:`_PallasAD.vmap`: one launch for a stack
+        of profiles, ``s`` folded with them."""
+        return _fold_profiles(_KernelGap.apply, info, in_dims[2:], cfg,
+                              ((s, in_dims[1]),), xs)
+
+
+def _fold_profiles(apply, info, dims, cfg, lead, xs):
+    """A batching rule for ``apply(cfg, *lead, freq, den, bmag, bpsi,
+    alt)``: ``dims`` the batched dims of the five inputs, ``lead`` (tensor,
+    dim) pairs batched like the output [B, F]. With freq and alt unbatched
+    the mapped dim is folded into the profile axis (one call), else one call
+    per slice."""
+    V = info.batch_size
+
+    def at0(x, d):
+        return x.movedim(d, 0) if d is not None else x.expand(V, *x.shape)
+
+    if dims[0] is None and dims[4] is None:
+        prof = [at0(x, d) for x, d in zip(xs[1:4], dims[1:4])]
+        B = prof[0].shape[1]
+        flat = [p.reshape(V * B, *p.shape[2:]) for p in prof]
+        head = [at0(t, d).reshape(V * B, -1) for t, d in lead]
+        out = apply(cfg, *head, xs[0], *flat, xs[4])
+        return out.reshape(V, B, -1), 0
+
+    def pick(x, d, v):
+        return x if d is None else x.select(d, v)
+    outs = [apply(cfg, *[pick(t, d, v) for t, d in lead],
+                  *[pick(x, d, v) for x, d in zip(xs, dims)])
+            for v in range(V)]
+    return torch.stack(outs), 0
+
+
+def _apply(cfg, freq_mhz, den, bmag, bpsi, alt):
+    """A kernel entry's value: :class:`_PallasAD`, or under two or more
+    ``torch.func`` forward transforms the sweep plus :class:`_KernelGap`."""
+    if _jvp_nesting() < 2:
+        return _PallasAD.apply(cfg, freq_mhz, den, bmag, bpsi, alt)
+    s = _sweep(freq_mhz, den, bmag, bpsi, alt, cfg["mode_mult"],
+               cfg["n_points"])
+    gap = _KernelGap.apply(cfg, s, freq_mhz, den, bmag, bpsi, alt)
+    return torch.where(torch.isnan(s), gap, s + gap)
 
 
 def _mode_mult(mode_mult, config):
@@ -1125,8 +1188,8 @@ def _ionogram_gather(freq_mhz, den, bmag, bpsi, alt, mode_mult, n_points,
         kind = "gather_xsolve" if x_in_kernel_solve else "gather"
     cfg = dict(kind=kind, mode_mult=mode_mult, n_points=n_points,
                inv_dalt=inv_dalt, interpret=bool(interpret))
-    return _PallasAD.apply(cfg, *profile_tensors(freq_mhz, den, bmag, bpsi,
-                                                 alt, device=device))
+    return _apply(cfg, *profile_tensors(freq_mhz, den, bmag, bpsi,
+                                        alt, device=device))
 
 
 def ionogram_pallas(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
@@ -1149,8 +1212,8 @@ def ionogram_pallas(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
     n_points = resolve(config, "n_points", n_points, 200)
     cfg = dict(kind="sweep", mode_mult=mode_mult, n_points=n_points,
                inv_dalt=None, interpret=bool(interpret))
-    return _PallasAD.apply(cfg, *profile_tensors(freq_mhz, den, bmag, bpsi,
-                                                 alt, device=device))
+    return _apply(cfg, *profile_tensors(freq_mhz, den, bmag, bpsi,
+                                        alt, device=device))
 
 
 def ionogram_pallas_mxu(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
@@ -1178,5 +1241,5 @@ def ionogram_pallas_mxu(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
     cfg = dict(kind="mxu", mode_mult=_mode_mult(mode_mult, config),
                n_points=resolve(config, "n_points", n_points, 200),
                inv_dalt=inv_dalt, interpret=bool(interpret))
-    return _PallasAD.apply(cfg, *profile_tensors(freq_mhz, den, bmag, bpsi,
-                                                 alt, device=device))
+    return _apply(cfg, *profile_tensors(freq_mhz, den, bmag, bpsi,
+                                        alt, device=device))

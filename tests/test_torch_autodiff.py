@@ -16,10 +16,17 @@ the Hessian from ``jax.hessian``): each XLA compile takes seconds. One
 entry is also held against JAX's ``jacfwd`` through its own kernel entry
 (interpret mode), as the JAX test runs it.
 
-Tolerances: rtol 1e-10 on first derivatives, 1e-8 on the Hessian, both
-with identical NaN masks (X mode: reverse mode w.r.t. ψ is NaN in both
-packages); the ``vmap`` rule folds the mapped axis into the profile axis,
-so it is held to the per-slice loop bit for bit.
+Forward over forward (``jacfwd`` of ``jacfwd``, ``jvp`` of ``jvp``) runs
+the sweep through the transforms plus the kernel's constant gap
+(``pallas_vh._apply``); it is held against ``jax.jacfwd(jax.jacfwd(·))``
+of the sweep, one compile per mode, on one profile of 60 nodes at three
+frequencies, and once through the JAX gather kernel in interpret mode.
+
+Tolerances: rtol 1e-10 on first derivatives, 1e-8 on the Hessian and the
+second derivatives, all with identical NaN masks (X mode: reverse mode
+w.r.t. ψ is NaN in both packages); the ``vmap`` rule folds the mapped
+axis into the profile axis, so it is held to the per-slice loop bit for
+bit, and the primal of every transform to the call without AD.
 """
 
 import functools
@@ -262,13 +269,160 @@ def test_hessian_matches_jax(name):
         _close(rows, ref, rtol=RTOL_HESS)
 
 
+# forward over forward: one profile on 60 nodes at three frequencies (3.5,
+# 7.25 and 11 MHz: the last escapes in O mode, reflects in X), as functions
+# of q = (density scale, |B| scale)
+W2 = (W[0][[2, 5, 8]], *_workload(B=1, n_alt=60)[1:])
+Q0 = (1.0, 1.0)
+U2, V2 = (0.7, -1.3), (1.1, 0.4)    # two directions in q
+
+
+def _sharded(freq, den, bmag, bpsi, alt, mode_mult, n_points):
+    """``synthesize_ionograms_sharded(engine="pallas")`` on a 1 x 3 mesh of
+    CPU devices: the sweep kernel (its plain version) once per block."""
+    mesh = TP.ionogram_mesh([torch.device("cpu")] * 3, batch_axis=1)
+    return TP.synthesize_ionograms_sharded(
+        freq, den, bmag, bpsi, alt, mesh, mode="O" if mode_mult > 0 else "X",
+        n_points=n_points, engine="pallas")
+
+
+# name: (port entry, mode_mult, kernel, its calls per primal)
+SECOND = {**{k: (*v, 1) for k, v in ENTRIES.items()},
+          "sharded_O": (_sharded, 1.0, "sweep", 3)}
+
+
+def _port_q(name):
+    """The port's ionogram [1, 3] at :data:`W2`, of q."""
+    fn, mm, _, _ = SECOND[name]
+    t = [_t(a) for a in W2]
+
+    def f(q):
+        return fn(t[0], q[0] * t[1], q[1] * t[2], t[3], t[4], mode_mult=mm,
+                  n_points=200)
+    return f
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_second(mode_mult):
+    """(vh, jacfwd, jacfwd of jacfwd) of the JAX sweep's ionogram at
+    :data:`W2` in q at :data:`Q0`, compiled once per mode: the JAX package
+    takes every derivative order of a kernel entry from the sweep."""
+    j = [jnp.asarray(a) for a in W2]
+
+    def g(q):
+        return JV.ionogram_fast_xla(j[0], q[0] * j[1], q[1] * j[2], j[3],
+                                    j[4], mode_mult=mode_mult, n_points=200)
+    fn = jax.jit(lambda q: (g(q), jax.jacfwd(g)(q),
+                            jax.jacfwd(jax.jacfwd(g))(q)))
+    return tuple(np.asarray(o) for o in fn(jnp.array(Q0)))
+
+
+def _q(v):
+    return torch.tensor(v, dtype=torch.float64)
+
+
+@pytest.mark.parametrize("name", list(SECOND))
+def test_jacfwd_of_jacfwd_matches_jax(name):
+    """``torch.func.jacfwd(torch.func.jacfwd(·))`` through every kernel
+    entry equals ``jax.jacfwd(jax.jacfwd(·))`` [1, 3, 2, 2]; the primal
+    runs the entry's kernel (its plain version here) once per block and no
+    other plain version."""
+    _, mm, kind, calls = SECOND[name]
+    TV.reset_counters()
+    hess = torch.func.jacfwd(torch.func.jacfwd(_port_q(name)))(_q(Q0))
+    assert TV.PLAIN_CALLS[kind] == calls
+    assert sum(TV.PLAIN_CALLS.values()) == calls
+    ref = _jax_second(mm)[2]
+    assert np.isfinite(ref).any() and np.any(ref != 0.0)
+    _close(hess, ref, rtol=RTOL_HESS)
+
+
+@pytest.mark.parametrize("name", list(SECOND))
+def test_jvp_of_jvp_keeps_the_kernel_primal(name):
+    """``torch.func.jvp`` of ``torch.func.jvp``: the primal is the entry's
+    own value bit for bit, the tangents are JAX's J·u, J·v and uᵀ·H·v."""
+    _, mm, _, _ = SECOND[name]
+    f = _port_q(name)
+    plain = f(_q(Q0))
+
+    def inner(q):
+        return torch.func.jvp(f, (q,), (_q(U2),))
+    (primal, t_u), (t_v, t_uv) = torch.func.jvp(inner, (_q(Q0),),
+                                                (_q(V2),))
+    assert torch.equal(torch.nan_to_num(primal, nan=-1.0),
+                       torch.nan_to_num(plain, nan=-1.0))
+    vh, jac, hess = _jax_second(mm)
+    u, v = np.asarray(U2), np.asarray(V2)
+    _close(primal, vh, rtol=1e-8)
+    _close(t_u, jac @ u)
+    _close(t_v, jac @ v)
+    _close(t_uv, np.einsum("bfij,i,j->bf", hess, u, v), rtol=RTOL_HESS)
+
+
 def test_forward_over_forward_raises():
-    """PyTorch does not differentiate a Function's jvp rule, so jacfwd of
-    jacfwd through a kernel entry raises rather than reading zero."""
-    port = _port_scalar("gather_O")
-    with pytest.raises(NotImplementedError, match="jacfwd of jacfwd"):
-        torch.func.jacfwd(torch.func.jacfwd(port))(
-            torch.tensor(P0, dtype=torch.float64))
+    """Forward over forward through a kernel entry, which raised
+    NotImplementedError before the sweep-plus-gap composition: jacfwd of
+    jacfwd of the port's O gather equals JAX's through its own kernel entry
+    (the gather kernel in interpret mode), as the JAX test would run it."""
+    j = [jnp.asarray(a) for a in W2[:4]]
+
+    def g(q):
+        return JV.ionogram_pallas_gather(j[0], q[0] * j[1], q[1] * j[2],
+                                         j[3], W2[4], mode_mult=1.0,
+                                         n_points=200, interpret=True)
+    hess = torch.func.jacfwd(torch.func.jacfwd(_port_q("gather_O")))(_q(Q0))
+    ref = jax.jit(jax.jacfwd(jax.jacfwd(g)))(jnp.array(Q0))
+    assert np.isfinite(np.asarray(ref)).all()
+    _close(hess, ref, rtol=RTOL_HESS)
+
+
+def test_vmap_of_jacfwd_of_jacfwd_folds_into_one_call():
+    """``vmap`` of ``jacfwd`` of ``jacfwd`` over a stack of density scales:
+    one kernel call (its plain version) for the stack, bit for bit the
+    per-slice loop."""
+    t = [_t(a) for a in W2]
+    scales = _t([1.0, 0.8, 1.25])
+
+    def hess_at(s):
+        def f(q):
+            return TV.ionogram_pallas_gather(
+                t[0], s * q[0] * t[1], q[1] * t[2], t[3], t[4],
+                mode_mult=-1.0, n_points=200)
+        return torch.func.jacfwd(torch.func.jacfwd(f))(_q(Q0))
+    TV.reset_counters()
+    out = torch.func.vmap(hess_at)(scales)
+    assert TV.PLAIN_CALLS["gather_xsolve"] == 1
+    assert sum(TV.PLAIN_CALLS.values()) == 1
+    loop = torch.stack([hess_at(s) for s in scales])
+    assert torch.equal(torch.nan_to_num(out, nan=-1.0),
+                       torch.nan_to_num(loop, nan=-1.0))
+
+
+def test_forward_ad_inside_jvp_is_the_sweeps():
+    """``torch.autograd.forward_ad`` inside a ``torch.func.jvp``: PyTorch
+    keeps both on one dual level (a nested ``dual_level`` raises), so a
+    dual made on a constant there is PyTorch's to interpret. Through a
+    kernel entry the outputs are those of the plain sweep (``engine=
+    "xla"``) bit for bit, with the kernel's primal."""
+    t = [_t(a) for a in W2]
+    tb = t[2] * 0.1
+
+    def run(fn):
+        def g(d):
+            b = fwAD.make_dual(t[2], tb)
+            out = fwAD.unpack_dual(fn(t[0], d, b, t[3], t[4],
+                                      mode_mult=-1.0, n_points=200))
+            return out.primal, out.tangent
+        (primal, tangent), d_outs = torch.func.jvp(g, (t[1],),
+                                                   (t[1] * 0.3,))
+        return primal, (tangent, *d_outs)
+    primal, got = run(TV.ionogram_pallas_gather)
+    plain = TV.ionogram_pallas_gather(*t, mode_mult=-1.0, n_points=200)
+    assert torch.equal(torch.nan_to_num(primal, nan=-1.0),
+                       torch.nan_to_num(plain, nan=-1.0))
+    for a, b in zip(got, run(TV.ionogram_fast_xla)[1]):
+        assert torch.equal(torch.nan_to_num(a, nan=-1.0),
+                           torch.nan_to_num(b, nan=-1.0))
 
 
 @pytest.mark.parametrize("name", list(ENTRIES))
@@ -328,8 +482,9 @@ def test_jvp_through_batch_operator_and_sharded_synthesis(entry):
 
 def test_fan_kernel_refuses_forward_mode():
     """The fan kernel has no derivative rule (nor has the JAX
-    ``_fan_kernel``): a forward-mode dual or a ``torch.func``-wrapped field
-    raises instead of coming out with a zero tangent."""
+    ``_fan_kernel``): a forward-mode dual or a field under a ``torch.func``
+    derivative transform raises instead of coming out with a zero tangent
+    (``vmap`` alone has a rule: tests/test_torch_pallas_ray.py)."""
     z, x = np.linspace(0.0, 400.0, 41), np.linspace(0.0, 1000.0, 11)
     mu = torch.full((2, 41, 11), 0.9, dtype=torch.float64)
     mup = torch.full_like(mu, 1.1)
@@ -345,7 +500,5 @@ def test_fan_kernel_refuses_forward_mode():
             fan(fwAD.make_dual(mu, torch.ones_like(mu)))
     with pytest.raises(ValueError, match="no backward and no forward"):
         torch.func.jvp(fan, (mu,), (torch.ones_like(mu),))
-    with pytest.raises(ValueError, match="no backward and no forward"):
-        torch.func.vmap(fan)(mu[None])
     with pytest.raises(ValueError, match="no backward and no forward"):
         fan(mu.clone().requires_grad_(True))

@@ -758,3 +758,68 @@ def test_sharded_pallas_launches_once_per_block(cuda, mode_mult):
     with pytest.raises(ValueError, match="interpret=True"):
         synthesize_ionograms_sharded(*t, mesh, engine="pallas",
                                      interpret=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fan_vmap_folds_into_one_launch(cuda, dtype):
+    """``torch.func.vmap`` of ``fan_2d_pallas`` over two field stacks: one
+    fan launch over the folded [V·F, E] fan, bit for bit the two separate
+    launches; forward mode under ``vmap`` still raises."""
+    import pyrayhf_tpu_torch.pallas_ray as TR
+    z, x, fields = _fan_case("O", dtype=dtype)
+    stack = [torch.stack([f, f * s]) for f, s in zip(fields,
+                                                      (0.995, 1.01, 1.2))]
+    elevs = torch.linspace(8.0, 60.0, 24, dtype=dtype, device=cuda)
+
+    def fan(mu, mup, kap):
+        return TR.fan_2d_pallas(z, x, mu, mup, kap, elevs, 10.0,
+                                n_steps=250)
+    TR.reset_counters()
+    out = torch.func.vmap(fan)(*stack)
+    assert TR.LAUNCHES["fan_2d"] == 1 and TR.PLAIN_CALLS["fan_2d"] == 0
+    for v in range(2):
+        one = fan(*(s[v] for s in stack))
+        for k in TR.OUTPUTS:
+            assert torch.equal(torch.nan_to_num(out[k][v], nan=-7.0),
+                               torch.nan_to_num(one[k], nan=-7.0)), k
+    assert torch.isfinite(out["ground_range_km"]).any()
+    with pytest.raises(ValueError, match="no backward and no forward"):
+        torch.func.vmap(lambda m: torch.func.jvp(
+            lambda mm: fan(mm, *fields[1:])["ground_range_km"], (m,),
+            (torch.ones_like(m),)))(stack[0])
+
+
+def test_jacfwd_of_jacfwd_through_kernel_2(cuda):
+    """``jacfwd`` of ``jacfwd`` through the X gather (kernel 2) in (density
+    scale, |B| scale), f64: one launch for the primal, no plain version,
+    equal to the plain sweep's at rtol 1e-12; ``jvp`` of ``jvp`` keeps the
+    kernel's primal bit for bit."""
+    freqs, den, bmag, bpsi, alt = _case(False)
+    t = [torch.as_tensor(a, device=cuda) for a in (freqs[1:-2], den[:2],
+                                                   bmag[:2], bpsi[:2], alt)]
+
+    def of_q(fn):
+        def f(q):
+            return fn(t[0], q[0] * t[1], q[1] * t[2], t[3], t[4],
+                      mode_mult=-1.0, n_points=200)
+        return f
+    q0 = torch.ones(2, dtype=torch.float64, device=cuda)
+    TV.reset_counters()
+    hess = torch.func.jacfwd(torch.func.jacfwd(
+        of_q(TV.ionogram_pallas_gather)))(q0)
+    assert TV.LAUNCHES["gather_xsolve"] == 1
+    assert sum(TV.LAUNCHES.values()) == 1
+    assert sum(TV.PLAIN_CALLS.values()) == 0
+    ref = torch.func.jacfwd(torch.func.jacfwd(
+        of_q(TV.ionogram_fast_xla)))(q0)
+    assert torch.equal(torch.isnan(hess), torch.isnan(ref))
+    m = torch.isfinite(ref)
+    assert m.any()
+    assert torch.allclose(hess[m], ref[m], rtol=1e-12,
+                          atol=1e-13 * float(ref[m].abs().max()))
+    f = of_q(TV.ionogram_pallas_gather)
+    plain = f(q0)
+    primal = torch.func.jvp(lambda q: torch.func.jvp(f, (q,), (q0,))[0],
+                            (q0,), (q0,))[0]
+    assert torch.equal(torch.nan_to_num(primal, nan=-1.0),
+                       torch.nan_to_num(plain, nan=-1.0))

@@ -4,13 +4,16 @@ The kernel's plain PyTorch version (what ``fan_2d_pallas`` runs on CPU
 tensors) is held against the JAX ``fan_2d_pallas`` in interpret mode, as
 ``tests/test_pallas_ray.py`` runs it, on the same numpy fields: that
 test's small scene (101×17 uniform grid, F=2, E=24), Cartesian and
-spherical, and X mode through a ground bounce. Tolerance: rtol 1e-8,
-atol 1e-10 with equal NaN positions (``tests/test_pallas_ray.py:58``).
+spherical, and X mode through a ground bounce; ``torch.func.vmap`` of the
+wrapper over two field stacks against ``jax.vmap`` of the JAX fan.
+Tolerance: rtol 1e-8, atol 1e-10 with equal NaN positions
+(``tests/test_pallas_ray.py:58``).
 """
 
 import numpy as np
 import pytest
 import torch
+import jax
 import jax.numpy as jnp
 
 import pyrayhf_tpu.magnetoionic as JM
@@ -192,3 +195,77 @@ def test_fan_path_by_table_size(nz, nx, dtype, path):
     geo = TR.fan_geometry(np.linspace(0.0, 600.0, nz),
                           np.linspace(0.0, 4000.0, nx), "cartesian")
     assert TR.fan_path(geo, dtype) == path
+
+
+# vmap: V = 2 field stacks of the scene (the second a perturbed copy), F = 2,
+# E = 8, 120 steps
+VMAP_ELEVS = np.linspace(8.0, 60.0, 8)
+
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _vmap_stack(mode="O"):
+    z, x, mu, mup, kap = _fields(mode)
+    return z, x, [np.stack([a, a * s]) for a, s in ((mu, 0.995), (mup, 1.01),
+                                                     (kap, 1.2))]
+
+
+def _port_fan(z, x, elevs=VMAP_ELEVS):
+    def fan(mu, mup, kap):
+        return TR.fan_2d_pallas(z, x, mu, mup, kap, torch.as_tensor(elevs),
+                                10.0, n_steps=120)
+    return fan
+
+
+def test_vmap_matches_jax_vmap(one_thread):
+    """``torch.func.vmap`` of ``fan_2d_pallas`` over V = 2 field stacks is
+    ``jax.vmap`` of the JAX fan (interpret mode, batched by ``pallas_call``'s
+    rule): rtol 1e-8, atol 1e-10, equal NaN positions and landings."""
+    z, x, stack = _vmap_stack()
+    TR.reset_counters()
+    port = torch.func.vmap(_port_fan(z, x))(*map(torch.from_numpy, stack))
+    assert TR.PLAIN_CALLS["fan_2d"] == 1
+    ref = jax.vmap(lambda mu, mup, kap: JR.fan_2d_pallas(
+        z, x, mu, mup, kap, jnp.asarray(VMAP_ELEVS), 10.0, n_steps=120,
+        interpret=True))(*map(jnp.asarray, stack))
+    for k in JAX_KEYS:
+        p, r = port[k].numpy(), np.asarray(ref[k])
+        assert p.shape == r.shape == (2, 2, 8), k
+        assert np.allclose(p, r, rtol=RTOL, atol=ATOL, equal_nan=True), k
+    land = np.isfinite(port["ground_range_km"].numpy())
+    assert land.any() and (~land).any()
+    assert np.array_equal(land, port["status_code"].numpy() == 1)
+
+
+def test_vmap_folds_into_one_launch(one_thread):
+    """Only the fields batched: one call (the plain version here) over the
+    [V·F, E] fold, bit for bit the per-slice loop; a batched ``elevs`` runs
+    one call per slice; forward mode under ``vmap`` still raises."""
+    z, x, stack = _vmap_stack("X")
+    t = [torch.from_numpy(a) for a in stack]
+    fan = _port_fan(z, x)
+    TR.reset_counters()
+    out = torch.func.vmap(fan, in_dims=(0, None, 0))(t[0], t[1][0], t[2])
+    assert TR.PLAIN_CALLS["fan_2d"] == 1
+    for v in range(2):
+        one = fan(t[0][v], t[1][0], t[2][v])
+        assert all(_equal(out[k][v], one[k]) for k in TR.OUTPUTS)
+    els = torch.stack([torch.as_tensor(VMAP_ELEVS), torch.as_tensor(
+        VMAP_ELEVS) + 1.5])
+    TR.reset_counters()
+    out_e = torch.func.vmap(lambda e: _port_fan(z, x, e)(
+        t[0][0], t[1][0], t[2][0]))(els)
+    assert TR.PLAIN_CALLS["fan_2d"] == 2
+    for v in range(2):
+        one = _port_fan(z, x, els[v])(t[0][0], t[1][0], t[2][0])
+        assert all(_equal(out_e[k][v], one[k]) for k in TR.OUTPUTS)
+    with pytest.raises(ValueError, match="no backward and no forward"):
+        torch.func.vmap(lambda m: torch.func.jvp(
+            lambda mm: fan(mm, t[1][0], t[2][0])["ground_range_km"], (m,),
+            (torch.ones_like(m),)))(t[0])
