@@ -5,6 +5,8 @@ import functools
 import numpy as np
 import torch
 
+from .profiling import span
+
 
 def resolve_device(device=None):
     """Where host data (numpy arrays, lists, Python numbers) lands.
@@ -120,8 +122,13 @@ def host_f64(a):
     A plain tensor is read with ``torch.func`` transforms set aside, which
     refuse every host read inside them; a tensor a transform wraps (a grid
     being differentiated or batched) has no values to read and raises.
+    A read from a device (a host sync) is a ``pyrayhf.host_read`` span.
     """
     if isinstance(a, torch.Tensor):
         with torch._C._DisableFuncTorch():
-            a = a.detach().cpu().double().numpy()
+            a = a.detach()
+            if a.device.type != "cpu":
+                with span("pyrayhf.host_read"):
+                    a = a.cpu()
+            a = a.double().numpy()
     return np.asarray(a, dtype=np.float64)

@@ -21,6 +21,7 @@ from .config import resolve
 from .grid import regrid_core
 from .magnetoionic import (_find_mu_mup, _find_mu_mup_masked, find_X, find_Y,
                            mode_multiplier)
+from .profiling import span
 
 __all__ = ["find_vh", "vertical_forward_operator",
            "vertical_forward_operator_batch", "vh_and_mask",
@@ -135,46 +136,50 @@ def vertical_forward_operator_batch(freq, den, bmag, bpsi, alt,
     with parity to < 1e-6 km in f64. The resolved engine is logged
     (DEBUG, once per distinct choice). Host arrays go to the CUDA card
     unless ``device`` says otherwise (``device="cpu"``); without a card
-    and without that request the call raises.
+    and without that request the call raises. The call is a
+    ``pyrayhf.forward`` span and its routing a ``pyrayhf.route`` span
+    (:func:`pyrayhf_tpu_torch.profiling.span`).
     """
-    mode = resolve(config, "mode", mode, "O")
-    n_points = resolve(config, "n_points", n_points, 200)
-    mm = mode_multiplier(mode)
-    freq, den, bmag, bpsi, alt = profile_tensors(freq, den, bmag, bpsi, alt,
-                                                 device=device)
-    shared_grid = alt.ndim == 1
-    inv_dalt = None
-    if engine == "auto":
-        engine, inv_dalt = _resolve_engine(den, alt, shared_grid)
-        key = (engine, den.device.type, shared_grid)
-        if key not in _auto_logged:
-            _auto_logged.add(key)
-            logger.debug("engine='auto' resolved to %r (device=%s, "
-                         "shared_grid=%s)", *key)
-    if engine in ("pallas", "pallas_gather", "pallas_mxu", "xla"):
-        if not shared_grid:
-            raise ValueError(
-                f"engine={engine!r} requires a shared 1-D altitude grid "
-                "(per-profile [B, N_alt] grids need engine='parity')")
-        from .pallas_vh import (_ionogram_gather, ionogram_fast_xla,
-                                ionogram_pallas, ionogram_pallas_gather,
-                                ionogram_pallas_mxu)
-        if inv_dalt is not None:
-            return _ionogram_gather(freq, den, bmag, bpsi, alt, mm, n_points,
-                                    inv_dalt)
-        impl = {"pallas": ionogram_pallas,
-                "pallas_gather": ionogram_pallas_gather,
-                "pallas_mxu": ionogram_pallas_mxu,
-                "xla": ionogram_fast_xla}[engine]
-        return impl(freq, den, bmag, bpsi, alt, mode_mult=mm,
-                    n_points=n_points)
-    if engine != "parity":
-        raise ValueError("engine must be 'auto', 'parity', 'pallas', "
-                         "'pallas_gather', 'pallas_mxu' or 'xla'")
-    if shared_grid:
-        alt = alt.expand_as(den)
-    return _forward_core(freq * 1e6, den, bmag, bpsi, alt, mode_mult=mm,
-                         n_points=n_points)
+    with span("pyrayhf.forward"):
+        with span("pyrayhf.route"):
+            mode = resolve(config, "mode", mode, "O")
+            n_points = resolve(config, "n_points", n_points, 200)
+            mm = mode_multiplier(mode)
+            freq, den, bmag, bpsi, alt = profile_tensors(
+                freq, den, bmag, bpsi, alt, device=device)
+            shared_grid = alt.ndim == 1
+            inv_dalt = None
+            if engine == "auto":
+                engine, inv_dalt = _resolve_engine(den, alt, shared_grid)
+                key = (engine, den.device.type, shared_grid)
+                if key not in _auto_logged:
+                    _auto_logged.add(key)
+                    logger.debug("engine='auto' resolved to %r (device=%s, "
+                                 "shared_grid=%s)", *key)
+        if engine in ("pallas", "pallas_gather", "pallas_mxu", "xla"):
+            if not shared_grid:
+                raise ValueError(
+                    f"engine={engine!r} requires a shared 1-D altitude grid "
+                    "(per-profile [B, N_alt] grids need engine='parity')")
+            from .pallas_vh import (_ionogram_gather, ionogram_fast_xla,
+                                    ionogram_pallas, ionogram_pallas_gather,
+                                    ionogram_pallas_mxu)
+            if inv_dalt is not None:
+                return _ionogram_gather(freq, den, bmag, bpsi, alt, mm,
+                                        n_points, inv_dalt)
+            impl = {"pallas": ionogram_pallas,
+                    "pallas_gather": ionogram_pallas_gather,
+                    "pallas_mxu": ionogram_pallas_mxu,
+                    "xla": ionogram_fast_xla}[engine]
+            return impl(freq, den, bmag, bpsi, alt, mode_mult=mm,
+                        n_points=n_points)
+        if engine != "parity":
+            raise ValueError("engine must be 'auto', 'parity', 'pallas', "
+                             "'pallas_gather', 'pallas_mxu' or 'xla'")
+        if shared_grid:
+            alt = alt.expand_as(den)
+        return _forward_core(freq * 1e6, den, bmag, bpsi, alt, mode_mult=mm,
+                             n_points=n_points)
 
 
 # engine='auto' resolutions already logged (one DEBUG line per choice)

@@ -59,6 +59,7 @@ import torch
 from ._util import clip, host_f64, profile_tensors, scalar_like
 from .config import resolve
 from .constants import CP, G_P
+from .profiling import span
 
 __all__ = ["ionogram_pallas", "ionogram_pallas_gather", "ionogram_pallas_mxu",
            "ionogram_fast_xla", "prepare_profile_tables", "uniform_inv_dalt",
@@ -962,7 +963,9 @@ def launch_mxu(a):
 # --------------------------------------------------------------------------
 
 def _run(cfg, freq_mhz, den, bmag, bpsi, alt):
-    """Kernel on CUDA tensors, plain version on CPU tensors, else raise."""
+    """Kernel on CUDA tensors, plain version on CPU tensors, else raise.
+    The prep and the launch are ``pyrayhf.prep`` and ``pyrayhf.launch``
+    spans (:func:`profiling.span`)."""
     dev = den.device.type
     if dev not in ("cuda", "cpu"):
         raise ValueError(f"no ionogram kernel for device {den.device}")
@@ -974,11 +977,13 @@ def _run(cfg, freq_mhz, den, bmag, bpsi, alt):
         return ionogram_fast_xla(freq_mhz, den, bmag, bpsi, alt,
                                  mode_mult=mm, n_points=P)
     inv_dalt = None if kind == "sweep" else cfg["inv_dalt"]
-    a = prepare_kernel_args(kind, freq_mhz, den, bmag, bpsi, alt, mm, P,
-                            inv_dalt)
+    with span("pyrayhf.prep"):
+        a = prepare_kernel_args(kind, freq_mhz, den, bmag, bpsi, alt, mm, P,
+                                inv_dalt)
     if dev == "cpu":
         return plain_ionogram(a)
-    return launch_mxu(a) if kind == "mxu" else launch_kernel(a)
+    with span("pyrayhf.launch"):
+        return launch_mxu(a) if kind == "mxu" else launch_kernel(a)
 
 
 def _sweep_of(cfg, xs, at):

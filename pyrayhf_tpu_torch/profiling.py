@@ -1,4 +1,5 @@
-"""Timing, cost model and device traces (port of ``pyrayhf_tpu.profiling``).
+"""Timing, cost model, spans and device traces (port of
+``pyrayhf_tpu.profiling``).
 
 :func:`time_launch` times ``fn(*args)`` on the current CUDA stream: warm-up
 launches first, then one pair of ``torch.cuda.Event`` records around each
@@ -10,16 +11,45 @@ card it raises.
 :func:`operator_cost` is the JAX package's analytic flop/byte model of the
 forward operator, and :func:`trace` captures a ``torch.profiler`` trace of
 the card (and the host) into a TensorBoard directory.
+
+:func:`span` marks a layer of the vertical forward operator's main path
+(the names in ``SPANS``) as a ``record_function`` event while a torch
+profiler records, so the spans land in its trace beside the kernels and
+copies they launch, on the same clock:
+
+* ``pyrayhf.forward``: the whole of ``vertical_forward_operator_batch``;
+* ``pyrayhf.route``: its routing, before the engine runs (argument
+  resolution, tensor conversion, the ``engine="auto"`` choice);
+* ``pyrayhf.prep``: ``pallas_vh.prepare_kernel_args``;
+* ``pyrayhf.launch``: ``pallas_vh.launch_kernel``/``launch_mxu``;
+* ``pyrayhf.host_read``: one device-to-host read of ``_util.host_f64``
+  (a host sync), one span per read.
+
+With no profiler recording a span is one check and a shared no-op
+context: no allocation, no op dispatch.
 """
 
 import contextlib
-import os
 import statistics
 import tempfile
 
 import torch
 
-__all__ = ["time_launch", "vh_evals_per_s", "operator_cost", "trace"]
+__all__ = ["time_launch", "vh_evals_per_s", "operator_cost", "trace",
+           "span", "SPANS"]
+
+SPANS = ("pyrayhf.forward", "pyrayhf.route", "pyrayhf.prep",
+         "pyrayhf.launch", "pyrayhf.host_read")
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name):
+    """A context marking ``name`` in the trace of a recording torch
+    profiler (``torch.profiler.record_function``); otherwise a shared
+    no-op context."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def time_launch(fn, *args, iters=10, warmup=3):
@@ -69,11 +99,13 @@ def operator_cost(B, F, n_points, n_alt, flops_per_point=70):
 @contextlib.contextmanager
 def trace(log_dir=None):
     """Capture a ``torch.profiler`` trace (CPU, and CUDA when there is a
-    card) into ``log_dir`` (default: ``pyrayhf_trace`` under the
-    temporary directory), in TensorBoard's format. Yields ``log_dir``.
+    card) into ``log_dir`` (default: a new directory under the temporary
+    directory for each capture), in TensorBoard's format. Yields
+    ``log_dir``. The capture holds the ``pyrayhf.*`` spans (``SPANS``)
+    of the calls made inside it.
     """
     if log_dir is None:
-        log_dir = os.path.join(tempfile.gettempdir(), "pyrayhf_trace")
+        log_dir = tempfile.mkdtemp(prefix="pyrayhf_trace-")
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)

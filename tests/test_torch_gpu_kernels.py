@@ -823,3 +823,59 @@ def test_jacfwd_of_jacfwd_through_kernel_2(cuda):
                             (q0,), (q0,))[0]
     assert torch.equal(torch.nan_to_num(primal, nan=-1.0),
                        torch.nan_to_num(plain, nan=-1.0))
+
+
+def test_spans_of_one_auto_call_on_the_card(cuda, tmp_path):
+    """One ``engine="auto"`` call, f64, under ``torch.profiler`` (CPU and
+    CUDA): one each of the operator's five spans; the kernel launched
+    inside ``pyrayhf.launch`` (its runtime call matched to the
+    ``ionogram_kernel`` device event by correlation id); every other
+    device op launched inside ``pyrayhf.route`` or ``pyrayhf.prep``; the
+    output bit for bit the call's without the profiler."""
+    import json
+
+    from pyrayhf_tpu_torch.forward import vertical_forward_operator_batch
+    from pyrayhf_tpu_torch.profiling import SPANS
+    args = [torch.as_tensor(a, dtype=torch.float64, device=cuda)
+            for a in _case(False)]
+    off = vertical_forward_operator_batch(*args, mode="O")
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        on = vertical_forward_operator_batch(*args, mode="O")
+        torch.cuda.synchronize()
+    assert torch.equal(on.view(torch.int64), off.view(torch.int64))
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    spans = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and e["name"] in SPANS:
+            spans.setdefault(e["name"], []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    assert {k: len(v) for k, v in spans.items()} == dict.fromkeys(SPANS, 1)
+    launch_at = {e["args"]["correlation"]: float(e["ts"]) for e in events
+                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                 and "correlation" in e.get("args", {})}
+    device = [e for e in events
+              if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+    def inside(name, t):
+        (s, u), = spans[name]
+        return s <= t <= u
+
+    kernels = [e for e in device if "ionogram_kernel" in e["name"]]
+    assert len(kernels) == 1
+    assert inside("pyrayhf.launch",
+                  launch_at[kernels[0]["args"]["correlation"]])
+    others = [e for e in device if e is not kernels[0]]
+    assert others
+    for e in others:
+        t = launch_at[e["args"]["correlation"]]
+        assert inside("pyrayhf.route", t) or inside("pyrayhf.prep", t), \
+            e["name"]
+    (r0, r1), = spans["pyrayhf.route"]
+    (h0, h1), = spans["pyrayhf.host_read"]
+    assert r0 <= h0 <= h1 <= r1

@@ -1,0 +1,134 @@
+"""The operator's spans (``pyrayhf_tpu_torch.profiling.span``) on the CPU.
+
+With the profiler off a span is one shared no-op; with it on, a call of
+``vertical_forward_operator_batch`` records ``pyrayhf.forward`` around its
+``pyrayhf.route`` and, on the kernel engines, ``pyrayhf.prep``. Neither
+moves a bit of the output, under ``torch.func`` transforms too. The port
+is held against itself here, at a toy size (B = 2, 48 nodes, 8
+frequencies); the card's spans (``pyrayhf.launch``, ``pyrayhf.host_read``)
+are checked in ``tests/test_torch_gpu_kernels.py``.
+"""
+
+import contextlib
+import re
+import shutil
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from pyrayhf_tpu_torch import profiling
+from pyrayhf_tpu_torch.forward import vertical_forward_operator_batch
+
+PERF_MD = Path(__file__).resolve().parents[1] / "PERF.md"
+CPU_ONLY = [torch.profiler.ProfilerActivity.CPU]
+
+
+def _inputs(B=2, n_alt=48):
+    alt = np.linspace(100.0, 500.0, n_alt)
+    peak = np.array([[280.0], [320.0]])[:B]
+    den = 1.2e12 * np.exp(-((alt - peak) / 60.0) ** 2)
+    freq = np.arange(1.0, 9.0)
+    return [torch.as_tensor(a, dtype=torch.float64)
+            for a in (freq, den, np.full_like(den, 5e-5),
+                      np.full_like(den, 60.0), alt)]
+
+
+def _bits(t):
+    return t.detach().contiguous().view(torch.int64)
+
+
+def _traced(fn):
+    """``fn()`` under a CPU profiler: (its output, the profiler's events)."""
+    with torch.profiler.profile(activities=CPU_ONLY) as prof:
+        out = fn()
+    return out, prof.events()
+
+
+def test_span_is_the_shared_noop_with_the_profiler_off():
+    assert not torch._C._autograd._profiler_enabled()
+    a, b = profiling.span("pyrayhf.forward"), profiling.span("pyrayhf.prep")
+    assert a is b and isinstance(a, contextlib.nullcontext)
+    with torch.profiler.profile(activities=CPU_ONLY):
+        assert profiling.span("pyrayhf.forward") is not a
+
+
+@pytest.mark.parametrize("engine", ["pallas_gather", "auto"])
+def test_outputs_bit_identical_with_the_profiler_on_and_off(engine):
+    xs = _inputs()
+
+    def call():
+        return vertical_forward_operator_batch(*xs, mode="O", n_points=64,
+                                               engine=engine)
+
+    off = call()
+    on, _ = _traced(call)
+    assert torch.isfinite(off).any()
+    assert torch.equal(_bits(on), _bits(off))
+
+
+def test_spans_of_one_cpu_gather_call():
+    xs = _inputs()
+    _, events = _traced(lambda: vertical_forward_operator_batch(
+        *xs, mode="O", n_points=64, engine="pallas_gather"))
+    ours = [e for e in events if e.name.startswith("pyrayhf.")]
+    names = sorted(e.name for e in ours)
+    # the plain version runs on CPU tensors: no launch, no read from a card
+    assert names == ["pyrayhf.forward", "pyrayhf.prep", "pyrayhf.route"]
+    rng = {e.name: (e.time_range.start, e.time_range.end) for e in ours}
+    lo, hi = rng["pyrayhf.forward"]
+    for k in ("pyrayhf.route", "pyrayhf.prep"):
+        assert lo <= rng[k][0] <= rng[k][1] <= hi
+    assert rng["pyrayhf.route"][1] <= rng["pyrayhf.prep"][0]
+
+
+@pytest.mark.parametrize("transform", ["vmap", "jacrev"])
+def test_transforms_through_the_gather_entry_with_the_profiler_on(transform):
+    freq, den, bmag, bpsi, alt = _inputs()
+
+    def vh(d, b, p):
+        return vertical_forward_operator_batch(freq, d, b, p, alt, mode="O",
+                                               n_points=64,
+                                               engine="pallas_gather")
+
+    if transform == "vmap":
+        stack = [torch.stack([x, 0.9 * x]) for x in (den, bmag, bpsi)]
+
+        def run():
+            return torch.func.vmap(vh)(*stack)
+    else:
+        def run():
+            return torch.func.jacrev(lambda p: vh(den, bmag, p))(bpsi)
+
+    off = run()
+    with torch.profiler.profile(activities=CPU_ONLY):
+        on = run()
+    assert torch.isfinite(off).any()
+    assert torch.equal(_bits(on), _bits(off))
+
+
+def test_spans_are_the_ones_perf_md_documents():
+    text = PERF_MD.read_text()
+    layers = text[text.index("## 3."):text.index("## 4.")]
+    assert set(re.findall(r"`(pyrayhf\.[a-z_]+)`", layers)) == set(
+        profiling.SPANS)
+    assert len(profiling.SPANS) == len(set(profiling.SPANS))
+
+
+def test_each_trace_capture_gets_its_own_directory():
+    xs = _inputs(B=1)
+    dirs = []
+    try:
+        for _ in range(2):
+            with profiling.trace() as d:
+                dirs.append(d)
+                vertical_forward_operator_batch(*xs, n_points=64,
+                                                engine="pallas_gather")
+        assert dirs[0] != dirs[1]
+        for d in dirs:
+            assert Path(d).name.startswith("pyrayhf_trace-")
+            assert any(Path(d).iterdir())
+    finally:
+        for d in dirs:
+            shutil.rmtree(d, ignore_errors=True)
