@@ -193,6 +193,7 @@ REPO_KERNELS = {
     "sweep": "pyrayhf_tpu/pallas_vh.py:354",
 }
 SOURCE = "pyrayhf_tpu_torch/csrc/ionogram.cu"
+TABLE_SOURCE = "pyrayhf_tpu_torch/csrc/segment_table.cu"
 CP, G_P = 8.97866275, 2.799249247e10
 
 # the card's published peaks (NVIDIA data sheet, H100 SXM, 700 W):
@@ -475,6 +476,20 @@ def bound_ms(ops, nbytes, dtype_name):
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def kernel_launches(got):
+    """The ionogram kernels' launches in a copy of ``pallas_vh.LAUNCHES``,
+    without the segment-table kernel that builds kernels 1 and 2's table
+    (once before each of their launches, and for their plain versions on
+    CUDA tensors)."""
+    return sum(got.values()) - got["segment_table"]
+
+
+def check_table_launches(got, what):
+    """One segment-table launch for each launch of kernels 1 and 2."""
+    check(got["segment_table"] == got["gather_osolve"]
+          + got["gather_xsolve"], f"{what}: segment-table launches {got}")
 
 
 def card_line():
@@ -1140,6 +1155,45 @@ def fan_phase(torch, prt, dev, card, sass):
             for k, v in rows.items()},
         "shape": f"F={FAN_F} E={FAN_E} steps={n_steps} 512x32 cartesian "
                  f"f32"}
+
+
+def segment_table_timing(torch, pv, profiling, dev, card, prof, alt):
+    """``csrc/segment_table.cu`` alone at the global grid's shape (kernel
+    1's table, and kernel 2's), f64 and f32: its time beside its memory
+    bound (inputs read once, table written once) and the time of the
+    PyTorch composition it replaces, both on the card, after a check
+    that the two tables agree bit for bit."""
+    rows = {}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        den, bmag, bpsi, a = (torch.as_tensor(x, dtype=dtype, device=dev)
+                              for x in (*prof, alt))
+        B, N = den.shape
+        for kind in ("gather_osolve", "gather_xsolve"):
+            args = (kind, den, bmag, bpsi, a)
+            tab, ref = pv.launch_segment_table(*args), \
+                pv.plain_segment_table(*args)
+            ints = torch.int64 if dtype == torch.float64 else torch.int32
+            check(tab.shape == ref.shape and torch.equal(
+                tab.view(ints), ref.view(ints)),
+                f"segment table {kind} {dname}: differs from the plain "
+                "version")
+            _, C, ld = tab.shape
+            nbytes = tab.element_size() * (3 * B * N + N + B * C * ld)
+            b_ms, _ = bound_ms(0, nbytes, dname)
+            del tab, ref
+            k_ms, _ = profiling.time_launch(pv.launch_segment_table, *args,
+                                            iters=TIMING_ITERS)
+            p_ms, _ = profiling.time_launch(pv.plain_segment_table, *args,
+                                            iters=TIMING_ITERS)
+            rows[f"{kind} {dname}"] = {"ms": k_ms, "bound_ms": b_ms,
+                                       "plain_ms": p_ms, "bytes": nbytes}
+            print(f"  segment_table ({kind}'s table) B={B} N={N} C={C} "
+                  f"ld={ld} {dname}: kernel {k_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({nbytes:.4e} bytes at "
+                  f"{PEAK_BYTES:.3g} B/s, {100 * b_ms / k_ms:.1f}%), "
+                  f"plain {p_ms:.4f} ms; {card}", flush=True)
+    return rows
 
 
 def mxu_phase(torch, prt, dev, card, freqs, alt, main_prof, check_prof,
@@ -2796,6 +2850,7 @@ def ad_phase(torch, prt, dev, card, freqs, alt, main_prof, glob, x20k):
         print(f"  {what}: kernel launches {got}; plain-version calls "
               f"{plain}", flush=True)
         check(sum(plain.values()) == 0, f"{what}: plain versions ran")
+        check_table_launches(got, what)
         return out, got, ms
 
     def timed(fn):
@@ -2826,7 +2881,7 @@ def ad_phase(torch, prt, dev, card, freqs, alt, main_prof, glob, x20k):
             (primal, tangent), got, t_ms = counted(
                 f"jvp auto {mode} {dname}",
                 lambda: torch.func.jvp(op, (d, b, p), tans))
-            check(got[kind] == 1 and sum(got.values()) == 1,
+            check(got[kind] == 1 and kernel_launches(got) == 1,
                   f"jvp auto {mode} {dname}: launches {got}")
             check(torch.equal(torch.nan_to_num(primal, nan=-1.0),
                               torch.nan_to_num(plain_out, nan=-1.0)),
@@ -2893,7 +2948,7 @@ def ad_phase(torch, prt, dev, card, freqs, alt, main_prof, glob, x20k):
         rev, got_r, jr_ms = counted(f"jacrev through {kind}",
                                     lambda: torch.func.jacrev(f_k)(p0))
         for got in (got_f, got_r):
-            check(got[kind] == 1 and sum(got.values()) == 1,
+            check(got[kind] == 1 and kernel_launches(got) == 1,
                   f"jacfwd/jacrev {kind}: launches {got}")
         # kernels 1 and 5, and 2 and 3, share their inputs, and so the
         # sweep's derivatives they are held to
@@ -2979,7 +3034,7 @@ def ad_phase(torch, prt, dev, card, freqs, alt, main_prof, glob, x20k):
                 lambda q: torch.func.jvp(f_k, (q,), (q0,))[0], (q0,),
                 (q0,))[0])
         for what, got in (("jacfwd of jacfwd", got_h), ("jvp of jvp", got_p)):
-            check(got[kind] == 1 and sum(got.values()) == 1,
+            check(got[kind] == 1 and kernel_launches(got) == 1,
                   f"{what} {kind}: launches {got}")
         same = torch.equal(torch.nan_to_num(primal, nan=-1.0),
                            torch.nan_to_num(alone, nan=-1.0))
@@ -3015,7 +3070,7 @@ def ad_phase(torch, prt, dev, card, freqs, alt, main_prof, glob, x20k):
         f"vmap of ionogram_pallas_gather over {V} x {n_glob // V}",
         lambda: torch.func.vmap(lambda d, b, p: prt.ionogram_pallas_gather(
             gi[0], d, b, p, gi[4], mode_mult=1.0, n_points=P_MAIN))(*cut))
-    check(got["gather_osolve"] == 1 and sum(got.values()) == 1,
+    check(got["gather_osolve"] == 1 and kernel_launches(got) == 1,
           f"vmap fold: launches {got}")
     same = torch.equal(torch.nan_to_num(folded.reshape(n_glob, -1),
                                         nan=-1.0),
@@ -3253,6 +3308,7 @@ def main():
           and launches["mxu"] == 0,
           f"a kernel of the path never launched: {launches}")
     check(sum(plain.values()) == 0, f"plain versions ran: {plain}")
+    check_table_launches(launches, "main path")
     # the kernel behind each output, its mode, inputs and points
     routes = {"O": ("gather_osolve", 1.0, (den, bmag, bpsi, alt), P_MAIN),
               "X": ("gather_xsolve", -1.0, (den, bmag, bpsi, alt), P_MAIN),
@@ -3467,11 +3523,11 @@ def main():
             grads.append(torch.autograd.grad(loss_of(vh), d)[0])
         g, gp = grads
         rel = float(((g - gp).abs().max() / gp.abs().max()).item())
-        n0 = sum(pv.LAUNCHES.values())
+        n0 = kernel_launches(pv.LAUNCHES)
         with torch.no_grad():
             vp, vm = (fn(g_in[0], g_in[1] + s * FD_STEP * u_dir, *g_in[2:],
                          mode_mult=mm, n_points=P_MAIN) for s in (1.0, -1.0))
-        check(sum(pv.LAUNCHES.values()) == n0 + 2,
+        check(kernel_launches(pv.LAUNCHES) == n0 + 2,
               f"{fn.__name__}: the central difference did not launch")
         check(torch.equal(torch.isnan(vp), torch.isnan(vm)),
               f"{fn.__name__}: NaN mask moved within the step")
@@ -3587,6 +3643,8 @@ def main():
                                            "X, non-uniform alt_nu", 1)}}
     time_kind("gather_xsolve", -1.0, x_in, P_X20K, "X")
     time_kind("sweep", 1.0, main_in, P_MAIN, "O")
+    table_rows = segment_table_timing(torch, pv, profiling, dev, card,
+                                      (gden, gbmag, gbpsi), alt)
     e2e_ms, _ = profiling.time_launch(
         lambda: vfo(*main_in, mode="O", n_points=P_MAIN), iters=TIMING_ITERS)
     print(f"  vertical_forward_operator_batch(auto) O B={B_MAIN} F={F_MAIN} "
@@ -3666,6 +3724,11 @@ def main():
             "library_ms": None, "wrapper_ms": row["wrapper_ms"],
             "valid_share": row["valid_share"], "layout": row["layout"],
             "shape": row["shape"], **extra.get(k, {})})
+    kernels.append({
+        "name": "segment_table", "route": "cuda", "source": TABLE_SOURCE,
+        "replaces": None, "launches": launches["segment_table"],
+        "launches_ad_phase": ad_launches["segment_table"],
+        "shape": f"B={n_glob} N={N_ALT}", **table_rows})
     mxu_entry["launches_ad_phase"] = ad_launches["mxu"]
     fan_entry["launches_ad_phase"] = ad_launches["fan_2d"]
     kernels.append(mxu_entry)

@@ -279,6 +279,12 @@ def load():
                 ctypes.POINTER(d),     # 16 scalars (see csrc/fan2d.cu)
                 p, i, p]               # out, block, stream
             lib.pyrayhf_fan2d.restype = ctypes.c_int
+            q = ctypes.c_longlong
+            lib.pyrayhf_segment_table.argtypes = [
+                i, p, q, p, q, p, q,   # dtype, den, bmag, bpsi, row strides
+                p, i, i, i, i,         # alt, B, N, C, ld
+                p, p]                  # tab, stream
+            lib.pyrayhf_segment_table.restype = ctypes.c_int
             lib.pyrayhf_error_string.argtypes = [ctypes.c_int]
             lib.pyrayhf_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -31,6 +31,12 @@ products on the tensor cores (``mma.sync``), as the TPU kernel did on its
 matrix unit; its plain version ``_resample_mxu_plain`` does the same
 products with ``torch.matmul``.
 
+The in-kernel solves' segment table (flat extension, per-node
+differences, cummax(den)) is built on the card by one more kernel,
+``segment_table`` (``csrc/segment_table.cu``), before each launch of
+``gather_osolve`` and ``gather_xsolve``; its plain version is
+:func:`plain_segment_table`.
+
 Each wrapper runs the kernel on CUDA tensors and the plain version on CPU
 tensors, and only there; on any other device it raises. ``LAUNCHES``
 counts kernel launches and ``PLAIN_CALLS`` calls of the plain versions, so
@@ -69,8 +75,12 @@ _DH_BACKOFF = 1e-6
 _NAN = float("nan")
 _DEG2RAD = np.pi / 180.0
 
-# kernel launches / plain-version calls, by kernel name
-KERNELS = ("gather_osolve", "gather_xsolve", "gather", "sweep", "mxu")
+# kernel launches / plain-version calls, by kernel name; "segment_table"
+# (csrc/segment_table.cu) builds kernels 1 and 2's table on the card, one
+# launch before each of theirs; its plain version, which CPU tensors take,
+# is host prep and is not counted
+KERNELS = ("gather_osolve", "gather_xsolve", "gather", "sweep", "mxu",
+           "segment_table")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
@@ -476,9 +486,76 @@ def _rows(tab, kind):
     return torch.nn.functional.pad(tab, (0, pad)).contiguous()
 
 
+def plain_segment_table(kind, den, bmag, bpsi, alt):
+    """The segment table of kernels 1 and 2 in PyTorch ops, on any device:
+    the plain version of ``csrc/segment_table.cu``.
+
+    :func:`_pack_segment_table`'s channels of the flat-extended profiles,
+    channel-major [B, C, ld]; for ``gather_osolve`` cummax(den) as channel
+    8 (C = 9, ld = N), for ``gather_xsolve`` C = 8 and rows zero-padded
+    (:func:`_rows`).
+    """
+    den_t, bmag_t, bpsi_t, alt_t = _flat_extend(den, bmag, bpsi, alt)
+    seg = _pack_segment_table(den_t, bmag_t, bpsi_t, alt_t)
+    chans = [seg.transpose(1, 2)]
+    if kind == "gather_osolve":
+        chans.append(torch.cummax(den_t, dim=1).values[:, None, :])
+    return _rows(torch.cat(chans, dim=1), kind)
+
+
+def launch_segment_table(kind, den, bmag, bpsi, alt):
+    """Launch ``csrc/segment_table.cu``: :func:`plain_segment_table`'s
+    table, bit for bit, in one pass on the card.
+
+    ``den``, ``bmag``, ``bpsi`` [B, N] and ``alt`` [N] CUDA tensors of one
+    dtype; a row expanded over the batch (row stride 0) is read as it is,
+    other layouts without unit stride along N are made contiguous.
+    Launches on the current stream and raises on any CUDA error the launch
+    reports.
+    """
+    from . import cuda_ext
+
+    dtype, dev = den.dtype, den.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"unsupported dtype {dtype}")
+    if kind not in ("gather_osolve", "gather_xsolve"):
+        raise ValueError(f"no segment-table kernel for {kind!r}")
+    if den.dim() != 2:
+        raise ValueError(f"den must be [B, N], got {tuple(den.shape)}")
+    B, N = den.shape
+    if (bmag.shape != den.shape or bpsi.shape != den.shape
+            or alt.shape != (N,) or N < 2 or B == 0):
+        raise ValueError(f"bad profile shapes den {tuple(den.shape)}, bmag "
+                         f"{tuple(bmag.shape)}, bpsi {tuple(bpsi.shape)}, "
+                         f"alt {tuple(alt.shape)}")
+    for t in (bmag, bpsi, alt):
+        if t.dtype != dtype or t.device != dev:
+            raise ValueError("profile tensors must share dtype and device")
+    rows = [x if x.stride(1) == 1 else x.contiguous()
+            for x in (den, bmag, bpsi)]
+    alt = alt if alt.stride(0) == 1 else alt.contiguous()
+    C = 9 if kind == "gather_osolve" else 8
+    ld = N if C == 9 else padded_rows(N, den.element_size())
+    tab = torch.empty((B, C, ld), dtype=dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = cuda_ext.load().pyrayhf_segment_table(
+            0 if dtype == torch.float32 else 1,
+            *(v for x in rows for v in (x.data_ptr(), x.stride(0))),
+            alt.data_ptr(), B, N, C, ld, tab.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"segment table kernel launch failed: "
+                           f"{cuda_ext.error_string(err)} ({err})")
+    LAUNCHES["segment_table"] += 1
+    return tab
+
+
 def prepare_kernel_args(kind, freq_mhz, den, bmag, bpsi, alt, mode_mult,
                         n_points, inv_dalt):
-    """Host prep for one of the four kernels (torch ops on den's device)."""
+    """Host prep for one of the four kernels (torch ops on den's device;
+    kernels 1 and 2's table by ``csrc/segment_table.cu`` on the card)."""
     freq_hz = freq_mhz * 1e6
     mult, omm, dmult = _grid_tensors(n_points, den)
     alt_min = torch.amin(alt).reshape(1)
@@ -486,12 +563,9 @@ def prepare_kernel_args(kind, freq_mhz, den, bmag, bpsi, alt, mode_mult,
                   mult=mult, omm=omm, dmult=dmult, alt_min=alt_min,
                   inv_dalt=inv_dalt, n_alt=den.shape[1])
     if kind in ("gather_osolve", "gather_xsolve"):
-        den_t, bmag_t, bpsi_t, alt_t = _flat_extend(den, bmag, bpsi, alt)
-        seg = _pack_segment_table(den_t, bmag_t, bpsi_t, alt_t)
-        chans = [seg.transpose(1, 2)]
-        if kind == "gather_osolve":
-            chans.append(torch.cummax(den_t, dim=1).values[:, None, :])
-        return KernelArgs(tab=_rows(torch.cat(chans, dim=1), kind), **common)
+        table = (launch_segment_table if den.device.type == "cuda"
+                 else plain_segment_table)
+        return KernelArgs(tab=table(kind, den, bmag, bpsi, alt), **common)
     seg, crit, valid, slope, emax = prepare_profile_tables(
         freq_hz, den, bmag, bpsi, alt, mode_mult)
     tab = (_mxu_table(seg) if kind == "mxu"

@@ -14,7 +14,9 @@ ray-fan kernel: f64 identical status codes and landing masks, rtol 1e-8,
 atol 1e-10; f32 identical status codes, landing masks and step counts,
 rtol 1e-4, atol 1e-6 (the four path sums add in another order in the
 plain version); the kernel's paired f32 division bit for bit the IEEE
-one.
+one. The segment-table kernel: bit for bit the PyTorch composition it
+replaces (NaN at the same places, signed zeros kept), and ``auto``'s vh
+bit for bit with either table.
 """
 
 import ctypes
@@ -808,7 +810,8 @@ def test_jacfwd_of_jacfwd_through_kernel_2(cuda):
     hess = torch.func.jacfwd(torch.func.jacfwd(
         of_q(TV.ionogram_pallas_gather)))(q0)
     assert TV.LAUNCHES["gather_xsolve"] == 1
-    assert sum(TV.LAUNCHES.values()) == 1
+    assert TV.LAUNCHES["segment_table"] == 1
+    assert sum(TV.LAUNCHES.values()) == 2
     assert sum(TV.PLAIN_CALLS.values()) == 0
     ref = torch.func.jacfwd(torch.func.jacfwd(
         of_q(TV.ionogram_fast_xla)))(q0)
@@ -879,3 +882,104 @@ def test_spans_of_one_auto_call_on_the_card(cuda, tmp_path):
     (r0, r1), = spans["pyrayhf.route"]
     (h0, h1), = spans["pyrayhf.host_read"]
     assert r0 <= h0 <= h1 <= r1
+
+
+def _table_profiles(case, dtype, dev):
+    """(den, bmag, bpsi, alt) on the card for the segment-table kernel: 620
+    nodes (three chunks of the block) unless the case says otherwise."""
+    rng = np.random.default_rng(17)
+    B, N = {"b1": (1, 620), "n2": (7, 2), "ragged": (37, 620),
+            "long": (5, 2000)}.get(case, (6, 620))
+    alt = np.linspace(80.0, 699.0, N)
+    den = rng.uniform(1e11, 3e12, (B, N))
+    bmag = rng.uniform(2e-5, 6e-5, (B, N))
+    bpsi = rng.uniform(0.0, 90.0, (B, N))
+    if case == "peak_first":
+        den[:, 0] = 9e12
+    elif case == "peak_last":
+        den[:, -1] = 9e12
+    elif case == "ties":
+        den[0, [7, 300]] = 9e12
+        den[1] = 5e11
+        den[2, [0, N - 1]] = 9e12
+        den[3, [250, 251]] = 9e12
+    elif case == "nan":
+        den[0, 411] = den[1, 0] = den[2, N - 1] = np.nan
+        den[3, [5, 300]] = np.nan
+        bmag[0, 3] = np.nan
+    elif case == "signed_zeros":
+        den = np.where(rng.uniform(size=(B, N)) < 0.5, -0.0, 0.0)
+        den[:, -1] = 1.0
+        bmag = np.where(rng.uniform(size=(B, N)) < 0.5, -0.0, 0.0)
+        alt[5] = alt[4]                        # a zero step: 1/Δalt is 0
+    t = [torch.as_tensor(a, dtype=dtype, device=dev)
+         for a in (den, bmag, bpsi, alt)]
+    if case == "expanded":
+        t[2] = t[2][0].expand(B, N)            # one row for every profile
+        t[1] = t[1].t().contiguous().t()       # column-major
+    return t
+
+
+def _same_bits(a, b):
+    """Equal shapes, NaN at the same places, every other value the same
+    bits (so +0 and -0 differ)."""
+    ints = torch.int32 if a.dtype == torch.float32 else torch.int64
+    nan_a, nan_b = torch.isnan(a), torch.isnan(b)
+    return (a.shape == b.shape and torch.equal(nan_a, nan_b)
+            and torch.equal(torch.where(nan_a, 0, a.view(ints)),
+                            torch.where(nan_b, 0, b.view(ints))))
+
+
+@pytest.mark.parametrize("case", ["random", "peak_first", "peak_last",
+                                  "ties", "nan", "signed_zeros", "b1", "n2",
+                                  "ragged", "expanded", "long"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["gather_osolve", "gather_xsolve"])
+def test_segment_table_kernel_is_the_plain_table(cuda, kind, dtype, case):
+    """``csrc/segment_table.cu`` against the PyTorch composition it
+    replaces, on the card: the same table bit for bit, NaN where it has
+    NaN, kernel 2's row padding zero; one launch counted."""
+    prof = _table_profiles(case, dtype, cuda)
+    TV.reset_counters()
+    tab = TV.launch_segment_table(kind, *prof)
+    assert TV.LAUNCHES["segment_table"] == 1
+    ref = TV.plain_segment_table(kind, *prof)
+    torch.cuda.synchronize()
+    assert tab.is_contiguous() and tab.dtype == dtype
+    assert _same_bits(tab, ref)
+    if kind == "gather_xsolve":
+        assert not tab[:, :, prof[0].shape[1]:].any()
+
+
+@pytest.mark.parametrize("mode", ["O", "X"])
+def test_auto_at_the_global_shape_matches_the_torch_prep(cuda, mode,
+                                                         monkeypatch):
+    """``engine="auto"`` at the benchmark's global shape (10,512 Chapman
+    profiles on 620 nodes, 174 frequencies, f64) returns vh bit for bit as
+    with the table built by the PyTorch composition; one table launch for
+    each launch of kernel 1 or 2."""
+    from pyrayhf_tpu_torch.forward import vertical_forward_operator_batch
+    rng = np.random.default_rng(20251018)
+    B, N = 73 * 144, 620
+    alt = np.linspace(80.0, 699.0, N)
+    nm = 10.0 ** rng.uniform(11.0, np.log10(3e12), B)
+    hm = rng.uniform(220.0, 380.0, B)
+    H = rng.uniform(40.0, 70.0, B)
+    z = (alt[None, :] - hm[:, None]) / H[:, None]
+    den = nm[:, None] * np.exp(0.5 * (1.0 - z - np.exp(-z)))
+    b0 = rng.uniform(2.5e-5, 6.5e-5, B)
+    bmag = b0[:, None] * ((6371.0 + alt[0]) / (6371.0 + alt[None, :])) ** 3
+    bpsi = np.broadcast_to(rng.uniform(0.0, 90.0, B)[:, None], (B, N))
+    freqs = np.round(np.arange(1, 175) * 0.1, 10)
+    args = [torch.as_tensor(np.ascontiguousarray(a), dtype=torch.float64,
+                            device=cuda)
+            for a in (freqs, den, bmag, bpsi, alt)]
+    kind = "gather_osolve" if mode == "O" else "gather_xsolve"
+    TV.reset_counters()
+    vh = vertical_forward_operator_batch(*args, mode=mode)
+    assert TV.LAUNCHES["segment_table"] == TV.LAUNCHES[kind] == 1
+    monkeypatch.setattr(TV, "launch_segment_table", TV.plain_segment_table)
+    ref = vertical_forward_operator_batch(*args, mode=mode)
+    assert TV.LAUNCHES["segment_table"] == 1 and TV.LAUNCHES[kind] == 2
+    assert torch.isfinite(vh).any()
+    assert _same_bits(vh, ref)
