@@ -113,13 +113,15 @@ template <typename T>
 struct Solve {
   T span, slope, emax;
   bool valid;
+  bool first;  // the cutoff is already exceeded at the first node
 };
 
-// crossing geometry in the relative-altitude frame (pallas_vh :682-697)
+// crossing geometry in the relative-altitude frame (pallas_vh._crossing);
+// alt0 is the grid's first altitude
 template <typename T>
 __device__ __forceinline__ Solve<T> crossing(T f0, T f1, T a0, T a1, T r0,
-                                             bool first_exceeds,
-                                             bool valid) {
+                                             bool first_exceeds, bool valid,
+                                             T alt0) {
   const T t = (f1 != f0) ? (T(1) - f0) / (f1 - f0) : T(0);
   T crit = a0 + clip01(t) * (a1 - a0);
   const T da = a1 - a0;
@@ -129,20 +131,29 @@ __device__ __forceinline__ Solve<T> crossing(T f0, T f1, T a0, T a1, T r0,
   // a cummax-shadowed lower node (E-peak above a valley) disables the
   // analytic margin: genuine = r0 == f0
   T emax = (r0 == f0) ? em : T(0);
-  if (first_exceeds) crit = T(0);
-  crit = (valid ? crit : T(0)) - T(kDH);
+  // cutoff already exceeded at the first node: the zero-span grid
+  // evaluates mu' directly, as the upstream does (emax = 0 would take the
+  // analytic branch at eps = 0 and give mu = 0, so no sample), on the span
+  // of the absolute frame, whose rounding leaves sum(dh) != 0 (-kDH
+  // exactly would leave a sum that rounds to 0 on some pairs)
+  if (first_exceeds) {
+    emax = T(-1);
+    crit = (alt0 - T(kDH)) - alt0;
+  } else {
+    crit = (valid ? crit : T(0)) - T(kDH);
+  }
   if (!valid) {
     slope = T(0);
     emax = T(0);
   }
-  return {crit, slope, emax, valid};
+  return {crit, slope, emax, valid, first_exceeds};
 }
 
 // O mode (_osolve_tile): count cummax(den) < f^2/cp^2, then the X-space
 // +-1 razor correction, 2 steps each way.
 template <typename T>
 __device__ Solve<T> osolve(const T* alt, const T* den, const T* dmax, int N,
-                           T f, int lane) {
+                           T f, int lane, T alt0) {
   const T cp2 = T(kCP * kCP);
   const T inv_f2 = T(1) / (f * f);
   const T thr = (f * f) / cp2;
@@ -159,7 +170,8 @@ __device__ Solve<T> osolve(const T* alt, const T* den, const T* dmax, int N,
   const T r0 = den[k - 1] * cp2 * inv_f2;  // un-cummaxed X at k-1
   const bool first_exceeds = (dmax[0] * cp2) * inv_f2 >= T(1);
   const bool valid = dmax[N - 1] * cp2 * inv_f2 >= T(1);
-  return crossing(f0, f1, alt[k - 1], alt[k], r0, first_exceeds, valid);
+  return crossing(f0, f1, alt[k - 1], alt[k], r0, first_exceeds, valid,
+                  alt0);
 }
 
 template <typename T>
@@ -228,7 +240,8 @@ __device__ void cutoff_table(const T* den, const T* bm, int N, T* cfx,
 // pair (no node with cfx >= f(1 - delta)) reads no node.
 template <typename T>
 __device__ Solve<T> xsolve_table(const T* alt, const T* den, const T* bm,
-                                 const T* cfx, int N, T f, int lane) {
+                                 const T* cfx, int N, T f, int lane,
+                                 T alt0) {
   const T cp2 = T(kCP * kCP);
   const T gp = T(kGP);
   int jlo = 0;
@@ -264,7 +277,8 @@ __device__ Solve<T> xsolve_table(const T* alt, const T* den, const T* bm,
   const T f1 = s_k > f0 ? s_k : f0;
   const T r0 = cutoff_x(den, bm, k - 1, cp2, inv_f2, gp, f);
   const bool first_exceeds = cutoff_x(den, bm, 0, cp2, inv_f2, gp, f) >= T(1);
-  return crossing(f0, f1, alt[k - 1], alt[k], r0, first_exceeds, true);
+  return crossing(f0, f1, alt[k - 1], alt[k], r0, first_exceeds, true,
+                  alt0);
 }
 
 // The lane's place in the altitude table: lo = upper_bound(alt, x) of its
@@ -302,6 +316,20 @@ __device__ __forceinline__ void seek(const T* alt, int N, T x, Cursor<T>& c) {
   c.lo = l;
   c.below = l > 0 ? alt[l - 1] : T(-INFINITY);
   c.above = l < N ? alt[l] : T(INFINITY);
+}
+
+// A first-exceedance pair's vh is alt0 where mu' at the first node is
+// valid, NaN where it is not. Below the gyrofrequency in X mode, X is
+// nearly 0 there and mu lies just above 1: f64 finds it not valid where
+// f32 rounds mu to 1. So the f32 kernels take the verdict of mu' on the
+// node's values promoted to f64 (pallas_vh._first_node_valid).
+template <int MODE, typename T>
+__device__ bool first_node_ok(T d, T bm, T bp, T f) {
+  const double fd = f;
+  bool ok;
+  mup_stable<double, MODE>(double(d) * (kCP * kCP) / (fd * fd),
+                           double(bm) * kGP / fd, double(bp), 1.0, -1.0, ok);
+  return ok;
 }
 
 // Kernels 1 (O solve, uniform) and 4 (host solve, any grid).
@@ -367,7 +395,9 @@ __global__ void __launch_bounds__(kMaxThreads)
     const size_t o = (size_t)b * p.F + fi;
     Solve<T> sv;
     if constexpr (SOLVE) {
-      sv = osolve(alt, den, s + 8 * N, N, f, lane);
+      sv = osolve(alt, den, s + 8 * N, N, f, lane, amin);
+      if (sizeof(T) == 4 && sv.first && sv.valid)
+        sv.valid = first_node_ok<MODE>(den[0], bmg[0], bps[0], f);
     } else {
       sv = {p.span[o], p.slope[o], p.emax[o], p.valid[o] != 0};
     }
@@ -543,15 +573,17 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 8 ? 4 : 1)
     if constexpr (SOLVE) {
       if (p.per_block) {  // one warp solves, the block reads it
         if (warp == 0) {
-          sv = xsolve_table(alt, den, bmg, cfx, N, f, lane);
+          sv = xsolve_table(alt, den, bmg, cfx, N, f, lane, amin);
           if (lane == 0) *solved = sv;
         }
         __syncthreads();
         sv = *solved;
         __syncthreads();
       } else {
-        sv = xsolve_table(alt, den, bmg, cfx, N, f, lane);
+        sv = xsolve_table(alt, den, bmg, cfx, N, f, lane, amin);
       }
+      if (sizeof(T) == 4 && sv.first && sv.valid)
+        sv.valid = first_node_ok<MODE>(den[0], bmg[0], bps[0], f);
     } else {
       sv = {p.span[o], p.slope[o], p.emax[o], p.valid[o] != 0};
     }

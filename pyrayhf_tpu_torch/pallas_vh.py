@@ -140,14 +140,25 @@ def _pack_segment_table(den_t, bmag_t, bpsi_t, alt_t):
     ], dim=2)
 
 
-def _crossing(f0, f1, a0, a1, r0, first_exceeds, valid, base):
+def _crossing(f0, f1, a0, a1, r0, first_exceeds, valid, base, alt0):
     """Critical height, slope and analytic-margin bound on the crossing
     segment [a0, a1] where the cutoff function goes f0 → f1 through 1.
 
-    ``base`` is the grid's first altitude in the frame of a0/a1 (0 in the
-    relative frame the in-kernel solves use). Returns (crit, slope, emax)
-    with the JAX package's masking: escaped rows collapse to a zero-span
-    grid at ``base``.
+    ``alt0`` is the grid's first altitude and ``base`` the same altitude
+    in the frame of a0/a1 (``alt0`` in the absolute frame of the host
+    prep, 0 in the relative frame the in-kernel solves use). Returns
+    (crit, slope, emax) with the JAX package's masking: escaped rows
+    collapse to a zero-span grid at ``base``.
+
+    A pair whose cutoff is already exceeded at the first node reflects
+    there, on a zero-span grid, and evaluates μ' directly, as the upstream
+    does: its vh is alt0 plus μ'·Σ Δh, where Σ Δh is the rounding of the
+    back-off in the absolute frame, fl(alt0 − 1e-6) − alt0 + 1e-6 (2.5e-15
+    km at 80 km), or NaN where μ' is not valid there
+    (:func:`_first_node_valid`). Both frames take the absolute frame's
+    crit, ``(alt0 − 1e-6) − (alt0 − base)``; the relative frame's own,
+    −1e-6 exactly, would leave a sum that is 0 in exact arithmetic, NaN on
+    some pairs by rounding.
     """
     t = torch.where(f1 != f0, (1.0 - f0) / torch.where(f1 != f0, f1 - f0, 1.0),
                     0.0)
@@ -162,12 +173,44 @@ def _crossing(f0, f1, a0, a1, r0, first_exceeds, valid, base):
     genuine = r0 == f0
     emax = torch.where(genuine, torch.maximum(slope * (crit - a0),
                                               torch.zeros_like(slope)), 0.0)
-    # np.interp edge semantics: cutoff already exceeded at the first node
-    crit = torch.where(first_exceeds, base, crit)
-    crit = torch.where(valid, crit, base) - _DH_BACKOFF
+    # np.interp edge semantics: cutoff already exceeded at the first node.
+    # emax < 0 keeps the zero-span grid off the analytic branch: its margin
+    # ε = 0 passes ε ≤ 0 and gives μ = 0, so no sample (the JAX package's
+    # kernels and sweep give NaN there).
+    crit = torch.where(first_exceeds, (alt0 - _DH_BACKOFF) - (alt0 - base),
+                       torch.where(valid, crit, base) - _DH_BACKOFF)
+    emax = torch.where(first_exceeds, -1.0, emax)
     slope = torch.where(valid, slope, 0.0)
     emax = torch.where(valid, emax, 0.0)
     return crit, slope, emax
+
+
+def _first_node_valid(valid, freq_hz, den0, bm0, bpsi0, mode_mult):
+    """``valid`` [B, F] with float32's first-exceedance pairs decided in
+    float64.
+
+    Such a pair's vh is alt0 where μ' at the first node is valid, NaN
+    where it is not (:func:`_crossing`). Below the gyrofrequency in X
+    mode, X is nearly 0 there and μ lies just above 1: float64 finds μ'
+    not valid where float32 rounds μ to 1 (valid). So float32 takes the
+    verdict of μ' on the node's values promoted to float64, as
+    ``first_node_ok`` in ``csrc/ionogram.cu`` does after kernels 1 and 2's
+    solves; float64 keeps its own. ``den0``, ``bm0`` and ``bpsi0`` are the
+    first node's [B] values; the pair exceeds there as the solves find it.
+    """
+    if den0.dtype != torch.float32:
+        return valid
+    f = freq_hz[None, :]
+    s = den0[:, None] * scalar_like(CP * CP, den0) * (1.0 / (f * f))
+    if mode_mult < 0:
+        s = s + bm0[:, None] * G_P / f
+    f = f.detach().double()
+    X = den0.detach().double()[:, None] * (CP * CP) / (f * f)
+    Y = bm0.detach().double()[:, None] * G_P / f
+    psi = bpsi0.detach().double()[:, None].expand_as(X)
+    one = torch.ones_like(X)
+    _, ok = _mu_mup_stable_tile(X, Y, psi, mode_mult, one, -one)
+    return valid & ((s < 1.0) | ok)
 
 
 def prepare_profile_tables(freq_hz, den, bmag, bpsi, alt, mode_mult):
@@ -234,7 +277,9 @@ def prepare_profile_tables(freq_hz, den, bmag, bpsi, alt, mode_mult):
         r0 = take(s, k - 1)
         first_exceeds = 1.0 <= fcrit[:, :, 0]
     crit, slope, emax = _crossing(f0, f1, a0, a1, r0, first_exceeds, valid,
-                                  alt_t[:, 0:1])
+                                  alt_t[:, 0:1], alt_t[:, 0:1])
+    valid = _first_node_valid(valid, freq_hz, den_t[:, 0], bmag_t[:, 0],
+                              bpsi_t[:, 0], mode_mult)
     seg = _pack_segment_table(den_t, bmag_t, bpsi_t, alt_t)
     return seg, crit, valid, slope, emax
 
@@ -614,7 +659,7 @@ def _osolve_plain(a):
     valid = (dmax[:, N - 1:N] * cp2) * inv_f2 >= 1.0
     valid = valid.expand_as(f0)
     span, slope, emax = _crossing(f0, f1, a0, a1, r0, first_exceeds, valid,
-                                  0.0)
+                                  0.0, a.alt_min)
     return span, slope, emax, valid
 
 
@@ -644,7 +689,7 @@ def _xsolve_plain(a):
     a0 = torch.gather(alt_rel, 1, k[..., 0] - 1)
     a1 = torch.gather(alt_rel, 1, k[..., 0])
     span, slope, emax = _crossing(f0, f1, a0, a1, r0, exceed[:, :, 0],
-                                  valid, 0.0)
+                                  valid, 0.0, a.alt_min)
     return span, slope, emax, valid
 
 
@@ -805,6 +850,11 @@ def plain_ionogram(a):
     else:
         raise ValueError(f"no prepared-args plain version for {a.kind!r} "
                          "(the sweep's plain version is ionogram_fast_xla)")
+    if a.kind in ("gather_osolve", "gather_xsolve"):
+        # after the solve, as kernels 1 and 2 take it (first_node_ok)
+        tab = _table(a)
+        valid = _first_node_valid(valid, a.freq_hz, tab[:, 2, 0],
+                                  tab[:, 4, 0], tab[:, 6, 0], a.mode_mult)
     resample = _resample_mxu_plain if a.kind == "mxu" else _resample_plain
     ih = resample(a, span, slope, emax)
     return torch.where(valid & (ih != 0.0), ih + a.alt_min, _NAN)

@@ -21,6 +21,7 @@ bit for bit with either table.
 
 import ctypes
 import subprocess
+import types
 
 import numpy as np
 import pytest
@@ -983,3 +984,159 @@ def test_auto_at_the_global_shape_matches_the_torch_prep(cuda, mode,
     assert TV.LAUNCHES["segment_table"] == 1 and TV.LAUNCHES[kind] == 2
     assert torch.isfinite(vh).any()
     assert _same_bits(vh, ref)
+
+
+def test_kernel_2_at_the_x20k_cell_shape_matches_parity(cuda):
+    """``engine="auto"`` in X mode at the benchmark's ``vh_x20k.batch32``
+    shape (32 seeded Chapman profiles under a dipole field on 620 nodes,
+    174 frequencies from 0.1 MHz, P = 20,000, f64): one table launch and
+    one launch of kernel 2, in its block-per-pair layout, and no plain
+    version; identical NaN masks with the parity engine and the benchmark's
+    plain reference and ≤ 1e-6 km on every pair, the sub-gyro pairs below
+    2 MHz (cutoff exceeded at the first node: alt_min, or NaN where μ' is
+    not valid there) included."""
+    from hfbench import inputs
+    from hfbench.reference import vertical_forward as ref
+    from pyrayhf_tpu_torch.forward import vertical_forward_operator_batch
+    f64 = torch.float64
+    alt = torch.linspace(80.0, 699.0, 620, dtype=f64, device=cuda)
+    freq = torch.round(torch.arange(1, 175, dtype=f64, device=cuda)
+                       * 0.1 * 1e10) / 1e10
+    traffic = {"profiles_per_call": 32, "pool_calls": 1, "sites": "random",
+               "e_layer_share": 0.25}
+    den, bmag, bpsi = inputs.profiles(traffic, 2 ** 33 + 21, alt, cuda)
+    TV.reset_counters()
+    vh = vertical_forward_operator_batch(freq, den, bmag, bpsi, alt,
+                                         mode="X", n_points=20000)
+    assert {k: v for k, v in TV.LAUNCHES.items() if v} == {
+        "segment_table": 1, "gather_xsolve": 1}
+    assert sum(TV.PLAIN_CALLS.values()) == 0
+    a = TV.prepare_kernel_args("gather_xsolve", freq, den, bmag, bpsi, alt,
+                               -1.0, 20000, TV.uniform_inv_dalt(alt))
+    assert TV.kernel_layout(a).per_block
+    par = vertical_forward_operator_batch(freq, den, bmag, bpsi, alt,
+                                          mode="X", n_points=20000,
+                                          engine="parity")
+    want = ref.vertical_forward(freq, den, bmag, bpsi, alt, -1.0, 20000)
+    first = _first_exceeds(freq.cpu().numpy(), den.cpu().numpy(),
+                           bmag.cpu().numpy(), -1.0)
+    assert first[:, freq.cpu().numpy() < 2.0].any()
+    vh, par, want = (x.cpu().numpy() for x in (vh, par, want))
+    assert np.isfinite(vh[first]).any() and np.isnan(vh[first]).any()
+    for other in (par, want):
+        assert np.array_equal(np.isnan(vh), np.isnan(other))
+        m = np.isfinite(other)
+        assert np.abs(vh[m] - other[m]).max() <= 1e-6
+
+
+def _library_without_the_first_node_repair(tmp_path):
+    """``csrc/ionogram.cu`` as it was before first-exceedance pairs were
+    given the direct μ' and the absolute frame's span, built alone into
+    ``tmp_path`` and loaded with the package library's entry types."""
+    from pyrayhf_tpu_torch import cuda_ext
+    src = (cuda_ext.SRC_DIR / "ionogram.cu").read_text()
+    repair = """  if (first_exceeds) {
+    emax = T(-1);
+    crit = (alt0 - T(kDH)) - alt0;
+  } else {
+    crit = (valid ? crit : T(0)) - T(kDH);
+  }
+"""
+    assert src.count(repair) == 1, "the repair's lines changed"
+    path = tmp_path / "ionogram_before.cu"
+    path.write_text(src.replace(repair, """  if (first_exceeds) crit = T(0);
+  crit = (valid ? crit : T(0)) - T(kDH);
+"""))
+    so = tmp_path / "ionogram_before.so"
+    r = subprocess.run([str(cuda_ext.find_nvcc()), *cuda_ext.NVCC_FLAGS,
+                        "-shared", "-I", str(cuda_ext.SRC_DIR), "-o",
+                        str(so), str(path)], capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr[-4000:]
+    real = cuda_ext.load()
+    lib = ctypes.CDLL(str(so))
+    lib.pyrayhf_ionogram.argtypes = real.pyrayhf_ionogram.argtypes
+    lib.pyrayhf_ionogram.restype = real.pyrayhf_ionogram.restype
+    return types.SimpleNamespace(
+        pyrayhf_ionogram=lib.pyrayhf_ionogram,
+        pyrayhf_ionogram_blocks_per_sm=real.pyrayhf_ionogram_blocks_per_sm,
+        pyrayhf_error_string=real.pyrayhf_error_string)
+
+
+@pytest.mark.parametrize("kind,mode_mult", [("gather_osolve", 1.0),
+                                            ("gather_xsolve", -1.0)])
+def test_global_shape_is_unchanged_off_first_exceedance_pairs(
+        cuda, kind, mode_mult, tmp_path, monkeypatch):
+    """Kernels 1 and 2 at the benchmark's global shape (10,512 Chapman
+    profiles on 620 nodes, 174 frequencies from 0.1 MHz, P = 200, f64)
+    give, bit for bit, what the kernel without the first-node repair gives
+    on every pair whose cutoff is not already exceeded at the first node;
+    the repair moves only those pairs."""
+    from pyrayhf_tpu_torch import cuda_ext
+    rng = np.random.default_rng(20251018)
+    B, N = 73 * 144, 620
+    alt = np.linspace(80.0, 699.0, N)
+    nm = 10.0 ** rng.uniform(11.0, np.log10(3e12), B)
+    hm = rng.uniform(220.0, 380.0, B)
+    H = rng.uniform(40.0, 70.0, B)
+    z = (alt[None, :] - hm[:, None]) / H[:, None]
+    den = nm[:, None] * np.exp(0.5 * (1.0 - z - np.exp(-z)))
+    b0 = rng.uniform(2.5e-5, 6.5e-5, B)
+    bmag = b0[:, None] * ((6371.0 + alt[0]) / (6371.0 + alt[None, :])) ** 3
+    bpsi = np.broadcast_to(rng.uniform(0.0, 90.0, B)[:, None], (B, N))
+    freqs = np.round(np.arange(1, 175) * 0.1, 10)
+    args = [torch.as_tensor(np.ascontiguousarray(x), dtype=torch.float64,
+                            device=cuda)
+            for x in (freqs, den, bmag, bpsi, alt)]
+    a = TV.prepare_kernel_args(kind, *args, mode_mult, 200,
+                               TV.uniform_inv_dalt(args[4]))
+    new = TV.launch_kernel(a)
+    before = _library_without_the_first_node_repair(tmp_path)
+    monkeypatch.setattr(cuda_ext, "load", lambda: before)
+    old = TV.launch_kernel(a)
+    torch.cuda.synchronize()
+    first = torch.as_tensor(_first_exceeds(freqs, den, bmag, mode_mult),
+                            device=cuda)
+    assert torch.isfinite(new[~first]).any()
+    assert _same_bits(new[~first], old[~first])
+    if mode_mult < 0:
+        assert first.any()
+
+
+@pytest.mark.parametrize("kind", ["gather_xsolve", "gather", "mxu", "sweep"])
+def test_f32_first_exceedance_pairs_take_the_f64_verdict(cuda, kind):
+    """X mode in f32 on 32 seeded Chapman profiles (174 frequencies from
+    0.1 MHz, P = 200): on the pairs whose cutoff is already exceeded at
+    the first node, each kernel's NaN mask is the f64 kernel's (f32 would
+    round μ just above 1 to 1 there; ``first_node_ok`` in kernels 1 and 2,
+    the host prep's ``_first_node_valid`` for kernels 3 to 5), its output
+    there alt_min within 3 ulp, and the f32 kernel's NaN mask is its plain
+    version's on every pair."""
+    from hfbench import inputs
+    f64 = torch.float64
+    alt = torch.linspace(80.0, 699.0, 620, dtype=f64, device=cuda)
+    freq = torch.round(torch.arange(1, 175, dtype=f64, device=cuda)
+                       * 0.1 * 1e10) / 1e10
+    traffic = {"profiles_per_call": 32, "pool_calls": 1, "sites": "random",
+               "e_layer_share": 0.25}
+    den, bmag, bpsi = inputs.profiles(traffic, 2 ** 33 + 29, alt, cuda)
+
+    def run(dtype, plain=False):
+        t = [x.to(dtype) for x in (freq, den, bmag, bpsi, alt)]
+        a = TV.prepare_kernel_args(kind, *t, -1.0, 200, None if kind ==
+                                   "sweep" else TV.uniform_inv_dalt(t[4]))
+        if plain:
+            if kind == "sweep":
+                return TV.ionogram_fast_xla(*t, mode_mult=-1.0)
+            return TV.plain_ionogram(a)
+        return (TV.launch_mxu(a) if kind == "mxu" else TV.launch_kernel(a))
+
+    v32, v64, p32 = (run(torch.float32).cpu().numpy(),
+                     run(f64).cpu().numpy(),
+                     run(torch.float32, True).cpu().numpy())
+    first = _first_exceeds(freq.cpu().numpy(), den.cpu().numpy(),
+                           bmag.cpu().numpy(), -1.0)
+    assert np.isnan(v64[first]).any() and np.isfinite(v64[first]).any()
+    assert np.array_equal(np.isnan(v32[first]), np.isnan(v64[first]))
+    fin = first & np.isfinite(v64)
+    assert np.abs(v32[fin] - v64[fin]).max() <= 3 * 7.7e-6
+    assert np.array_equal(np.isnan(v32), np.isnan(p32))

@@ -11,6 +11,13 @@ the cutoff) is compared on its NaN pattern only, as
 ``tests/test_pallas.py:286`` masks it. Gradients: rtol 1e-7 with atol
 1e-9·max, because the two backward passes sum in another order near
 reflection.
+
+A deliberate divergence: on a pair whose cutoff is already exceeded at
+the grid's first node (``_first_exceeds``) the port's kernels, plain
+versions and sweep give what the JAX package's parity engine and the
+upstream give (alt_min, or NaN where μ' is not valid there), where the
+JAX package's kernels and sweep give NaN or alt_min + ~1e-6 km. Those
+pairs are held to the JAX parity engine.
 """
 
 import numpy as np
@@ -74,6 +81,27 @@ def _j(args):
     return [jnp.asarray(a) for a in args]
 
 
+@pytest.fixture
+def _one_thread():
+    """One intra-op thread: the sweep's plain version runs ~3,000 small ops
+    a call, which stall for seconds each on threads that test workers
+    share."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _first_exceeds(freqs, den, bmag, mode_mult):
+    """[B, F] bool: the pairs whose cutoff function, X (O mode) or X + Y
+    (X mode), is already 1 or more at the grid's first node."""
+    f = np.asarray(freqs)[None, :] * 1e6
+    s = den[:, :1] * TV.CP ** 2 / f ** 2
+    if mode_mult < 0:
+        s = s + bmag[:, :1] * TV.G_P / f
+    return s >= 1.0
+
+
 def _assert_vh(port, ref, tol=TOL_KM, skip_cols=()):
     port = port.detach().numpy() if isinstance(port, torch.Tensor) else port
     ref = np.asarray(ref)
@@ -109,14 +137,20 @@ def test_prepare_profile_tables_matches_jax(mode_mult):
     port = TV.prepare_profile_tables(_t(freqs) * 1e6,
                                      *map(_t, (den, bmag, bpsi, alt)),
                                      mode_mult)
+    first = _first_exceeds(freqs, den, bmag, mode_mult)
+    assert first.any() and not first.all()
     for name, p, r in zip(("seg", "crit", "valid", "slope", "emax"),
                           port, ref):
         r = np.asarray(r)
+        p = p.numpy()
         if r.dtype == bool:
-            assert np.array_equal(p.numpy(), r), name
-        else:
-            assert_allclose(p.numpy(), r, rtol=1e-12, atol=1e-12,
-                            err_msg=name)
+            assert np.array_equal(p, r), name
+            continue
+        if name == "emax":
+            # the first-exceedance pairs leave the analytic branch
+            assert (p[first] == -1.0).all()
+            p, r = p[~first], r[~first]
+        assert_allclose(p, r, rtol=1e-12, atol=1e-12, err_msg=name)
 
 
 @pytest.mark.parametrize("mode_mult", [1.0, -1.0])
@@ -598,10 +632,11 @@ def test_sub_gyro_x_rows_differ_between_the_jax_engines_too():
     frequencies over a bottom nearly without plasma, under a |B| that
     falls with height: chip_smoke.py's Chapman profiles): the JAX
     package's own gather kernel (interpret mode) and its sweep give NaN
-    there, its parity operator alt[0] on three of these four profiles. The
-    port gives the same on each engine, so the difference between the
-    kernels and parity on these rows is inherited, not a fault of the
-    port."""
+    there, its parity operator alt[0] on three of these four profiles and
+    NaN on the fourth (μ' is not valid there). The port's gather and sweep
+    give what the parity operator gives on these rows (the deliberate
+    divergence), and what the JAX package's kernels give on every other
+    pair."""
     alt = np.linspace(80.0, 550.0, 180)
     rng = np.random.default_rng(20250901)
     B = 4
@@ -631,25 +666,64 @@ def test_sub_gyro_x_rows_differ_between_the_jax_engines_too():
            "sweep": JV.ionogram_fast_xla(*_j(args), mode_mult=-1.0),
            "parity": JF.vertical_forward_operator_batch(
                *args, mode="X", engine="parity")}
-    for k in port:
-        _assert_vh(port[k], ref[k])
     sub = freqs < 1.2                       # below every profile's f_H
-    kern, par = port["gather"].numpy(), port["parity"].numpy()
-    assert np.isnan(kern[:, sub]).all()
+    first = _first_exceeds(freqs, den, bmag, -1.0)
+    assert np.array_equal(first, np.broadcast_to(sub, first.shape))
+    _assert_vh(port["parity"], ref["parity"])
+    par = np.asarray(ref["parity"])
     assert (par[:3, sub] == alt[0]).all() and np.isnan(par[3, sub]).all()
-    # above 2 MHz the engines agree (chip_smoke.py compares them there)
+    for k in ("gather", "sweep"):
+        # the JAX package's kernel engines: NaN on these rows
+        assert np.isnan(np.asarray(ref[k])[:, sub]).all()
+        got = port[k].numpy()
+        _assert_vh(got[:, ~sub], np.asarray(ref[k])[:, ~sub])
+        _assert_vh(got[:, sub], par[:, sub])
+        assert (got[:3, sub] == alt[0]).all()
+    # above 2 MHz the kernels and parity agree as well (chip_smoke.py
+    # compares them at every frequency)
+    kern = port["gather"].numpy()
     _assert_vh(kern[:, freqs > 2.0], par[:, freqs > 2.0])
+
+
+def test_o_mode_first_exceedance_pairs_follow_the_parity_engine():
+    """O pairs whose X is already 1 or more at the first node (a dense
+    bottom, a frequency below its plasma frequency): every engine of the
+    port gives what the JAX package's parity operator gives there (NaN:
+    μ' is not valid above the cutoff), and what the JAX package's kernels
+    give on every other pair."""
+    args = _two_peak()         # 1.7e9 m^-3 at 90 km; the E peak's 1.2e11
+    t = [_t(a) for a in args]
+    first = _first_exceeds(args[0], args[1], args[2], 1.0)
+    assert first[:, 0].all() and first[1].sum() > first[0].sum()
+    par = np.asarray(JF.vertical_forward_operator_batch(*args, mode="O",
+                                                        engine="parity"))
+    kern = np.asarray(JV.ionogram_pallas_gather(*_j(args), mode_mult=1.0,
+                                                interpret=True))
+    port = {"gather": TV.ionogram_pallas_gather(*t, mode_mult=1.0),
+            "host_solve": TV.plain_ionogram(TV.prepare_kernel_args(
+                "gather", *t, 1.0, 200, TV.uniform_inv_dalt(t[4]))),
+            "sweep": TV.ionogram_pallas(*t, mode_mult=1.0),
+            "parity": TF.vertical_forward_operator_batch(
+                *t, mode="O", engine="parity")}
+    assert np.isnan(par[first]).all()
+    for got in port.values():
+        got = got.numpy()
+        assert np.isnan(got[first]).all()
+        _assert_vh(np.where(first, np.nan, got),
+                   np.where(first, np.nan, kern))
 
 
 @pytest.mark.parametrize("mode,mm,cases", [
     ("O", 1.0, ((1274, 12.5), (2919, 8.6), (9339, 10.7))),
     ("X", -1.0, ((7318, 2.8), (7342, 2.2)))])
 def test_fast_vs_parity_beyond_1e6_km_is_the_jax_packages(mode, mm, cases):
-    """On chip_smoke.py's 10,512-profile global grid (f64) the kernels and
-    the parity operator part by more than 1e-6 km at these (profile, MHz)
-    pairs only: the JAX package's gather kernel (interpret mode) and its
-    parity operator part there by the same 1.1e-6 to 2.1e-6 km, and the
-    port equals the JAX package on each engine."""
+    """On chip_smoke.py's 10,512-profile global grid (f64) the JAX
+    package's gather kernel (interpret mode) and its parity operator part
+    by more than 1e-6 km at these (profile, MHz) pairs only, by 1.1e-6 to
+    2.1e-6 km. The port equals the JAX package on each engine, except on
+    the X pairs, whose cutoff is already exceeded at the first node: there
+    the port's kernel gives the parity operator's alt_min (the deliberate
+    divergence), and the JAX kernel alt_min plus those 1e-6 km."""
     import chip_smoke as cs
 
     alt = np.linspace(80.0, 699.0, cs.N_ALT)
@@ -669,7 +743,108 @@ def test_fast_vs_parity_beyond_1e6_km_is_the_jax_packages(mode, mm, cases):
                                                  interpret=True))
     jax_p = np.asarray(JF.vertical_forward_operator_batch(
         *args, mode=mode, engine="parity"))
-    _assert_vh(port_k, jax_k)
+    first = _first_exceeds(freqs, den, bmag, mm)
+    assert np.diag(first).all() == (mode == "X")
+    assert not first.any() or mode == "X"
+    _assert_vh(np.where(first, np.nan, port_k), np.where(first, np.nan,
+                                                         jax_k))
     _assert_vh(port_p, jax_p)
-    for d in (np.diag(port_k - port_p), np.diag(jax_k - jax_p)):
+    d = np.diag(jax_k - jax_p)
+    assert np.all(np.abs(d) > 1e-6) and np.all(np.abs(d) < 3e-6)
+    d = np.diag(port_k - port_p)
+    if mode == "X":
+        assert np.all(np.abs(d) <= 1e-12)
+        assert np.array_equal(port_k[first], jax_p[first], equal_nan=True)
+        assert np.abs(np.diag(port_k) - alt[0]).max() <= 1e-12
+    else:
         assert np.all(np.abs(d) > 1e-6) and np.all(np.abs(d) < 3e-6)
+
+
+@pytest.mark.usefixtures("_one_thread")
+@pytest.mark.parametrize("engine", ["gather_xsolve", "sweep", "auto"])
+@pytest.mark.parametrize("n_points", [200, 20000])
+def test_x_mode_matches_the_benchmark_reference(engine, n_points):
+    """The port's X path on CPU tensors against the benchmark's plain
+    reference (``hfbench/reference/vertical_forward.py``, the upstream's
+    discretisation, which imports nothing of the port), on two of the
+    benchmark's seeded profiles (Chapman layers under a dipole field) from
+    0.2 to 12 MHz: the lowest frequencies lie below the gyrofrequency, so
+    the cutoff is already exceeded at the first node there. Identical NaN
+    masks and ≤ 1e-6 km (the engines read 3e-10 km at most)."""
+    from hfbench import inputs
+    from hfbench.reference import vertical_forward as ref
+
+    alt = torch.linspace(80.0, 699.0, 620, dtype=torch.float64)
+    traffic = {"profiles_per_call": 2, "pool_calls": 1, "sites": "random",
+               "e_layer_share": 0.25}
+    den, bmag, bpsi = inputs.profiles(traffic, 2 ** 33 + 17, alt,
+                                      torch.device("cpu"))
+    freq = torch.tensor([0.2, 0.5, 1.0, 1.4, 2.0, 3.5, 5.0, 8.0, 12.0],
+                        dtype=torch.float64)
+    first = _first_exceeds(freq.numpy(), den.numpy(), bmag.numpy(), -1.0)
+    assert first[:, :2].all() and not first[:, 3:].any()
+    want = ref.vertical_forward(freq, den, bmag, bpsi, alt, -1.0, n_points)
+    args = (freq, den, bmag, bpsi, alt)
+    TV.reset_counters()
+    if engine == "gather_xsolve":
+        got = TV.ionogram_pallas_gather(*args, mode_mult=-1.0,
+                                        n_points=n_points)
+        assert TV.PLAIN_CALLS["gather_xsolve"] == 1
+    elif engine == "sweep":
+        got = TV.ionogram_pallas(*args, mode_mult=-1.0, n_points=n_points)
+        assert TV.PLAIN_CALLS["sweep"] == 1
+    else:
+        got = TF.vertical_forward_operator_batch(*args, mode="X",
+                                                 n_points=n_points)
+    # alt_min on one profile's sub-gyro pairs, NaN (μ' not valid) on the
+    # other's
+    assert torch.isfinite(want[first]).any() and torch.isnan(
+        want[first]).any()
+    _assert_vh(got, want.numpy())
+
+
+@pytest.mark.usefixtures("_one_thread")
+@pytest.mark.parametrize("kind", ["gather_xsolve", "gather", "mxu", "sweep"])
+def test_f32_first_exceedance_pairs_take_the_f64_verdict(kind):
+    """Below the gyrofrequency in X mode the first node's X is nearly 0 and
+    μ lies just above 1 there: float64 finds μ' not valid (NaN) where
+    float32 rounds μ to 1 (valid). Each plain version in float32 takes
+    float64's verdict on these pairs (``_first_node_valid``; the kernels'
+    ``first_node_ok``), so its NaN mask there is float64's, on the
+    benchmark's seeded profiles, where float32's own verdict parts from
+    float64's on some pairs."""
+    from hfbench import inputs
+
+    alt = torch.linspace(80.0, 699.0, 620, dtype=torch.float64)
+    traffic = {"profiles_per_call": 16, "pool_calls": 1, "sites": "random",
+               "e_layer_share": 0.25}
+    den, bmag, bpsi = inputs.profiles(traffic, 2 ** 33 + 29, alt,
+                                      torch.device("cpu"))
+    freq = torch.arange(1, 8, dtype=torch.float64) * 0.1
+    first = _first_exceeds(freq.numpy(), den.numpy(), bmag.numpy(), -1.0)
+    assert first.any()
+
+    def node0_ok(dtype):
+        f = (freq * 1e6).to(dtype)[None, :]
+        X = den[:, :1].to(dtype) * (TV.CP * TV.CP) / (f * f)
+        Y = bmag[:, :1].to(dtype) * TV.G_P / f
+        one = torch.ones_like(X)
+        return TV._mu_mup_stable_tile(X, Y, bpsi[:, :1].to(dtype)
+                                      .expand_as(X), -1.0, one, -one)[1]
+
+    parted = (node0_ok(torch.float32) != node0_ok(torch.float64)).numpy()
+    assert (parted & first).any()
+
+    def run(dtype):
+        t = [a.to(dtype) for a in (freq, den, bmag, bpsi, alt)]
+        if kind == "sweep":
+            return TV.ionogram_fast_xla(*t, mode_mult=-1.0)
+        return TV.plain_ionogram(TV.prepare_kernel_args(
+            kind, *t, -1.0, 200, TV.uniform_inv_dalt(t[4])))
+
+    v32, v64 = run(torch.float32).numpy(), run(torch.float64).numpy()
+    assert np.array_equal(np.isnan(v32[first]), np.isnan(v64[first]))
+    assert np.isnan(v64[first & parted]).all()
+    # alt_min, within 3 ulp of float32 (μ'·1e-6 km rounds off at 80 km)
+    fin = first & ~np.isnan(v64)
+    assert np.abs(v32[fin] - v64[fin]).max() <= 3 * 7.7e-6

@@ -68,10 +68,19 @@ def test_outputs_bit_identical_with_the_profiler_on_and_off(engine):
     assert torch.equal(_bits(on), _bits(off))
 
 
-def test_spans_of_one_cpu_gather_call():
+@pytest.mark.parametrize("mode", ["O", "X"])
+def test_spans_of_one_cpu_gather_call(mode):
+    """A call through the gather engine (kernel 1's or kernel 2's plain
+    version on CPU tensors) records the route, then the prep, inside the
+    forward span; the launch span is the card's."""
+    from pyrayhf_tpu_torch import pallas_vh
     xs = _inputs()
-    _, events = _traced(lambda: vertical_forward_operator_batch(
-        *xs, mode="O", n_points=64, engine="pallas_gather"))
+    pallas_vh.reset_counters()
+    out, events = _traced(lambda: vertical_forward_operator_batch(
+        *xs, mode=mode, n_points=64, engine="pallas_gather"))
+    kind = "gather_osolve" if mode == "O" else "gather_xsolve"
+    assert pallas_vh.PLAIN_CALLS[kind] == 1
+    assert torch.isfinite(out).any()
     ours = [e for e in events if e.name.startswith("pyrayhf.")]
     names = sorted(e.name for e in ours)
     # the plain version runs on CPU tensors: no launch, no read from a card

@@ -62,7 +62,9 @@ non-uniform ``alt_nu``; 26 cases) and on its razor cases (kernel 2 at
 frequencies on each razor profile's node cutoffs fx_j and prefix maxima
 cfx_j times (1 +- n ulp), n <= 4, at P = 200 and 2,000; 4 cases): every
 variant in a warp-per-pair layout equals ``earlier`` bit for bit
-(NaN-aware); every variant in the block layout equals ``full`` bit for
+(NaN-aware; for kernels 1 and 2 off the pairs whose cutoff is already
+exceeded at the first node, which the earlier kernel gave NaN or alt_min
++ ~1e-6 km); every variant in the block layout equals ``full`` bit for
 bit, and ``full`` is held to the plain version (f64 identical NaN masks
 and <= 1e-6 km, f32 <= 1e-3 km of plain f32 and <= 0.1 km of plain f64).
 A failed check stops the run.
@@ -119,7 +121,7 @@ _XSOLVE_SCANS = """// X mode (_xsolve_tile): first exceedance of the raw s = X +
 // are prefix maxima of the same s values, r0 is the raw s at k-1.
 template <typename T>
 __device__ Solve<T> xsolve(const T* alt, const T* den, const T* bm, int N,
-                           T f, int lane) {
+                           T f, int lane, T alt0) {
   const T cp2 = T(kCP * kCP);
   const T gp = T(kGP);
   const T inv_f2 = T(1) / (f * f);
@@ -143,7 +145,8 @@ __device__ Solve<T> xsolve(const T* alt, const T* den, const T* bm, int N,
   const T f1 = s_k > f0 ? s_k : f0;
   const T r0 = cutoff_x(den, bm, k - 1, cp2, inv_f2, gp, f);
   const bool first_exceeds = cutoff_x(den, bm, 0, cp2, inv_f2, gp, f) >= T(1);
-  return crossing(f0, f1, alt[k - 1], alt[k], r0, first_exceeds, valid);
+  return crossing(f0, f1, alt[k - 1], alt[k], r0, first_exceeds, valid,
+                  alt0);
 }
 
 """
@@ -168,8 +171,8 @@ def no_table(cu):
              _XSOLVE_SCANS + "// The lane's place in the altitude table")
     cu = rep(cu, "  if constexpr (SOLVE) cutoff_table(den, bmg, N, cfx, "
                  "part);\n", "")
-    return rep(cu, "xsolve_table(alt, den, bmg, cfx, N, f, lane)",
-               "xsolve(alt, den, bmg, N, f, lane)", 2)
+    return rep(cu, "xsolve_table(alt, den, bmg, cfx, N, f, lane, amin)",
+               "xsolve(alt, den, bmg, N, f, lane, amin)", 2)
 
 
 _HEAD = "// bytes ahead of the table: the mbarrier, the valid-pair flag, 8 warp"
@@ -458,10 +461,25 @@ def main():
         return [v for v, _ in variants
                 if v != "no_table" or kind == "gather_xsolve"]
 
-    def diff(o, ref):
+    def diff(o, ref, skip=None):
+        """Elements of ``o`` that differ from ``ref`` (NaN-aware), outside
+        the [B, F] mask ``skip``."""
+        keep = torch.ones_like(ref, dtype=torch.bool) if skip is None \
+            else ~skip
         nan = torch.isnan(ref)
-        return int((torch.isnan(o) != nan).sum()
-                   + (o[~nan] != ref[~nan]).sum())
+        return int(((torch.isnan(o) != nan) & keep).sum()
+                   + (o[~nan & keep] != ref[~nan & keep]).sum())
+
+    def first_node(a):
+        """[B, F] bool: the pairs of prepared args ``a`` whose cutoff is
+        already exceeded at the first node, where the in-kernel solves
+        differ from the earlier kernel's (``crossing`` in
+        csrc/ionogram.cu)."""
+        tab, f = pv._table(a), a.freq_hz[None, :]
+        s = tab[:, 2, :1] * (cs.CP * cs.CP) * (1.0 / (f * f))
+        if a.mode_mult < 0:
+            s = s + tab[:, 4, :1] * cs.G_P / f
+        return s >= 1.0
 
     def plain(kind, mm, t, a, P):
         if kind == "sweep":
@@ -521,7 +539,9 @@ def main():
                 if gos[ref].layout[2] != gos[v].layout[2]:
                     raise RuntimeError(f"{v}: no reference in its layout "
                                        f"{gos[v].layout}")
-                bitwise[v] = diff(outs[v], outs[ref])
+                skip = (first_node(a) if ref == "earlier" and a.kind in
+                        ("gather_osolve", "gather_xsolve") else None)
+                bitwise[v] = diff(outs[v], outs[ref], skip)
             plains[dtype] = plain(a.kind, mm, t, a, P)
             name = (f"{kind} {'O' if mm > 0 else 'X'} {grid} B={B} P={P} "
                     f"F={a.freq_hz.shape[0]} {str(dtype)[6:]}")

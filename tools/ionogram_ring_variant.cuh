@@ -108,15 +108,17 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 8 ? 4 : 1)
         if constexpr (SOLVE) {
           if (p.per_block) {  // one warp solves, the block reads it
             if (warp == 0) {
-              sv = xsolve_table(alt, den, bmg, cfx, N, f, lane);
+              sv = xsolve_table(alt, den, bmg, cfx, N, f, lane, amin);
               if (lane == 0) *solved = sv;
             }
             __syncthreads();
             sv = *solved;
             __syncthreads();
           } else {
-            sv = xsolve_table(alt, den, bmg, cfx, N, f, lane);
+            sv = xsolve_table(alt, den, bmg, cfx, N, f, lane, amin);
           }
+          if (sizeof(T) == 4 && sv.first && sv.valid)
+            sv.valid = first_node_ok<MODE>(den[0], bmg[0], bps[0], f);
         } else {
           sv = {p.span[o], p.slope[o], p.emax[o], p.valid[o] != 0};
         }

@@ -154,7 +154,7 @@ void run(long long want, uint64_t seed) {
         ++razor;
       }
       const Solve<T> a = xsolve_table(alt.data(), den.data(), bm.data(),
-                                      cfx.data(), N, f, 0);
+                                      cfx.data(), N, f, 0, T(80));
       const Solve<T> b = xsolve_old(alt.data(), den.data(), bm.data(), N, f,
                                     0);
       const bool ok = a.valid == b.valid &&
@@ -209,6 +209,12 @@ def main():
     if "xsolve_table" not in cur or "Solve<T> xsolve(" not in old:
         raise ValueError("the sources do not hold the two solves")
     old = old.replace("Solve<T> xsolve(", "Solve<T> xsolve_old(")
+    # both solves end in the current crossing, on a grid whose first node
+    # lies at 80 km (the profiles' altitudes are relative to it)
+    call = "first_exceeds, valid);"
+    if old.count(call) != 1:
+        raise ValueError(f"the earlier solve's {call!r} not found")
+    old = old.replace(call, "first_exceeds, valid, T(80));")
     # a warp of one lane: every 32-node stride becomes one node
     cur, old = (t.replace("+= 32", "+= 1") for t in (cur, old))
     src = STUB + "#include <vector>\n#include <cstdlib>\nnamespace {\n" + \
