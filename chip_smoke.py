@@ -601,10 +601,10 @@ def ionogram_function(kind, mode_mult, dtype_name):
     """The instantiation of csrc/ionogram.cu that runs ``kind``."""
     t = "float" if dtype_name == "float32" else "double"
     m = "(int)1" if mode_mult > 0 else "(int)-1"
-    return {"gather_osolve": f"ionogram_kernel<{t}, (int)1, (bool)1, (bool)1>",
+    return {"gather_osolve": f"gather_kernel<{t}, (int)1, (bool)1>",
             "gather_xsolve": f"gather_kernel<{t}, (int)-1, (bool)1>",
             "gather": f"gather_kernel<{t}, {m}, (bool)0>",
-            "sweep": f"ionogram_kernel<{t}, {m}, (bool)0, (bool)0>"}[kind]
+            "sweep": f"ionogram_kernel<{t}, {m}>"}[kind]
 
 
 def main_loop(loops, mufu="RSQ"):
@@ -3579,7 +3579,7 @@ def main():
                     *inp, mode_mult=mm, n_points=P,
                     x_in_kernel_solve=(kind != "gather"))
         w_ms, _ = profiling.time_launch(wrapper, iters=TIMING_ITERS)
-        N = a.tab.shape[2]
+        N = a.n_alt
         item = a.tab.element_size()
         # the pairs the solve marks valid: the host solve's, or the
         # in-kernel solve's plain version on the same table
@@ -3602,6 +3602,12 @@ def main():
         lay = pv.kernel_layout(a)
         layout = (f"{'block' if lay.per_block else 'warp'} per pair, "
                   f"{lay.warps} warps, {lay.n_groups} groups")
+        # blocks an SM holds (the occupancy calculator), kernel_layout's input
+        bps = pv.blocks_per_sm(td.device.index, int(item == 8),
+                               1 if mm > 0 else -1,
+                               kind in ("gather_osolve", "gather_xsolve"),
+                               kinv is not None, a.tab.shape[1], N,
+                               a.tab.shape[2])
         row = {"shape": f"B={B} F={F} P={P} N={ta.shape[0]} "
                         f"f{8 * item} {label}",
                "kernel_ms": k_ms, "plain_ms": p_ms, "wrapper_ms": w_ms,
@@ -3609,6 +3615,7 @@ def main():
                "issue_ms_longest": i_long, "issue_counts": i_counts,
                "sm_clock_mhz": clock,
                "valid_share": n_valid / (B * F), "layout": layout,
+               "blocks_per_sm": bps,
                "kernel_vh_per_s": profiling.vh_evals_per_s(B, F, k_ms),
                "plain_vh_per_s": profiling.vh_evals_per_s(B, F, p_ms),
                "wrapper_vh_per_s": profiling.vh_evals_per_s(B, F, w_ms)}
@@ -3617,7 +3624,7 @@ def main():
               f"{b_by}: {ops:.4e} ops on the {row['valid_share']:.4f} valid "
               f"share, {nbytes:.4e} bytes; issue bound {i_ms:.4f} ms "
               f"({i_long:.4f} at the longest paths) at {clock} MHz, "
-              f"{i_counts}; layout {layout}), wrapper "
+              f"{i_counts}; layout {layout}, {bps} blocks an SM), wrapper "
               f"{w_ms:.4f} ms ({row['wrapper_vh_per_s']:.4e} vh/s), plain "
               f"{p_ms:.4f} ms ({row['plain_vh_per_s']:.4e} vh/s); {card}",
               flush=True)
@@ -3727,6 +3734,7 @@ def main():
             "sm_clock_mhz": row["sm_clock_mhz"],
             "library_ms": None, "wrapper_ms": row["wrapper_ms"],
             "valid_share": row["valid_share"], "layout": row["layout"],
+            "blocks_per_sm": row["blocks_per_sm"],
             "shape": row["shape"], **extra.get(k, {})})
     kernels.append({
         "name": "segment_table", "route": "cuda", "source": TABLE_SOURCE,

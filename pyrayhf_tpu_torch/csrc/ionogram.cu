@@ -2,10 +2,10 @@
 // Pallas TPU kernels of pyrayhf_tpu/pallas_vh.py.
 //
 //   instantiation                  replaces (pyrayhf_tpu/pallas_vh.py)
-//   <T, O, SOLVE, UNIFORM>         _kernel_gather_osolve :701 (+ _osolve_tile :647)
-//   <T, X, SOLVE, UNIFORM>         _kernel_gather_xsolve :839 (+ _xsolve_tile :788)
-//   <T, O|X, !SOLVE, UNIFORM>      _kernel_gather :583 (solve on the host)
-//   <T, O|X, !SOLVE, !UNIFORM>     _kernel :354 (segment sweep, any grid)
+//   gather_kernel<T, O, SOLVE>     _kernel_gather_osolve :701 (+ _osolve_tile :647)
+//   gather_kernel<T, X, SOLVE>     _kernel_gather_xsolve :839 (+ _xsolve_tile :788)
+//   gather_kernel<T, O|X, !SOLVE>  _kernel_gather :583 (solve on the host)
+//   ionogram_kernel<T, O|X>        _kernel :354 (segment sweep, any grid)
 //   mup_stable<T, MODE>            _mu_mup_stable_tile :229 (ionogram_common.cuh,
 //                                  shared with ionogram_mxu.cu)
 //
@@ -55,9 +55,14 @@
 // launch; the block layout adds in another order (f64 agreement ~1e-12
 // relative).
 //
-// Kernels 2 and 3 (uniform grid, X-mode solve or host solve) run
-// gather_kernel, kernels 1 and 4 ionogram_kernel. gather_kernel:
+// Kernels 1-3 (uniform grid: O-mode solve, X-mode solve or host solve)
+// run gather_kernel, kernel 4 (the sweep) ionogram_kernel. gather_kernel:
 //
+//   * the O solve reads the running maximum dmax of den (row 8 of kernel
+//     1's table, non-decreasing): a pair whose ray escapes (dmax at the
+//     top node below its cutoff) reads no other node, and a valid pair's
+//     count of nodes below the cutoff is a 32-way search of the row in
+//     place of a count over every node;
 //   * the X solve reads a table of each node's cutoff frequency fx_j (the
 //     f at which s_j = X_j + Y_j = 1) as its prefix maximum cfx_j, built
 //     once per (profile, group) in shared memory: a pair with f above
@@ -71,8 +76,9 @@
 //
 // Timed and not kept (tools/ionogram_attribution.py): copying only the
 // channels a kernel reads, mult, 1 - mult and dmult staged in shared
-// memory, and a persistent grid whose blocks copy the next item's table
-// while they work on the current one.
+// memory, a persistent grid whose blocks copy the next item's table
+// while they work on the current one, and f64 registers capped for 5
+// blocks an SM (48 a thread) in place of 4.
 
 #include "ionogram_common.cuh"
 
@@ -149,18 +155,39 @@ __device__ __forceinline__ Solve<T> crossing(T f0, T f1, T a0, T a1, T r0,
   return {crit, slope, emax, valid, first_exceeds};
 }
 
-// O mode (_osolve_tile): count cummax(den) < f^2/cp^2, then the X-space
-// +-1 razor correction, 2 steps each way.
+// #{j < N : row[j] < thr} for a non-decreasing row (a running maximum:
+// a NaN, once there, stays to the end), where the test holds on a prefix:
+// rounds of one ballot of 32 nodes evenly spaced over the bracket, each
+// narrowing it 32-fold (2 rounds at N <= 1,024). The linear count's value
+// for every thr, NaN included.
 template <typename T>
-__device__ Solve<T> osolve(const T* alt, const T* den, const T* dmax, int N,
-                           T f, int lane, T alt0) {
+__device__ __forceinline__ int count_below(const T* row, int N, T thr,
+                                           int lane) {
+  int lo = 0, hi = N;  // row[j] < thr for j < lo, not for j >= hi
+  while (lo < hi) {
+    const int s = (hi - lo + 31) >> 5;
+    const unsigned m =
+        __ballot_sync(kFull, lo + lane * s < hi && row[lo + lane * s] < thr);
+    if (m == 0) break;
+    const int c = __popc(m);
+    hi = min(lo + c * s, hi);
+    lo += (c - 1) * s + 1;
+  }
+  return lo;
+}
+
+// O mode (_osolve_tile) on the running maximum dmax of den: a pair whose
+// ray escapes reads no node but dmax[N-1]; a valid pair counts dmax <
+// f^2/cp^2 (count_below), then takes the X-space +-1 razor correction, 2
+// steps each way.
+template <typename T>
+__device__ Solve<T> osolve_table(const T* alt, const T* den, const T* dmax,
+                                 int N, T f, int lane, T alt0) {
   const T cp2 = T(kCP * kCP);
   const T inv_f2 = T(1) / (f * f);
-  const T thr = (f * f) / cp2;
-  int cnt = 0;
-  for (int j = lane; j < N; j += 32) cnt += dmax[j] < thr ? 1 : 0;
-  cnt = __reduce_add_sync(kFull, cnt);
-  int k = min(max(cnt, 1), N - 1);
+  if (!(dmax[N - 1] * cp2 * inv_f2 >= T(1)))
+    return {T(0), T(0), T(0), false};
+  int k = min(max(count_below(dmax, N, (f * f) / cp2, lane), 1), N - 1);
   for (int it = 0; it < 2; ++it)
     if (dmax[k - 1] * cp2 * inv_f2 >= T(1) && k > 1) k -= 1;
   for (int it = 0; it < 2; ++it)
@@ -169,8 +196,7 @@ __device__ Solve<T> osolve(const T* alt, const T* den, const T* dmax, int N,
   const T f1 = dmax[k] * cp2 * inv_f2;
   const T r0 = den[k - 1] * cp2 * inv_f2;  // un-cummaxed X at k-1
   const bool first_exceeds = (dmax[0] * cp2) * inv_f2 >= T(1);
-  const bool valid = dmax[N - 1] * cp2 * inv_f2 >= T(1);
-  return crossing(f0, f1, alt[k - 1], alt[k], r0, first_exceeds, valid,
+  return crossing(f0, f1, alt[k - 1], alt[k], r0, first_exceeds, true,
                   alt0);
 }
 
@@ -332,12 +358,10 @@ __device__ bool first_node_ok(T d, T bm, T bp, T f) {
   return ok;
 }
 
-// Kernels 1 (O solve, uniform) and 4 (host solve, any grid).
-template <typename T, int MODE, bool SOLVE, bool UNIFORM>
+// Kernel 4 (host solve, any grid: the segment sweep).
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kMaxThreads)
     ionogram_kernel(const Params<T> p) {
-  static_assert(SOLVE ? (MODE > 0 && UNIFORM) : !UNIFORM,
-                "kernels 2 and 3 are gather_kernel");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* s = reinterpret_cast<T*>(smem_raw);
   const int N = p.N;
@@ -346,8 +370,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   const int G = p.n_groups;
   T* const out = p.out + (size_t)b * p.F;
 
-  if constexpr (!SOLVE) {
-    // no valid pair in the group: NaN out, and the table stays unread
+  {  // no valid pair in the group: NaN out, and the table stays unread
     const int t0 = g + (int)threadIdx.x * G, t_step = (int)blockDim.x * G;
     int any = 0;
     for (int fi = t0; fi < p.F; fi += t_step)
@@ -393,14 +416,7 @@ __global__ void __launch_bounds__(kMaxThreads)
   for (int fi = g + slot * G; fi < p.F; fi += slot_step * G) {
     const T f = p.freq[fi];
     const size_t o = (size_t)b * p.F + fi;
-    Solve<T> sv;
-    if constexpr (SOLVE) {
-      sv = osolve(alt, den, s + 8 * N, N, f, lane, amin);
-      if (sizeof(T) == 4 && sv.first && sv.valid)
-        sv.valid = first_node_ok<MODE>(den[0], bmg[0], bps[0], f);
-    } else {
-      sv = {p.span[o], p.slope[o], p.emax[o], p.valid[o] != 0};
-    }
+    const Solve<T> sv = {p.span[o], p.slope[o], p.emax[o], p.valid[o] != 0};
     if (!sv.valid) {  // the ray escapes: vh is NaN, no resample, no mu'
       if (lead) out[fi] = T(NAN);
       continue;
@@ -410,17 +426,11 @@ __global__ void __launch_bounds__(kMaxThreads)
     Cursor<T> cur{0, T(-INFINITY), alt[0]};
     T acc = T(0);
     for (int q = q_begin + lane; q < q_end; q += 32) {
-      int i0;
-      T frac;
-      if constexpr (UNIFORM) {
-        i0 = uniform_index(span * (p.mult[q] * p.inv_dalt), N, frac);
-      } else {
-        // upper_bound(alt, x) - 1, clamped to a segment [0, N-2]
-        const T x = span * p.mult[q];
-        seek(alt, N, x, cur);
-        i0 = min(max(cur.lo - 1, 0), N - 2);
-        frac = clip01((x - alt[i0]) * inv[i0]);
-      }
+      // upper_bound(alt, x) - 1, clamped to a segment [0, N-2]
+      const T x = span * p.mult[q];
+      seek(alt, N, x, cur);
+      const int i0 = min(max(cur.lo - 1, 0), N - 2);
+      const T frac = clip01((x - alt[i0]) * inv[i0]);
       const T d = den[i0] + frac * dden[i0];
       const T bmv = bmg[i0] + frac * dbm[i0];
       const T bpv = bps[i0] + frac * dbp[i0];
@@ -441,9 +451,10 @@ __global__ void __launch_bounds__(kMaxThreads)
   }
 }
 
-// ---- kernels 2 and 3 --------------------------------------------------
+// ---- kernels 1-3 --------------------------------------------------------
 
-// rows of kernels 2 and 3's table in shared memory: all 8 channels
+// rows of the table in shared memory: all 8 channels (kernel 1 copies the
+// running maximum of den as a 9th row)
 constexpr int kRows = 8;
 // bytes ahead of the table: the mbarrier, the valid-pair flag, 8 warp
 // sums, the block layout's shared solve
@@ -490,12 +501,26 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       : "memory");
 }
 
-// Kernels 2 (X solve, uniform) and 3 (host solve, uniform): block (b, g)
-// takes profile b's frequencies g, g + n_groups, ... Warp 0 checks that
-// the group has a valid pair (kernel 3) and copies the table into shared
-// memory by TMA. In f64 the registers are capped for 4 blocks an SM (64
-// a thread; 80-97 uncapped, 2-3 blocks): the tail's chains of dependent
-// f64 divisions want the warps more than the registers.
+// The in-kernel solve of kernel 1 (O, on dmax) or 2 (X, on cfx): `row8`
+// is the table's 9th row in shared memory.
+template <typename T, int MODE>
+__device__ __forceinline__ Solve<T> solve_pair(const T* alt, const T* den,
+                                               const T* bm, const T* row8,
+                                               int N, T f, int lane,
+                                               T alt0) {
+  if constexpr (MODE > 0) {
+    return osolve_table(alt, den, row8, N, f, lane, alt0);
+  } else {
+    return xsolve_table(alt, den, bm, row8, N, f, lane, alt0);
+  }
+}
+
+// Kernels 1 (O solve), 2 (X solve) and 3 (host solve), on a uniform grid:
+// block (b, g) takes profile b's frequencies g, g + n_groups, ... Warp 0
+// checks that the group has a valid pair (kernel 3) and copies the table
+// into shared memory by TMA. In f64 the registers are capped for 4 blocks
+// an SM (64 a thread; 80-97 uncapped, 2-3 blocks): the tail's chains of
+// dependent f64 divisions want the warps more than the registers.
 template <typename T, int MODE, bool SOLVE>
 __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 8 ? 4 : 1)
     gather_kernel(const Params<T> p) {
@@ -506,7 +531,9 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 8 ? 4 : 1)
   Solve<T>* solved = reinterpret_cast<Solve<T>*>(smem_raw + 96);
   T* const tb = reinterpret_cast<T*>(smem_raw + kHead);
   const int N = p.N, ld = p.ld, G = p.n_groups, P = p.P;
+  // row 8: kernel 1's dmax, copied with the table; kernel 2's cutoff table
   T* cfx = tb + kRows * ld;
+  constexpr int rows = (SOLVE && MODE > 0) ? kRows + 1 : kRows;
   const int b = blockIdx.x, g = blockIdx.y;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -529,7 +556,7 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 8 ? 4 : 1)
     if (lane == 0) {
       *has = any;
       if (any) {
-        const unsigned bytes = (unsigned)(kRows * ld * sizeof(T));
+        const unsigned bytes = (unsigned)(rows * ld * sizeof(T));
         mbar_expect(bar, bytes);
         bulk_copy(tb, p.tab + (size_t)b * p.C * ld, bytes, bar);
       }
@@ -550,7 +577,7 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 8 ? 4 : 1)
   const T* dbm = tb + 5 * ld;
   const T* bps = tb + 6 * ld;
   const T* dbp = tb + 7 * ld;
-  if constexpr (SOLVE) cutoff_table(den, bmg, N, cfx, part);
+  if constexpr (SOLVE && MODE < 0) cutoff_table(den, bmg, N, cfx, part);
 
   // warp layout: warp w takes the group's frequencies w, w + nwarps, ...
   // and all P points; block layout: every warp takes every frequency and
@@ -573,14 +600,14 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 8 ? 4 : 1)
     if constexpr (SOLVE) {
       if (p.per_block) {  // one warp solves, the block reads it
         if (warp == 0) {
-          sv = xsolve_table(alt, den, bmg, cfx, N, f, lane, amin);
+          sv = solve_pair<T, MODE>(alt, den, bmg, cfx, N, f, lane, amin);
           if (lane == 0) *solved = sv;
         }
         __syncthreads();
         sv = *solved;
         __syncthreads();
       } else {
-        sv = xsolve_table(alt, den, bmg, cfx, N, f, lane, amin);
+        sv = solve_pair<T, MODE>(alt, den, bmg, cfx, N, f, lane, amin);
       }
       if (sizeof(T) == 4 && sv.first && sv.valid)
         sv.valid = first_node_ok<MODE>(den[0], bmg[0], bps[0], f);
@@ -626,8 +653,8 @@ size_t smem_of(int C, int N) {
   return sizeof(T) * ((size_t)C * N + kMaxThreads / 32);
 }
 
-// ... of one gather_kernel block: the head, the table and the cutoff
-// table (kernel 2).
+// ... of one gather_kernel block: the head, the table and its 9th row
+// (kernel 1's dmax, kernel 2's cutoff table).
 template <typename T, bool SOLVE>
 size_t gather_smem(int ld) {
   size_t n = (size_t)kRows * ld;
@@ -644,15 +671,16 @@ cudaError_t allow_smem(K kern, size_t smem) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// The kernel of an instantiation and its dynamic shared memory.
+// The kernel of an instantiation and its dynamic shared memory: kernels
+// 1-3 (uniform grid) gather_kernel, kernel 4 ionogram_kernel.
 template <typename T, int MODE, bool SOLVE, bool UNIFORM>
 struct Kernel {
-  static constexpr bool gather = UNIFORM && !(SOLVE && MODE > 0);
+  static constexpr bool gather = UNIFORM;
   static void (*fn())(const Params<T>) {
     if constexpr (gather) {
       return gather_kernel<T, MODE, SOLVE>;
     } else {
-      return ionogram_kernel<T, MODE, SOLVE, UNIFORM>;
+      return ionogram_kernel<T, MODE>;
     }
   }
   static size_t smem(int C, int N, int ld) {
@@ -713,11 +741,10 @@ int dispatch(int mode, int solve, int uniform, const void* tab, int C, int B,
              const void* slope, const void* emax, const void* valid,
              const void* alt_min, double inv_dalt, void* out,
              cudaStream_t stream) {
-  const bool gather = uniform && !(solve && mode > 0);
   // gather_kernel's bulk copies: rows of a multiple of 16 bytes, a
   // 16-byte-aligned table; ionogram_kernel reads rows of N
   const bool rows_ok =
-      gather ? (ld >= N && (ld * sizeof(T)) % 16 == 0 &&
+      uniform ? (ld >= N && (ld * sizeof(T)) % 16 == 0 &&
                 reinterpret_cast<uintptr_t>(tab) % 16 == 0)
              : ld == N;
   if (warps < 1 || warps * 32 > kMaxThreads || n_groups < 1 ||
@@ -751,8 +778,8 @@ extern "C" {
 
 // dtype: 0 float32, 1 float64. mode: +1 O, -1 X. solve: reflection solve
 // in the kernel (needs uniform). uniform: arithmetic index with inv_dalt.
-// tab [B, C, ld]: ld = N for kernels 1 and 4, a multiple of 16 bytes >= N
-// for kernels 2 and 3. n_groups frequency groups per profile
+// tab [B, C, ld]: ld = N for kernel 4, a multiple of 16 bytes >= N for
+// kernels 1-3. n_groups frequency groups per profile
 // (interleaved), warps per block, per_block: a block per (profile,
 // frequency) instead of a warp.
 // Returns the launch's cudaError_t (0 on success); does not synchronise.

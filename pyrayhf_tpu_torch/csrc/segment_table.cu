@@ -17,7 +17,7 @@
 //   0  alt_t[j] - alt_t[0]      1  1 / D alt_t[j], 0 unless D alt_t[j] > 0
 //   2  den_t[j]    3  D den_t[j]     4  bmag_t[j]    5  D bmag_t[j]
 //   6  bpsi_t[j]   7  D bpsi_t[j]    8  running maximum of den_t (C = 9)
-// Nodes N <= j < ld (the 16-byte row padding of kernel 2's bulk copies) are
+// Nodes N <= j < ld (the 16-byte row padding of the bulk copies) are
 // 0 in every channel. The argmax and the running maximum keep torch's
 // semantics: NaN above every number and the first index among equal maxima;
 // a NaN stays in the running maximum, and an element equal to it replaces

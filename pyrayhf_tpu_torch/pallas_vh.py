@@ -10,7 +10,9 @@ are instantiations of ONE templated CUDA kernel (``csrc/ionogram.cu``):
 kernel (counter name) ← replaced TPU kernel; its plain PyTorch version:
 
 * ``gather_osolve`` ← ``_kernel_gather_osolve`` (O, solve in the kernel,
-  uniform index); ``_osolve_plain`` + ``_resample_plain``;
+  uniform index; an escaped pair reads no node but the top of cummax(den),
+  a valid one searches that non-decreasing row for its crossing);
+  ``_osolve_plain`` + ``_resample_plain``;
 * ``gather_xsolve`` ← ``_kernel_gather_xsolve`` (X, solve in the kernel,
   uniform index; the kernel searches the first exceedance from a bracket
   on the cutoff-frequency table, :func:`cutoff_table`);
@@ -490,10 +492,11 @@ class KernelArgs:
 
     ``tab`` is the channel-major segment table [B, C, ld] (channels as in
     :func:`_pack_segment_table`, plus cummax(den) as channel 8 for the
-    O-mode in-kernel solve) over ``n_alt`` altitude nodes; for kernels 2
-    and 3 (``gather_xsolve``, ``gather``) the rows are zero-padded to a
-    stride ``ld`` of a multiple of 16 bytes (:func:`padded_rows`), which
-    their bulk copies need, else ``ld == n_alt``. ``span``/``slope``/
+    O-mode in-kernel solve) over ``n_alt`` altitude nodes; for kernels 1
+    to 3 (``gather_osolve``, ``gather_xsolve``, ``gather``) the rows are
+    zero-padded to a stride ``ld`` of a multiple of 16 bytes
+    (:func:`padded_rows`), which their bulk copies need, else
+    ``ld == n_alt``. ``span``/``slope``/
     ``emax``/``valid`` [B, F] are set when the solve runs outside the
     kernel. ``inv_dalt`` selects the arithmetic index (uniform grid);
     None the upper-bound one. For ``kind="mxu"``, ``tab`` is the one-hot
@@ -516,7 +519,7 @@ class KernelArgs:
 
 
 def padded_rows(n_alt, itemsize):
-    """Row stride of kernels 2 and 3's table: ``n_alt`` rounded up to a
+    """Row stride of kernels 1 to 3's table: ``n_alt`` rounded up to a
     multiple of 16 bytes (the TMA bulk copy's unit)."""
     per = 16 // itemsize
     return -(-n_alt // per) * per
@@ -524,7 +527,7 @@ def padded_rows(n_alt, itemsize):
 
 def _rows(tab, kind):
     """``tab`` [B, C, N] with its rows zero-padded for ``kind``."""
-    if kind not in ("gather", "gather_xsolve"):
+    if kind == "sweep":
         return tab.contiguous()
     N = tab.shape[2]
     pad = padded_rows(N, tab.element_size()) - N
@@ -536,9 +539,9 @@ def plain_segment_table(kind, den, bmag, bpsi, alt):
     the plain version of ``csrc/segment_table.cu``.
 
     :func:`_pack_segment_table`'s channels of the flat-extended profiles,
-    channel-major [B, C, ld]; for ``gather_osolve`` cummax(den) as channel
-    8 (C = 9, ld = N), for ``gather_xsolve`` C = 8 and rows zero-padded
-    (:func:`_rows`).
+    channel-major [B, C, ld] with rows zero-padded (:func:`_rows`); for
+    ``gather_osolve`` cummax(den) as channel 8 (C = 9), for
+    ``gather_xsolve`` C = 8.
     """
     den_t, bmag_t, bpsi_t, alt_t = _flat_extend(den, bmag, bpsi, alt)
     seg = _pack_segment_table(den_t, bmag_t, bpsi_t, alt_t)
@@ -582,7 +585,7 @@ def launch_segment_table(kind, den, bmag, bpsi, alt):
             for x in (den, bmag, bpsi)]
     alt = alt if alt.stride(0) == 1 else alt.contiguous()
     C = 9 if kind == "gather_osolve" else 8
-    ld = N if C == 9 else padded_rows(N, den.element_size())
+    ld = padded_rows(N, den.element_size())
     tab = torch.empty((B, C, ld), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -950,13 +953,15 @@ def kernel_layout(a):
 
 
 def ionogram_smem_bytes(kind, C, N, ld, itemsize):
-    """Dynamic shared memory of one ``csrc/ionogram.cu`` block. Kernels 1
-    and 4: the [C, N] table and 8 warp sums. Kernels 2 and 3: 128 bytes of
-    barrier, flag and sums, the 8 channels at row stride ``ld`` and kernel
-    2's cutoff table."""
-    if kind not in ("gather", "gather_xsolve"):
+    """Dynamic shared memory of one ``csrc/ionogram.cu`` block. Kernel 4:
+    the [C, N] table and 8 warp sums. Kernels 1 to 3: 128 bytes of
+    barrier, flag and sums, the 8 channels at row stride ``ld`` and, for
+    the in-kernel solves, a 9th row (kernel 1's cummax(den), kernel 2's
+    cutoff table)."""
+    if kind == "sweep":
         return itemsize * (C * N + 8)
-    return 128 + itemsize * (9 if kind == "gather_xsolve" else 8) * ld
+    solve = kind in ("gather_osolve", "gather_xsolve")
+    return 128 + itemsize * (9 if solve else 8) * ld
 
 
 def launch_kernel(a):

@@ -833,7 +833,7 @@ def test_spans_of_one_auto_call_on_the_card(cuda, tmp_path):
     """One ``engine="auto"`` call, f64, under ``torch.profiler`` (CPU and
     CUDA): one each of the operator's five spans; the kernel launched
     inside ``pyrayhf.launch`` (its runtime call matched to the
-    ``ionogram_kernel`` device event by correlation id); every other
+    ``gather_kernel`` device event by correlation id); every other
     device op launched inside ``pyrayhf.route`` or ``pyrayhf.prep``; the
     output bit for bit the call's without the profiler."""
     import json
@@ -870,7 +870,7 @@ def test_spans_of_one_auto_call_on_the_card(cuda, tmp_path):
         (s, u), = spans[name]
         return s <= t <= u
 
-    kernels = [e for e in device if "ionogram_kernel" in e["name"]]
+    kernels = [e for e in device if "gather_kernel" in e["name"]]
     assert len(kernels) == 1
     assert inside("pyrayhf.launch",
                   launch_at[kernels[0]["args"]["correlation"]])
@@ -939,7 +939,7 @@ def _same_bits(a, b):
 def test_segment_table_kernel_is_the_plain_table(cuda, kind, dtype, case):
     """``csrc/segment_table.cu`` against the PyTorch composition it
     replaces, on the card: the same table bit for bit, NaN where it has
-    NaN, kernel 2's row padding zero; one launch counted."""
+    NaN, the row padding zero; one launch counted."""
     prof = _table_profiles(case, dtype, cuda)
     TV.reset_counters()
     tab = TV.launch_segment_table(kind, *prof)
@@ -948,8 +948,7 @@ def test_segment_table_kernel_is_the_plain_table(cuda, kind, dtype, case):
     torch.cuda.synchronize()
     assert tab.is_contiguous() and tab.dtype == dtype
     assert _same_bits(tab, ref)
-    if kind == "gather_xsolve":
-        assert not tab[:, :, prof[0].shape[1]:].any()
+    assert not tab[:, :, prof[0].shape[1]:].any()
 
 
 @pytest.mark.parametrize("mode", ["O", "X"])
@@ -1029,25 +1028,16 @@ def test_kernel_2_at_the_x20k_cell_shape_matches_parity(cuda):
         assert np.abs(vh[m] - other[m]).max() <= 1e-6
 
 
-def _library_without_the_first_node_repair(tmp_path):
-    """``csrc/ionogram.cu`` as it was before first-exceedance pairs were
-    given the direct μ' and the absolute frame's span, built alone into
-    ``tmp_path`` and loaded with the package library's entry types."""
+def _edited_library(tmp_path, name, old, new):
+    """``csrc/ionogram.cu`` with its one ``old`` text replaced by ``new``,
+    built alone into ``tmp_path`` and loaded with the package library's
+    entry types."""
     from pyrayhf_tpu_torch import cuda_ext
     src = (cuda_ext.SRC_DIR / "ionogram.cu").read_text()
-    repair = """  if (first_exceeds) {
-    emax = T(-1);
-    crit = (alt0 - T(kDH)) - alt0;
-  } else {
-    crit = (valid ? crit : T(0)) - T(kDH);
-  }
-"""
-    assert src.count(repair) == 1, "the repair's lines changed"
-    path = tmp_path / "ionogram_before.cu"
-    path.write_text(src.replace(repair, """  if (first_exceeds) crit = T(0);
-  crit = (valid ? crit : T(0)) - T(kDH);
-"""))
-    so = tmp_path / "ionogram_before.so"
+    assert src.count(old) == 1, f"{name}: the edited lines changed"
+    path = tmp_path / f"{name}.cu"
+    path.write_text(src.replace(old, new))
+    so = tmp_path / f"{name}.so"
     r = subprocess.run([str(cuda_ext.find_nvcc()), *cuda_ext.NVCC_FLAGS,
                         "-shared", "-I", str(cuda_ext.SRC_DIR), "-o",
                         str(so), str(path)], capture_output=True, text=True)
@@ -1060,6 +1050,20 @@ def _library_without_the_first_node_repair(tmp_path):
         pyrayhf_ionogram=lib.pyrayhf_ionogram,
         pyrayhf_ionogram_blocks_per_sm=real.pyrayhf_ionogram_blocks_per_sm,
         pyrayhf_error_string=real.pyrayhf_error_string)
+
+
+def _library_without_the_first_node_repair(tmp_path):
+    """``csrc/ionogram.cu`` as it was before first-exceedance pairs were
+    given the direct μ' and the absolute frame's span."""
+    return _edited_library(tmp_path, "ionogram_before", """  if (first_exceeds) {
+    emax = T(-1);
+    crit = (alt0 - T(kDH)) - alt0;
+  } else {
+    crit = (valid ? crit : T(0)) - T(kDH);
+  }
+""", """  if (first_exceeds) crit = T(0);
+  crit = (valid ? crit : T(0)) - T(kDH);
+""")
 
 
 @pytest.mark.parametrize("kind,mode_mult", [("gather_osolve", 1.0),
@@ -1140,3 +1144,143 @@ def test_f32_first_exceedance_pairs_take_the_f64_verdict(cuda, kind):
     fin = first & np.isfinite(v64)
     assert np.abs(v32[fin] - v64[fin]).max() <= 3 * 7.7e-6
     assert np.array_equal(np.isnan(v32), np.isnan(p32))
+
+
+# ---- kernel 1: the O solve's search of the running maximum ---------------
+
+# the linear count kernel 1 made over every node before its search
+_SEARCH = """  int lo = 0, hi = N;  // row[j] < thr for j < lo, not for j >= hi
+  while (lo < hi) {
+    const int s = (hi - lo + 31) >> 5;
+    const unsigned m =
+        __ballot_sync(kFull, lo + lane * s < hi && row[lo + lane * s] < thr);
+    if (m == 0) break;
+    const int c = __popc(m);
+    hi = min(lo + c * s, hi);
+    lo += (c - 1) * s + 1;
+  }
+  return lo;
+"""
+_LINEAR_COUNT = """  int cnt = 0;
+  for (int j = lane; j < N; j += 32) cnt += row[j] < thr ? 1 : 0;
+  return __reduce_add_sync(kFull, cnt);
+"""
+
+
+@pytest.fixture(scope="module")
+def linear_count(tmp_path_factory):
+    """The package library with kernel 1's count over every node in place
+    of its search (an escaped pair writes NaN either way)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    return _edited_library(tmp_path_factory.mktemp("linear_count"),
+                           "ionogram_linear_count", _SEARCH, _LINEAR_COUNT)
+
+
+def _osolve_case(case, dtype, dev):
+    """Prepared ``gather_osolve`` args of an edge case of kernel 1's solve,
+    on the card."""
+    import dataclasses
+    rng = np.random.default_rng(19)
+    N, B, P = 620, 6, 200
+    alt = np.linspace(80.0, 699.0, N)
+    hm = rng.uniform(230.0, 360.0, (B, 1))
+    H = rng.uniform(40.0, 70.0, (B, 1))
+    z = (alt - hm) / H
+    den = rng.uniform(1e11, 3e12, (B, 1)) * np.exp(0.5 * (1 - z - np.exp(-z)))
+    den[1::2] += 3e11 * np.exp(-(alt - 110.0) ** 2 / 60.0)  # E above a valley
+    freqs = np.concatenate([[0.05, 0.1, 0.15], np.arange(0.2, 17.5, 0.2)])
+    if case == "nan":                  # dmax NaN from the NaN node on
+        den[0, 100] = den[1, 0] = den[2, N - 1] = np.nan
+        den[3, [40, 300]] = np.nan
+    elif case == "ties":               # flat maxima, repeated nodes
+        den = np.floor(8.0 * den / den.max(1, keepdims=True)) * 1.5e11
+        den[4, 250:400] = den[4, 250]
+        den[5, 1::2] = den[5, 0:-1:2]
+    elif case == "escaped":            # profile 0 reflects nothing
+        den[0] = 1e6
+    elif case == "first":              # a dense bottom: the first node's
+        den[2:] += 2e11 * np.exp(-(alt - 80.0) / 5.0)  # cutoff exceeded
+    elif case == "n2":
+        alt, den = alt[[0, -1]], den[:, [60, 250]]
+        N = 2
+    elif case == "b1":
+        den, B = den[3:4], 1
+    elif case in ("global", "block"):  # the benchmark's global profiles
+        from hfbench import inputs
+        traffic = {"profiles_per_call": 73 * 144, "pool_calls": 1,
+                   "sites": "global", "grid": [73, 144],
+                   "e_layer_share": 0.25}
+        g, gb, gp = inputs.profiles(traffic, 2 ** 33 + 19, alt, dev)
+        keep = torch.as_tensor(rng.choice(g.shape[0], 2048 if case ==
+                                          "global" else 32, replace=False),
+                               device=dev)
+        den, bmag, bpsi = (x[keep].cpu().numpy() for x in (g, gb, gp))
+        freqs = np.round(np.arange(1, 175) * 0.1, 10)
+        P = 200 if case == "global" else 2000
+    if case not in ("global", "block"):
+        bmag = np.full_like(den, 3.2e-5)
+        bpsi = np.broadcast_to(rng.uniform(0.0, 90.0, (B, 1)),
+                               den.shape).copy()
+    t = [torch.as_tensor(np.ascontiguousarray(x), dtype=dtype, device=dev)
+         for x in (freqs, den, bmag, bpsi, alt)]
+    a = TV.prepare_kernel_args("gather_osolve", *t, 1.0, P,
+                               TV.uniform_inv_dalt(t[4]))
+    f_hz = a.freq_hz
+    if case == "cutoffs":   # each node's cutoff cp sqrt(dmax_j), ± 4 ulp
+        base = (8.97866275 * torch.sqrt(TV._table(a)[:, 8, ::7])).flatten()
+        base = base[torch.isfinite(base) & (base > 0)]
+        fs, up, down = [base], base, base
+        for _ in range(4):
+            up = torch.nextafter(up, torch.full_like(up, np.inf))
+            down = torch.nextafter(down, torch.full_like(down, -np.inf))
+            fs += [up, down]
+        f_hz = torch.unique(torch.cat(fs))
+    elif case == "f0_nan":
+        f_hz = torch.cat([f_hz, torch.tensor([0.0, np.nan, -0.0], dtype=dtype,
+                                             device=dev)])
+    return dataclasses.replace(a, freq_hz=f_hz.contiguous())
+
+
+@pytest.mark.parametrize("case", ["cutoffs", "nan", "ties", "escaped",
+                                  "first", "f0_nan", "n2", "b1", "global",
+                                  "block"])
+def test_kernel_1_search_equals_its_linear_count(cuda, linear_count,
+                                                 monkeypatch, case):
+    """Kernel 1 (``gather_osolve``: the escape test first, then a 32-way
+    search of the non-decreasing cummax(den) row) against the same kernel
+    counting over every node: bit for bit, NaN at the same pairs, f32 and
+    f64, on frequencies at each node's cutoff ± 4 ulp, a NaN node (the
+    running maximum NaN from there on), flat and tied maxima, an
+    all-escaped profile, first-exceedance pairs, f = 0 and NaN, N = 2,
+    B = 1, 2,048 profiles of the benchmark's global grid and 32 of them at
+    P = 2,000 (a block per pair); one launch counted a launch. Against the
+    plain solve and resample: f64 identical NaN masks and ≤ 1e-6 km, f32
+    identical NaN masks and ≤ 1e-3 km, or 4 f32 ulps of vh where that is
+    more."""
+    from pyrayhf_tpu_torch import cuda_ext
+    real = cuda_ext.load
+    for dtype in (torch.float64, torch.float32):
+        a = _osolve_case(case, dtype, cuda)
+        TV.reset_counters()
+        new = TV.launch_kernel(a)
+        assert TV.LAUNCHES["gather_osolve"] == 1
+        assert TV.kernel_layout(a).per_block == (case == "block")
+        monkeypatch.setattr(cuda_ext, "load", lambda: linear_count)
+        old = TV.launch_kernel(a)
+        monkeypatch.setattr(cuda_ext, "load", real)
+        assert TV.LAUNCHES["gather_osolve"] == 2
+        torch.cuda.synchronize()
+        assert _same_bits(new, old)
+        k = new.double().cpu().numpy()
+        p = TV.plain_ionogram(a).double().cpu().numpy()
+        assert np.array_equal(np.isnan(k), np.isnan(p))
+        m = np.isfinite(p)
+        # at N = 2 the flat extension leaves the profile flat: a valid pair
+        # reflects at the first node, where O mode's mu' is not valid
+        assert m.any() == (case != "n2")
+        tol = 1e-6 if dtype == torch.float64 else np.maximum(
+            1e-3, 4 * np.finfo(np.float32).eps * np.abs(p[m]))
+        assert (np.abs(k[m] - p[m]) <= tol).all()
+        if case == "escaped":
+            assert np.isnan(k[0]).all()

@@ -607,10 +607,10 @@ def test_escaped_pairs_lie_above_the_cutoff_table(dtype):
                                             ("gather", -1.0),
                                             ("gather", 1.0)])
 def test_padded_rows_keep_the_plain_version(kind, mode_mult):
-    """Kernels 2 and 3 take their table with rows padded to 16 bytes
+    """Kernels 1 to 3 take their table with rows padded to 16 bytes
     (``padded_rows``): at N = 181 nodes the f32 rows hold 184 values and
-    the f64 rows 182, the pad is zero, other kernels' rows are unpadded,
-    and the plain version on the padded table matches the JAX sweep."""
+    the f64 rows 182, the pad is zero, the sweep's rows are unpadded, and
+    the plain version on the padded table matches the JAX sweep."""
     freqs, den, bmag, bpsi, alt = _workload(B=3, n_alt=181)
     for dtype, ld in ((torch.float32, 184), (torch.float64, 182)):
         t = [torch.as_tensor(x, dtype=dtype)
@@ -621,7 +621,9 @@ def test_padded_rows_keep_the_plain_version(kind, mode_mult):
         assert a.tab.is_contiguous() and not a.tab[:, :, 181:].any()
         assert TV.padded_rows(181, a.tab.element_size()) == ld
         o = TV.prepare_kernel_args("gather_osolve", *t, 1.0, 200, inv)
-        assert o.tab.shape == (3, 9, 181)
+        assert o.tab.shape == (3, 9, ld) and not o.tab[:, :, 181:].any()
+        s = TV.prepare_kernel_args("sweep", *t, 1.0, 200, None)
+        assert s.tab.shape == (3, 8, 181)
     ref = JV.ionogram_fast_xla(*_j((freqs, den, bmag, bpsi, alt)),
                                mode_mult=mode_mult, n_points=200)
     _assert_vh(TV.plain_ionogram(a), ref)

@@ -49,7 +49,7 @@ def _kernel_arithmetic(kind, den, bmag, bpsi, alt):
     den, bmag, bpsi, alt = (x.numpy() for x in (den, bmag, bpsi, alt))
     B, N = den.shape
     C = 9 if kind == "gather_osolve" else 8
-    ld = N if C == 9 else TV.padded_rows(N, den.itemsize)
+    ld = TV.padded_rows(N, den.itemsize)
     tab = np.zeros((B, C, ld), den.dtype)
     one, zero = den.dtype.type(1), den.dtype.type(0)
     for b in range(B):

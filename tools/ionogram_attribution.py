@@ -6,22 +6,29 @@ CUDA card, by variants timed in turns.
         > build/ionogram_earlier.cu
     git show eb1db86:pyrayhf_tpu_torch/csrc/ionogram_common.cuh \\
         > build/ionogram_common_earlier.cuh
+    git show 629b100:pyrayhf_tpu_torch/csrc/ionogram.cu \\
+        > build/ionogram_present.cu
     python3 tools/ionogram_attribution.py build/ionogram_earlier.cu \\
-        build/ionogram_common_earlier.cuh
+        build/ionogram_common_earlier.cuh build/ionogram_present.cu
 
-The arguments are an earlier ``csrc/ionogram.cu`` and its
+The first two arguments are an earlier ``csrc/ionogram.cu`` and its
 ``ionogram_common.cuh`` with the launch signature of that revision (no
 row stride, no persistent grid: ``tab, C, B, N, mult, ..., n_groups,
-warps, per_block, span, ...``), whose kernels 2 and 3 run in the template
-of kernels 1 and 4: the X solve scans every node twice, the block loads
-all 8 channels with a loop of loads, and mult, 1 - mult and dmult come
-from device memory. The script writes variants of it and of the current
-source into ``build/ionogram_attribution/`` (git ignores ``build/``),
-each with its header inlined, builds them with ``nvcc`` (the package's
-flags, all at once) and launches each through its own library. Kernels 2
-and 3 (``gather_kernel``) by variant, each but ``earlier`` an exact text
-edit of the current source that fails loudly when its line is missing,
-or a layout:
+warps, per_block, span, ...``), whose kernels 2 and 3 run in the
+template of kernels 1 and 4: the X solve scans every node twice, the
+block loads all 8 channels with a loop of loads, and mult, 1 - mult and
+dmult come from device memory. The third is the ``csrc/ionogram.cu``
+before kernel 1 moved into ``gather_kernel`` (built with the current
+header, current signature): kernel 1 there is ``ionogram_kernel<T, 1,
+true, true>``, which counts cummax(den) < f^2/cp^2 over every node
+before it tests whether the ray escapes, loads its table with a loop of
+loads and leaves its f64 registers uncapped. The script writes variants
+of it and of the current source into ``build/ionogram_attribution/``
+(git ignores ``build/``), each with its header inlined, builds them with
+``nvcc`` (the package's flags, all at once) and launches each through
+its own library. Kernels 2 and 3 (``gather_kernel``) by variant, each
+but ``earlier`` an exact text edit of the current source that fails
+loudly when its line is missing, or a layout:
 
 * ``earlier``: the earlier kernel;
 * ``no_table``: the current source with the X solve's two scans over
@@ -45,16 +52,30 @@ Each in the layout ``launch_shape`` gives it on its own blocks per SM
 (its library's occupancy entry), as ``kernel_layout`` does for the
 package's kernel.
 
-Kernels 1 and 4 (``ionogram_kernel``) are timed as ``earlier`` and
-``full`` only: their code did not change.
+Kernel 1 (``gather_osolve``, now ``gather_kernel<T, 1, true>``) by
+variant:
+
+* ``present``: the kernel before the move (the third argument);
+* ``count``: the current source with the count over every node in place
+  of the search of the cummax row (the escape test still first);
+* ``loads``: the table by a loop of loads by every thread in place of the
+  TMA bulk copy;
+* ``uncapped``: as above;
+* ``cap5``: f64 registers capped for 5 blocks an SM (48 a thread);
+* ``full``: the current source.
+
+Kernel 4 (``ionogram_kernel``, the sweep) is timed as ``earlier`` and
+``full`` only: its code did not change.
 
 Step 0, before anything runs: the SASS of each library (``cuobjdump
 -sass``, :func:`pyrayhf_tpu_torch.cuda_ext.sass_loops`): for the f32 and
-f64 instantiations of kernels 2 and 3, each loop with its instruction
-count and the fewest instructions one iteration can issue (``path``), its
-MUFU (division, root, sin/cos) and VOTE (ballot) instructions. The tail
-loop is the largest loop with a MUFU.RSQ; the X solve's node loops are
-the others with a MUFU.RCP (the division by f).
+f64 instantiations of kernels 1 to 4 in ``earlier``, ``present`` and the
+current source, each loop with its instruction count and the fewest
+instructions one iteration can issue (``path``), its MUFU (division,
+root, sin/cos) and VOTE (ballot) instructions; then, for kernels 2 to 4,
+whether the current source's loops are ``present``'s, count for count.
+The tail loop is the largest loop with a MUFU.RSQ; the X solve's node
+loops are the others with a MUFU.RCP (the division by f).
 
 Checks, before anything is timed, on ``chip_smoke.py``'s profiles (f32
 and f64, O and X, each kernel kind, the uniform grid and the 620-node
@@ -62,28 +83,32 @@ non-uniform ``alt_nu``; 26 cases) and on its razor cases (kernel 2 at
 frequencies on each razor profile's node cutoffs fx_j and prefix maxima
 cfx_j times (1 +- n ulp), n <= 4, at P = 200 and 2,000; 4 cases): every
 variant in a warp-per-pair layout equals ``earlier`` bit for bit
-(NaN-aware; for kernels 1 and 2 off the pairs whose cutoff is already
-exceeded at the first node, which the earlier kernel gave NaN or alt_min
-+ ~1e-6 km); every variant in the block layout equals ``full`` bit for
+(NaN-aware; for kernel 2 off the pairs whose cutoff is already exceeded
+at the first node, which the earlier kernel gave NaN or alt_min + ~1e-6
+km), kernel 1's equal ``present`` (on every pair; 2,048 profiles of the
+benchmark's global grid besides); every variant in the block layout
+equals ``full`` bit for
 bit, and ``full`` is held to the plain version (f64 identical NaN masks
 and <= 1e-6 km, f32 <= 1e-3 km of plain f32 and <= 0.1 km of plain f64).
 A failed check stops the run.
 
 Timing: X-20k (B=32, F=175, P=20,000, X mode) through the sweep on the
 uniform grid and on ``alt_nu``; O-200 (B=1024, P=200) through
-``gather_osolve`` and ``gather`` (O); X-200 through ``gather_xsolve``
-and ``gather``. f32 and f64, median of 10 launches after 3 warm-ups (CUDA
-events), every variant timed twice in turns (forward, then backward),
-with the card's SM clock read under load. Prints one line per variant
-with its layout. Then the current kernel alone over a grid of layouts,
-and the crossover of the layouts: on the shapes of ``chip_smoke.py``'s
-P = 2,000 checks and on wider batches (B up to 1,024), the current kernel
-a warp per pair (``launch_shape``'s warp layout) and a block per pair, at
-P from 512 to 20,000, and the mean and worst regret (time over the
-faster layout's) of ``launch_shape``'s choice and of simpler rules over
-those points. Then the card; the whole goes as JSON to
-``build/ionogram_attribution/attribution.json``.
-"""
+``gather_osolve`` and ``gather`` (O); the benchmark's global shape
+(``vh_o200.global``: B=10,512 profiles of ``hfbench/inputs.py`` on the
+73x144 grid, F=174 from 0.1 MHz, P=200, N=620) through
+``gather_osolve``; X-200 through ``gather_xsolve`` and ``gather``. f32
+and f64, median of 10 launches after 3 warm-ups (CUDA events), every
+variant timed twice in turns (forward, then backward), with the card's
+SM clock read under load. Prints one line per variant with its layout.
+Then the current kernel alone over a grid of layouts, and the crossover
+of the layouts: on the shapes of ``chip_smoke.py``'s P = 2,000 checks
+and on wider batches (B up to 1,024), the current kernel a warp per pair
+(``launch_shape``'s warp layout) and a block per pair, at P from 512 to
+20,000, and the mean and worst regret (time over the faster layout's) of
+``launch_shape``'s choice and of simpler rules over those points. Then
+the card; the whole goes as JSON to
+``build/ionogram_attribution/attribution.json``. """
 
 import argparse
 import ctypes
@@ -152,6 +177,27 @@ __device__ Solve<T> xsolve(const T* alt, const T* den, const T* bm, int N,
 """
 
 
+def kernel_of(fn):
+    """(kernel 1 to 4, dtype, mode) of a demangled instantiation of
+    ``csrc/ionogram.cu``, this revision's or an earlier one's (where
+    kernels 1 to 4 all ran ``ionogram_kernel<T, MODE, SOLVE, UNIFORM>``);
+    None for any other function."""
+    for name in ("gather_kernel<", "ionogram_kernel<"):
+        if name in fn:
+            args = fn.split(name)[1].split(">")[0].split(", ")
+            break
+    else:
+        return None
+    t, mode = args[:2]
+    if name == "gather_kernel<":        # <T, MODE, SOLVE>
+        solve, uniform = args[2], "(bool)1"
+    else:                               # <T, MODE(, SOLVE, UNIFORM)>
+        solve, uniform = args[2:] if len(args) == 4 else ("(bool)0",) * 2
+    if solve == "(bool)1":
+        return (1 if mode == "(int)1" else 2, t, mode)
+    return (3 if uniform == "(bool)1" else 4, t, mode)
+
+
 def rep(s, a, b, n=1):
     """``s`` with ``a`` replaced by ``b``; ``a`` must occur ``n`` times."""
     if s.count(a) != n:
@@ -169,10 +215,10 @@ def no_table(cu):
     """Kernel 2's solve by two scans over every node (the earlier way)."""
     cu = rep(cu, "// The lane's place in the altitude table",
              _XSOLVE_SCANS + "// The lane's place in the altitude table")
-    cu = rep(cu, "  if constexpr (SOLVE) cutoff_table(den, bmg, N, cfx, "
-                 "part);\n", "")
-    return rep(cu, "xsolve_table(alt, den, bmg, cfx, N, f, lane, amin)",
-               "xsolve(alt, den, bmg, N, f, lane, amin)", 2)
+    cu = rep(cu, "  if constexpr (SOLVE && MODE < 0) cutoff_table(den, bmg, "
+                 "N, cfx, part);\n", "")
+    return rep(cu, "xsolve_table(alt, den, bm, row8, N, f, lane, alt0)",
+               "xsolve(alt, den, bm, N, f, lane, alt0)")
 
 
 _HEAD = "// bytes ahead of the table: the mbarrier, the valid-pair flag, 8 warp"
@@ -194,7 +240,7 @@ struct Channels {
 """ + _HEAD)
     cu = rep(cu, "  T* cfx = tb + kRows * ld;",
              "  T* cfx = tb + Channels<SOLVE>::count * ld;")
-    cu = rep(cu, """        const unsigned bytes = (unsigned)(kRows * ld * sizeof(T));
+    cu = rep(cu, """        const unsigned bytes = (unsigned)(rows * ld * sizeof(T));
         mbar_expect(bar, bytes);
         bulk_copy(tb, p.tab + (size_t)b * p.C * ld, bytes, bar);""",
              """        using Ch = Channels<SOLVE>;
@@ -269,9 +315,54 @@ def cap_f32(cu):
                "__launch_bounds__(kMaxThreads, sizeof(T) == 8 ? 4 : 6)")
 
 
+# kernel 1's search of the cummax row, and the count over every node it
+# replaced
+_SEARCH = """  int lo = 0, hi = N;  // row[j] < thr for j < lo, not for j >= hi
+  while (lo < hi) {
+    const int s = (hi - lo + 31) >> 5;
+    const unsigned m =
+        __ballot_sync(kFull, lo + lane * s < hi && row[lo + lane * s] < thr);
+    if (m == 0) break;
+    const int c = __popc(m);
+    hi = min(lo + c * s, hi);
+    lo += (c - 1) * s + 1;
+  }
+  return lo;
+"""
+_LINEAR_COUNT = """  int cnt = 0;
+  for (int j = lane; j < N; j += 32) cnt += row[j] < thr ? 1 : 0;
+  return __reduce_add_sync(kFull, cnt);
+"""
+
+
+def count(cu):
+    """Kernel 1 counts cummax(den) < f^2/cp^2 over every node (after its
+    escape test) in place of the search."""
+    return rep(cu, _SEARCH, _LINEAR_COUNT)
+
+
+def loads(cu):
+    """gather_kernel's table by a loop of loads by every thread in place
+    of the TMA bulk copy."""
+    cu = rep(cu, """        mbar_expect(bar, bytes);
+        bulk_copy(tb, p.tab + (size_t)b * p.C * ld, bytes, bar);
+""", """        (void)bytes;
+""")
+    return rep(cu, "  mbar_wait(bar, 0);\n", """  for (int i = threadIdx.x; i < rows * ld; i += blockDim.x)
+    tb[i] = p.tab[(size_t)b * p.C * ld + i];
+  __syncthreads();
+""")
+
+
+def cap5(cu):
+    """gather_kernel's f64 registers capped for 5 blocks an SM."""
+    return rep(cu, _BOUNDS,
+               "__launch_bounds__(kMaxThreads, sizeof(T) == 8 ? 5 : 1)")
+
+
 def ring(cu):
     """The persistent grid with two table slots in place of gather_kernel."""
-    start = "// Kernels 2 (X solve, uniform) and 3 (host solve, uniform): block"
+    start = "// Kernels 1 (O solve), 2 (X solve) and 3 (host solve), on a"
     end = "// ---- launch ----"
     if cu.count(start) != 1 or cu.count(end) != 1:
         raise ValueError("variant edit: gather_kernel's markers not found")
@@ -302,9 +393,15 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("earlier", help="an earlier csrc/ionogram.cu")
     ap.add_argument("earlier_header", help="its ionogram_common.cuh")
+    ap.add_argument("present", help="csrc/ionogram.cu before kernel 1 "
+                                    "moved into gather_kernel")
     ap.add_argument("--quick", action="store_true",
                     help="stop after the variants' timing (no layout grid, "
                          "no crossover)")
+    ap.add_argument("--kinds", default="sweep,gather_osolve,gather_xsolve,"
+                                       "gather",
+                    help="the kernels to check and time (comma-separated "
+                         "kinds)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -325,7 +422,12 @@ def main():
             "ring": inline(ring(cu), cuh),
             "uncapped": inline(uncapped(cu), cuh),
             "cap_f32": inline(cap_f32(cu), cuh),
+            "present": inline(Path(args.present).read_text(), cuh),
+            "count": inline(count(cu), cuh),
+            "loads": inline(loads(cu), cuh),
+            "cap5": inline(cap5(cu), cuh),
             "cur": inline(cu, cuh)}
+    kinds = args.kinds.split(",")
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = str(cuda_ext.find_nvcc())
     procs = {}
@@ -350,28 +452,36 @@ def main():
     cuda_ext.load()                     # the package's own library
     res = {"card": card}
 
-    # ---- step 0: the SASS of kernels 2 and 3 -------------------------------
-    print("SASS loops of kernels 2 and 3 (cuobjdump -sass): [instructions, "
+    # ---- step 0: the SASS of kernels 1 to 4 --------------------------------
+    print("SASS loops of kernels 1 to 4 (cuobjdump -sass): [instructions, "
           "fewest and most an iteration issues, MUFU, ballots] per loop; "
           "tail = the loop with a MUFU.RSQ of the most fewest", flush=True)
     res["sass"] = {}
-    for name in ("earlier", "cur"):
+    by_kernel = {}
+    for name in ("earlier", "present", "cur"):
         for fn, loops in cuda_ext.sass_loops(OUT_DIR / f"{name}.so").items():
-            kern2 = ("gather_kernel<" in fn and "(bool)1>" in fn) or (
-                "ionogram_kernel<" in fn
-                and "(int)-1, (bool)1, (bool)1>" in fn)
-            kern3 = ("gather_kernel<" in fn and "(bool)0>" in fn) or (
-                "ionogram_kernel<" in fn and "(bool)0, (bool)1>" in fn)
-            if not (kern2 or kern3):
+            key = kernel_of(fn)
+            if key is None:
                 continue
             res["sass"][f"{name} {fn}"] = loops
-            print(f"  {name} {fn}:", flush=True)
+            by_kernel[name, key] = [
+                (lp["instructions"], lp["path"], lp["longest"],
+                 tuple(lp["mufu"]), lp["vote"]) for lp in loops]
+            print(f"  {name} kernel {key[0]} {fn}:", flush=True)
             for lp in loops:
                 print(f"    [{lp['start']:#x}, {lp['end']:#x}] "
                       f"{lp['instructions']} instr, path {lp['path']}, "
                       f"longest {lp['longest']}, "
                       f"{' '.join(lp['mufu']) or 'no MUFU'}, "
                       f"{lp['vote']} VOTE", flush=True)
+    for name, key in sorted(k for k in by_kernel if k[0] == "cur"):
+        if key[0] == 1:
+            continue
+        same = by_kernel.get(("present", key)) == by_kernel[name, key]
+        res["sass"][f"kernel {key} loops as present"] = same
+        print(f"  kernel {key[0]} {key[1]} mode {key[2]}: loops "
+              f"{'the same as' if same else 'DIFFER from'} present's",
+              flush=True)
 
     dev = torch.device("cuda", 0)
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -383,20 +493,30 @@ def main():
     alt_nu = np.concatenate([np.linspace(80.0, 200.0, 241)[:-1],
                              np.linspace(200.0, 699.0, 380)])
     nu_prof = cs.profiles(rng, 256, alt_nu)
-    grids = {"uniform": (alt, main_prof), "alt_nu": (alt_nu, nu_prof)}
+    # the benchmark's global grid (vh_o200.global), one UT step
+    from hfbench import inputs
+    glob = inputs.profiles({"profiles_per_call": 73 * 144, "pool_calls": 1,
+                            "sites": "global", "grid": [73, 144],
+                            "e_layer_share": 0.25}, 2 ** 33 + 19, alt, dev)
+    glob = [x.cpu().numpy() for x in glob]
+    grids = {"uniform": (alt, main_prof), "alt_nu": (alt_nu, nu_prof),
+             "global": (alt, glob)}
     razor_prof = cs.razor_profiles(alt, *main_prof)
 
     # (variant, source)
-    variants = [("earlier", "earlier"), ("no_table", "no_table"),
-                ("trim", "trim"), ("stage", "stage"), ("ring", "ring"),
+    variants = [("earlier", "earlier"), ("present", "present"),
+                ("no_table", "no_table"), ("trim", "trim"),
+                ("stage", "stage"), ("ring", "ring"),
+                ("count", "count"), ("loads", "loads"),
                 ("uncapped", "uncapped"), ("cap_f32", "cap_f32"),
-                ("full", "cur")]
+                ("cap5", "cap5"), ("full", "cur")]
 
     def prep(kind, mm, grid, B, P, dtype):
         g, prof = grids[grid]
+        fr = freqs[:174] if grid == "global" else freqs
         t = [torch.as_tensor(np.asarray(x)[:B] if np.ndim(x) == 2 else x,
                              dtype=dtype, device=dev)
-             for x in (freqs, *prof, g)]
+             for x in (fr, *prof, g)]
         inv = None if kind == "sweep" else pv.uniform_inv_dalt(t[-1])
         return t, pv.prepare_kernel_args(kind, *t, mm, P, inv)
 
@@ -433,8 +553,11 @@ def main():
         if layout is None:   # launch_shape on the variant's own occupancy
             s = pv.launch_shape(B, F, P, n_sm, blocks(src, a))
             layout = (s.n_groups, s.warps, int(s.per_block))
-        if src == "earlier" and ld != N:
+        # rows of N: the earlier kernels', present's kernel 1
+        if (src == "earlier" or (src == "present" and a.kind ==
+                                 "gather_osolve")) and ld != N:
             tab = tab[:, :, :N].contiguous()
+            ld = N
 
         def ptr(t):
             return ctypes.c_void_p(None if t is None else t.data_ptr())
@@ -456,10 +579,13 @@ def main():
         return go
 
     def names_for(kind):
+        if kind == "gather_osolve":
+            return ["present", "count", "loads", "uncapped", "cap5", "full"]
         if kind not in GATHER:
             return ["earlier", "full"]
         return [v for v, _ in variants
-                if v != "no_table" or kind == "gather_xsolve"]
+                if v not in ("present", "count", "loads", "cap5")
+                and (v != "no_table" or kind == "gather_xsolve")]
 
     def diff(o, ref, skip=None):
         """Elements of ``o`` that differ from ``ref`` (NaN-aware), outside
@@ -511,6 +637,7 @@ def main():
              ("sweep", -1.0, "alt_nu", 32, 20000),
              ("gather_osolve", 1.0, "uniform", 1024, 200),
              ("gather_osolve", 1.0, "uniform", 32, 2000),
+             ("gather_osolve", 1.0, "global", 2048, 200),
              ("gather_xsolve", -1.0, "uniform", 1024, 200),
              ("gather_xsolve", -1.0, "uniform", 32, 20000),
              ("gather", 1.0, "uniform", 64, 2000),
@@ -519,6 +646,8 @@ def main():
              ("razor", -1.0, "uniform", 12, 200),
              ("razor", -1.0, "uniform", 12, 2000)]
     failed = []
+    cases = [c for c in cases
+             if (c[0] if c[0] != "razor" else "gather_xsolve") in kinds]
     for kind, mm, grid, B, P in cases:
         plains = {}
         for dtype in (torch.float64, torch.float32):
@@ -533,14 +662,14 @@ def main():
             # a warp per pair sums in one order whatever the groups: bit
             # for bit the earlier kernel in a warp layout; a block per pair
             # in another: bit for bit full in the block layout
-            bitwise, refs = {}, {0: "earlier", 1: "full"}
+            bitwise, refs = {}, {0: vs[0], 1: "full"}
             for v in vs[1:]:
                 ref = refs[gos[v].layout[2]]
                 if gos[ref].layout[2] != gos[v].layout[2]:
                     raise RuntimeError(f"{v}: no reference in its layout "
                                        f"{gos[v].layout}")
-                skip = (first_node(a) if ref == "earlier" and a.kind in
-                        ("gather_osolve", "gather_xsolve") else None)
+                skip = (first_node(a) if ref == "earlier" and a.kind ==
+                        "gather_xsolve" else None)
                 bitwise[v] = diff(outs[v], outs[ref], skip)
             plains[dtype] = plain(a.kind, mm, t, a, P)
             name = (f"{kind} {'O' if mm > 0 else 'X'} {grid} B={B} P={P} "
@@ -589,12 +718,15 @@ def main():
                ("sweep X-20k alt_nu", "sweep", -1.0, "alt_nu", 32, 20000),
                ("gather_osolve O-200", "gather_osolve", 1.0, "uniform", 1024,
                 200),
+               ("gather_osolve global", "gather_osolve", 1.0, "global", 10512,
+                200),
                ("gather_xsolve X-200", "gather_xsolve", -1.0, "uniform", 1024,
                 200),
                ("gather X-200", "gather", -1.0, "uniform", 1024, 200),
                ("gather O-200", "gather", 1.0, "uniform", 1024, 200)]
     print(f"timing: median of 10 after 3 warm-ups, two turns; {card}",
           flush=True)
+    timings = [t for t in timings if t[1] in kinds]
     for label, kind, mm, grid, B, P in timings:
         for dtype in (torch.float32, torch.float64):
             _, a = prep(kind, mm, grid, B, P, dtype)

@@ -58,6 +58,7 @@ inline unsigned __ballot_sync(unsigned, bool p) { return p ? 1u : 0u; }
 inline int __reduce_min_sync(unsigned, int v) { return v; }
 inline int __reduce_add_sync(unsigned, int v) { return v; }
 inline int __ffs(unsigned m) { return __builtin_ffs((int)m); }
+inline int __popc(unsigned m) { return __builtin_popcount(m); }
 template <typename T> T clip01(T x) {
   x = x < T(0) ? T(0) : x;
   return x > T(1) ? T(1) : x;
