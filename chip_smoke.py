@@ -39,8 +39,8 @@ failure:
    kernel 3 in O mode too, and the sweep at X-20k on the non-uniform
    grid), each beside its bound (the tail on the pairs the solve marks
    valid, whose share it prints), its issue bound (the SASS instructions
-   of its loops, ``cuda_ext.sass_loops``, over the schedulers' rate at the
-   SM clock read under load) and the launch layout ``launch_shape``
+   of its loops, ``tools.cuda_sass.sass_loops``, over the schedulers' rate
+   at the SM clock read under load) and the launch layout ``launch_shape``
    chose;
 7. the 2-D oblique ionogram (``csrc/fan2d.cu``): the main path, counters
    zeroed first and read after — ``synthesize_oblique_ionogram_2d`` and
@@ -590,8 +590,8 @@ def razor_args(torch, pv, prof, alt, P, dtype, dev):
 
 
 def sass_function(want, sass):
-    """The SASS loops (``cuda_ext.sass_loops``) of the one kernel whose
-    demangled name holds ``want``."""
+    """The SASS loops (``tools.cuda_sass.sass_loops``) of the one kernel
+    whose demangled name holds ``want``."""
     hits = [v for k, v in sass.items() if want in k]
     check(len(hits) == 1, f"SASS of {want}: {len(hits)} functions")
     return hits[0]
@@ -3258,10 +3258,11 @@ def main():
     print(f"build: {so.name}: nvcc {compile_s:.2f} s, build+load "
           f"{time.perf_counter() - t0:.2f} s; ptxas: "
           f"{'; '.join(sorted(set(regs)))}", flush=True)
+    from tools.cuda_sass import resource_usage, sass_loops
     print("registers and stack per kernel (cuobjdump --dump-resource-usage): "
-          + "; ".join(f"{name}: {use}" for name, use in
-                      cuda_ext.resource_usage()), flush=True)
-    sass = cuda_ext.sass_loops()
+          + "; ".join(f"{name}: {use}" for name, use in resource_usage()),
+          flush=True)
+    sass = sass_loops()
 
     rng = np.random.default_rng(SEED)
     alt = np.linspace(80.0, 699.0, N_ALT)

@@ -675,6 +675,7 @@ cudaError_t allow_smem(K kern, size_t smem) {
 // 1-3 (uniform grid) gather_kernel, kernel 4 ionogram_kernel.
 template <typename T, int MODE, bool SOLVE, bool UNIFORM>
 struct Kernel {
+  using type = T;
   static constexpr bool gather = UNIFORM;
   static void (*fn())(const Params<T>) {
     if constexpr (gather) {
@@ -692,9 +693,31 @@ struct Kernel {
   }
 };
 
-template <typename T, int MODE, bool SOLVE, bool UNIFORM>
+// The one place where the C entries' flags become an instantiation:
+// f(Kernel<T, MODE, SOLVE, UNIFORM>{}) for dtype (0 float, 1 double), mode
+// (+1 O, -1 X), solve and uniform; solve takes the uniform-grid kernel
+// (the entries refuse solve without uniform). `bad` for another dtype.
+template <typename T, typename F>
+int with_flags(int mode, int solve, int uniform, F& f) {
+  if (mode > 0) {
+    if (solve) return f(Kernel<T, 1, true, true>{});
+    if (uniform) return f(Kernel<T, 1, false, true>{});
+    return f(Kernel<T, 1, false, false>{});
+  }
+  if (solve) return f(Kernel<T, -1, true, true>{});
+  if (uniform) return f(Kernel<T, -1, false, true>{});
+  return f(Kernel<T, -1, false, false>{});
+}
+
+template <typename F>
+int with_kernel(int dtype, int mode, int solve, int uniform, int bad, F f) {
+  if (dtype == 0) return with_flags<float>(mode, solve, uniform, f);
+  if (dtype == 1) return with_flags<double>(mode, solve, uniform, f);
+  return bad;
+}
+
+template <typename K, typename T = typename K::type>
 int launch(const Params<T>& p, int B, int warps, cudaStream_t stream) {
-  using K = Kernel<T, MODE, SOLVE, UNIFORM>;
   const size_t smem = K::smem(p.C, p.N, p.ld);
   auto kern = K::fn();
   cudaError_t e = allow_smem(kern, smem);
@@ -703,9 +726,8 @@ int launch(const Params<T>& p, int B, int warps, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T, int MODE, bool SOLVE, bool UNIFORM>
+template <typename K>
 int blocks_of(int C, int N, int ld, int warps) {
-  using K = Kernel<T, MODE, SOLVE, UNIFORM>;
   const size_t smem = K::smem(C, N, ld);
   auto kern = K::fn();
   cudaError_t e = allow_smem(kern, smem);
@@ -716,24 +738,7 @@ int blocks_of(int C, int N, int ld, int warps) {
   return e == cudaSuccess ? n : -(int)e;
 }
 
-template <typename T>
-int blocks_dispatch(int mode, int solve, int uniform, int C, int N, int ld,
-                    int warps) {
-  if ((solve && !uniform) || warps < 1 || warps * 32 > kMaxThreads ||
-      C < 1 || N < 1 || ld < N)
-    return -(int)cudaErrorInvalidValue;
-  if (mode > 0) {
-    if (solve) return blocks_of<T, 1, true, true>(C, N, ld, warps);
-    if (uniform)
-      return blocks_of<T, 1, false, true>(C, N, ld, warps);
-    return blocks_of<T, 1, false, false>(C, N, ld, warps);
-  }
-  if (solve) return blocks_of<T, -1, true, true>(C, N, ld, warps);
-  if (uniform) return blocks_of<T, -1, false, true>(C, N, ld, warps);
-  return blocks_of<T, -1, false, false>(C, N, ld, warps);
-}
-
-template <typename T>
+template <typename K, typename T = typename K::type>
 int dispatch(int mode, int solve, int uniform, const void* tab, int C, int B,
              int N, int ld, const void* mult, const void* omm,
              const void* dmult, int P, const void* freq, int F, int n_groups,
@@ -762,14 +767,7 @@ int dispatch(int mode, int solve, int uniform, const void* tab, int C, int B,
               static_cast<const uint8_t*>(valid),
               static_cast<const T*>(alt_min), T(inv_dalt),
               static_cast<T*>(out)};
-  if (mode > 0) {
-    if (solve) return launch<T, 1, true, true>(p, B, warps, stream);
-    if (uniform) return launch<T, 1, false, true>(p, B, warps, stream);
-    return launch<T, 1, false, false>(p, B, warps, stream);
-  }
-  if (solve) return launch<T, -1, true, true>(p, B, warps, stream);
-  if (uniform) return launch<T, -1, false, true>(p, B, warps, stream);
-  return launch<T, -1, false, false>(p, B, warps, stream);
+  return launch<K>(p, B, warps, stream);
 }
 
 }  // namespace
@@ -792,17 +790,14 @@ int pyrayhf_ionogram(int dtype, int mode, int solve, int uniform,
                      const void* alt_min, double inv_dalt, void* out,
                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(mode, solve, uniform, tab, C, B, N, ld, mult, omm,
-                           dmult, P, freq, F, n_groups, warps, per_block,
-                           span, slope, emax, valid, alt_min, inv_dalt, out,
-                           st);
-  if (dtype == 1)
-    return dispatch<double>(mode, solve, uniform, tab, C, B, N, ld, mult,
-                            omm, dmult, P, freq, F, n_groups, warps,
-                            per_block, span, slope, emax, valid, alt_min,
-                            inv_dalt, out, st);
-  return (int)cudaErrorInvalidValue;
+  auto go = [&](auto k) {
+    return dispatch<decltype(k)>(mode, solve, uniform, tab, C, B, N, ld, mult,
+                                 omm, dmult, P, freq, F, n_groups, warps,
+                                 per_block, span, slope, emax, valid, alt_min,
+                                 inv_dalt, out, st);
+  };
+  return with_kernel(dtype, mode, solve, uniform,
+                     (int)cudaErrorInvalidValue, go);
 }
 
 // Blocks of `warps` warps of one instantiation that one SM of the current
@@ -812,11 +807,12 @@ int pyrayhf_ionogram(int dtype, int mode, int solve, int uniform,
 int pyrayhf_ionogram_blocks_per_sm(int dtype, int mode, int solve,
                                    int uniform, int C, int N, int ld,
                                    int warps) {
-  if (dtype == 0)
-    return blocks_dispatch<float>(mode, solve, uniform, C, N, ld, warps);
-  if (dtype == 1)
-    return blocks_dispatch<double>(mode, solve, uniform, C, N, ld, warps);
-  return -(int)cudaErrorInvalidValue;
+  const int bad = -(int)cudaErrorInvalidValue;
+  if ((solve && !uniform) || warps < 1 || warps * 32 > kMaxThreads ||
+      C < 1 || N < 1 || ld < N)
+    return bad;
+  auto go = [&](auto k) { return blocks_of<decltype(k)>(C, N, ld, warps); };
+  return with_kernel(dtype, mode, solve, uniform, bad, go);
 }
 
 const char* pyrayhf_error_string(int err) {

@@ -16,6 +16,7 @@ import logging
 import numpy as np
 import torch
 
+from . import pallas_vh
 from ._util import as_tensors, profile_tensors
 from .config import resolve
 from .grid import regrid_core
@@ -99,16 +100,6 @@ def vertical_forward_operator(freq, den, bmag, bpsi, alt,
                          arithmetic=arithmetic)
 
 
-def _resolve_engine(den, alt, shared_grid):
-    """``engine="auto"``: (engine, 1/Δalt or None) for these tensors (see
-    the batch op). 1/Δalt is read once here and handed to the gather."""
-    if den.device.type != "cuda" or not shared_grid:
-        return "parity", None
-    from .pallas_vh import uniform_inv_dalt
-    inv_dalt = uniform_inv_dalt(alt)
-    return ("pallas_gather" if inv_dalt is not None else "pallas"), inv_dalt
-
-
 def vertical_forward_operator_batch(freq, den, bmag, bpsi, alt,
                                     mode=None, n_points=None, config=None,
                                     engine="auto", device=None):
@@ -136,8 +127,10 @@ def vertical_forward_operator_batch(freq, den, bmag, bpsi, alt,
     with parity to < 1e-6 km in f64. The resolved engine is logged
     (DEBUG, once per distinct choice). Host arrays go to the CUDA card
     unless ``device`` says otherwise (``device="cpu"``); without a card
-    and without that request the call raises. The call is a
-    ``pyrayhf.forward`` span and its routing a ``pyrayhf.route`` span
+    and without that request the call raises. The inputs are converted
+    once and the kernel engines routed by :func:`pallas_vh.route`, the
+    one read of the grid. The call is a ``pyrayhf.forward`` span and its
+    routing a ``pyrayhf.route`` span
     (:func:`pyrayhf_tpu_torch.profiling.span`).
     """
     with span("pyrayhf.forward"):
@@ -148,34 +141,29 @@ def vertical_forward_operator_batch(freq, den, bmag, bpsi, alt,
             freq, den, bmag, bpsi, alt = profile_tensors(
                 freq, den, bmag, bpsi, alt, device=device)
             shared_grid = alt.ndim == 1
-            inv_dalt = None
+            if engine in _SHARED_GRID_ENGINES and not shared_grid:
+                raise ValueError(
+                    f"engine={engine!r} requires a shared 1-D altitude grid "
+                    "(per-profile [B, N_alt] grids need engine='parity')")
+            if engine not in ("auto", "parity", *_SHARED_GRID_ENGINES):
+                raise ValueError("engine must be 'auto', 'parity', 'pallas', "
+                                 "'pallas_gather', 'pallas_mxu' or 'xla'")
+            cfg = None
+            if engine not in ("parity", "xla"):
+                cfg = pallas_vh.route(engine, den, alt, mm, n_points)
             if engine == "auto":
-                engine, inv_dalt = _resolve_engine(den, alt, shared_grid)
-                key = (engine, den.device.type, shared_grid)
+                key = (cfg["engine"] if cfg else "parity", den.device.type,
+                       shared_grid)
                 if key not in _auto_logged:
                     _auto_logged.add(key)
                     logger.debug("engine='auto' resolved to %r (device=%s, "
                                  "shared_grid=%s)", *key)
-        if engine in ("pallas", "pallas_gather", "pallas_mxu", "xla"):
-            if not shared_grid:
-                raise ValueError(
-                    f"engine={engine!r} requires a shared 1-D altitude grid "
-                    "(per-profile [B, N_alt] grids need engine='parity')")
-            from .pallas_vh import (_ionogram_gather, ionogram_fast_xla,
-                                    ionogram_pallas, ionogram_pallas_gather,
-                                    ionogram_pallas_mxu)
-            if inv_dalt is not None:
-                return _ionogram_gather(freq, den, bmag, bpsi, alt, mm,
-                                        n_points, inv_dalt)
-            impl = {"pallas": ionogram_pallas,
-                    "pallas_gather": ionogram_pallas_gather,
-                    "pallas_mxu": ionogram_pallas_mxu,
-                    "xla": ionogram_fast_xla}[engine]
-            return impl(freq, den, bmag, bpsi, alt, mode_mult=mm,
-                        n_points=n_points)
-        if engine != "parity":
-            raise ValueError("engine must be 'auto', 'parity', 'pallas', "
-                             "'pallas_gather', 'pallas_mxu' or 'xla'")
+        if cfg is not None:
+            return pallas_vh.run_engine(cfg, freq, den, bmag, bpsi, alt)
+        if engine == "xla":
+            return pallas_vh.ionogram_fast_xla(freq, den, bmag, bpsi, alt,
+                                               mode_mult=mm,
+                                               n_points=n_points)
         if shared_grid:
             alt = alt.expand_as(den)
         return _forward_core(freq * 1e6, den, bmag, bpsi, alt, mode_mult=mm,
@@ -184,6 +172,8 @@ def vertical_forward_operator_batch(freq, den, bmag, bpsi, alt,
 
 # engine='auto' resolutions already logged (one DEBUG line per choice)
 _auto_logged = set()
+# the engines that need one altitude grid for every profile
+_SHARED_GRID_ENGINES = ("pallas", "pallas_gather", "pallas_mxu", "xla")
 
 
 def _phase_core(freq_hz, den, bmag, bpsi, alt, mode_mult, n_points):

@@ -39,10 +39,13 @@ differences, cummax(den)) is built on the card by one more kernel,
 ``gather_osolve`` and ``gather_xsolve``; its plain version is
 :func:`plain_segment_table`.
 
-Each wrapper runs the kernel on CUDA tensors and the plain version on CPU
-tensors, and only there; on any other device it raises. ``LAUNCHES``
-counts kernel launches and ``PLAIN_CALLS`` calls of the plain versions, so
-a run can show which of the two it went through.
+Each kernel is one record of :data:`KINDS` (its table, solve, grid, plain
+version and launcher), which the functions here read in place of its
+name. :func:`route` turns an engine into a launch config and makes the
+one read of the grid. Each wrapper runs the kernel on CUDA tensors and
+the plain version on CPU tensors, and only there; on any other device it
+raises. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls of
+the plain versions, so a run can show which of the two it went through.
 
 Derivatives: :class:`_PallasAD` (the counterpart of the JAX
 ``_pallas_ad`` custom JVP) runs the kernel forward and takes every
@@ -59,7 +62,7 @@ the sweep's, as in JAX, and the value stays the kernel's bit for bit.
 
 import dataclasses
 import functools
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -187,6 +190,44 @@ def _crossing(f0, f1, a0, a1, r0, first_exceeds, valid, base, alt0):
     return crit, slope, emax
 
 
+def _o_crossing(dmax, den, alt, freq_hz):
+    """O mode's crossing segment: :func:`_crossing`'s (f0, f1, a0, a1, r0,
+    first_exceeds, valid), [B, F] each.
+
+    ``dmax`` is cummax(den) of the flat-extended profiles ``den`` [B, N],
+    ``alt`` [B, N] their altitudes in the caller's frame (absolute in the
+    host prep, relative to alt0 in kernel 1's plain solve), ``freq_hz``
+    [F]. cummax_j X[b, f, j] equals cummax_j(den)[b, j]·cp²/f² exactly
+    (a positive factor is monotone), so the crossing index is a
+    density-space count #{j: dmax_j < f²/cp²}, a left search of the
+    non-decreasing row; then ±1 steps in X space, two each way, restore
+    agreement at rounding razors.
+    """
+    B, N = dmax.shape
+    cp2 = scalar_like(CP * CP, dmax)
+    f = freq_hz[None, :]
+    inv_f2 = 1.0 / (f * f)
+
+    def Xval(kk):
+        return torch.gather(dmax, 1, kk) * cp2 * inv_f2
+
+    k = torch.searchsorted(dmax.contiguous(),
+                           ((f * f) / cp2).expand(B, -1).contiguous())
+    k = torch.clamp(k, 1, N - 1)
+    for _ in range(2):
+        k = torch.where((Xval(k - 1) >= 1.0) & (k > 1), k - 1, k)
+    for _ in range(2):
+        k = torch.where((Xval(k) < 1.0) & (k < N - 1), k + 1, k)
+    f0 = Xval(k - 1)
+    f1 = Xval(k)
+    a0 = torch.gather(alt, 1, k - 1)
+    a1 = torch.gather(alt, 1, k)
+    r0 = torch.gather(den, 1, k - 1) * cp2 * inv_f2
+    first_exceeds = (dmax[:, 0:1] * cp2) * inv_f2 >= 1.0
+    valid = ((dmax[:, N - 1:N] * cp2) * inv_f2 >= 1.0).expand_as(f0)
+    return f0, f1, a0, a1, r0, first_exceeds, valid
+
+
 def _first_node_valid(valid, freq_hz, den0, bm0, bpsi0, mode_mult):
     """``valid`` [B, F] with float32's first-exceedance pairs decided in
     float64.
@@ -224,42 +265,15 @@ def prepare_profile_tables(freq_hz, den, bmag, bpsi, alt, mode_mult):
     valid [B, F] bool, slope [B, F], emax [B, F]); ``slope`` is
     d(fcrit)/dh on the crossing segment (the analytic margin's rate).
     """
-    B, N = den.shape
-    dtype = den.dtype
-    cp2 = scalar_like(CP * CP, den)
-
     den_t, bmag_t, bpsi_t, alt_t = _flat_extend(den, bmag, bpsi, alt)
-
-    inv_f2 = 1.0 / (freq_hz * freq_hz)
-    F = freq_hz.shape[0]
     if mode_mult > 0:
-        # O-mode: cummax_j X[b,f,j] == cummax_j(den)[b,j]·cp²·inv_f2[f]
-        # exactly (multiplication by a positive constant is monotone), so
-        # the crossing index is a density-space count, then a ±1
-        # correction in X-space restores agreement at rounding razors.
-        dmax = torch.cummax(den_t, dim=1).values                 # [B, N]
-
-        def Xval(kk):
-            return torch.gather(dmax, 1, kk) * cp2 * inv_f2[None, :]
-
-        thr = (freq_hz * freq_hz) / cp2                           # den units
-        # #{j: dmax[j] < thr}: dmax is nondecreasing, so a left search
-        k = torch.searchsorted(dmax.contiguous(),
-                               thr[None, :].expand(B, F).contiguous())
-        k = torch.clamp(k, 1, N - 1)
-        # X-space ±1 correction (2 steps each way cover razor plateaus)
-        for _ in range(2):
-            k = torch.where((Xval(k - 1) >= 1.0) & (k > 1), k - 1, k)
-        for _ in range(2):
-            k = torch.where((Xval(k) < 1.0) & (k < N - 1), k + 1, k)
-        valid = Xval(torch.full_like(k, N - 1)) >= 1.0
-        f0 = Xval(k - 1)
-        f1 = Xval(k)
-        a0 = torch.gather(alt_t, 1, k - 1)
-        a1 = torch.gather(alt_t, 1, k)
-        r0 = torch.gather(den_t, 1, k - 1) * cp2 * inv_f2[None, :]
-        first_exceeds = (den_t[:, 0:1] * cp2) * inv_f2[None, :] >= 1.0
+        f0, f1, a0, a1, r0, first_exceeds, valid = _o_crossing(
+            torch.cummax(den_t, dim=1).values, den_t, alt_t, freq_hz)
     else:
+        B, N = den.shape
+        F = freq_hz.shape[0]
+        inv_f2 = 1.0 / (freq_hz * freq_hz)
+        cp2 = scalar_like(CP * CP, den)
         X = den_t[:, None, :] * cp2 * inv_f2[None, :, None]
         Y = bmag_t[:, None, :] * G_P / freq_hz[None, :, None]
         s = X + Y
@@ -525,9 +539,10 @@ def padded_rows(n_alt, itemsize):
     return -(-n_alt // per) * per
 
 
-def _rows(tab, kind):
-    """``tab`` [B, C, N] with its rows zero-padded for ``kind``."""
-    if kind == "sweep":
+def _rows(tab, padded):
+    """``tab`` [B, C, N], contiguous, its rows zero-padded to a multiple of
+    16 bytes where ``padded``."""
+    if not padded:
         return tab.contiguous()
     N = tab.shape[2]
     pad = padded_rows(N, tab.element_size()) - N
@@ -539,16 +554,17 @@ def plain_segment_table(kind, den, bmag, bpsi, alt):
     the plain version of ``csrc/segment_table.cu``.
 
     :func:`_pack_segment_table`'s channels of the flat-extended profiles,
-    channel-major [B, C, ld] with rows zero-padded (:func:`_rows`); for
-    ``gather_osolve`` cummax(den) as channel 8 (C = 9), for
-    ``gather_xsolve`` C = 8.
+    channel-major [B, C, ld] with rows zero-padded (:func:`_rows`), C the
+    kind's channels (:data:`KINDS`): 9 with cummax(den) as channel 8
+    (``gather_osolve``), else 8.
     """
+    k = KINDS[kind]
     den_t, bmag_t, bpsi_t, alt_t = _flat_extend(den, bmag, bpsi, alt)
     seg = _pack_segment_table(den_t, bmag_t, bpsi_t, alt_t)
     chans = [seg.transpose(1, 2)]
-    if kind == "gather_osolve":
+    if k.channels > 8:
         chans.append(torch.cummax(den_t, dim=1).values[:, None, :])
-    return _rows(torch.cat(chans, dim=1), kind)
+    return _rows(torch.cat(chans, dim=1), k.padded)
 
 
 def launch_segment_table(kind, den, bmag, bpsi, alt):
@@ -568,7 +584,7 @@ def launch_segment_table(kind, den, bmag, bpsi, alt):
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"unsupported dtype {dtype}")
-    if kind not in ("gather_osolve", "gather_xsolve"):
+    if kind not in KINDS or not KINDS[kind].solve:
         raise ValueError(f"no segment-table kernel for {kind!r}")
     if den.dim() != 2:
         raise ValueError(f"den must be [B, N], got {tuple(den.shape)}")
@@ -584,7 +600,7 @@ def launch_segment_table(kind, den, bmag, bpsi, alt):
     rows = [x if x.stride(1) == 1 else x.contiguous()
             for x in (den, bmag, bpsi)]
     alt = alt if alt.stride(0) == 1 else alt.contiguous()
-    C = 9 if kind == "gather_osolve" else 8
+    C = KINDS[kind].channels
     ld = padded_rows(N, den.element_size())
     tab = torch.empty((B, C, ld), dtype=dtype, device=dev)
     with torch.cuda.device(dev):
@@ -610,14 +626,15 @@ def prepare_kernel_args(kind, freq_mhz, den, bmag, bpsi, alt, mode_mult,
     common = dict(kind=kind, mode_mult=mode_mult, freq_hz=freq_hz,
                   mult=mult, omm=omm, dmult=dmult, alt_min=alt_min,
                   inv_dalt=inv_dalt, n_alt=den.shape[1])
-    if kind in ("gather_osolve", "gather_xsolve"):
+    k = KINDS[kind]
+    if k.solve:
         table = (launch_segment_table if den.device.type == "cuda"
                  else plain_segment_table)
         return KernelArgs(tab=table(kind, den, bmag, bpsi, alt), **common)
     seg, crit, valid, slope, emax = prepare_profile_tables(
         freq_hz, den, bmag, bpsi, alt, mode_mult)
-    tab = (_mxu_table(seg) if kind == "mxu"
-           else _rows(seg.transpose(1, 2), kind))
+    tab = (_mxu_table(seg) if k.one_hot
+           else _rows(seg.transpose(1, 2), k.padded))
     return KernelArgs(tab=tab,
                       span=(crit - alt[0]).contiguous(),
                       slope=slope.contiguous(), emax=emax.contiguous(),
@@ -630,37 +647,12 @@ def _table(a):
 
 
 def _osolve_plain(a):
-    """O-mode in-kernel solve (``_osolve_tile``) on the table, [B, F] each.
-
-    Frequency-separable count of cummax(den) < f²/cp², X-space ±1 razor
-    correction, crossing geometry in the relative-altitude frame.
-    """
-    tab, f = _table(a), a.freq_hz[None, :]
-    B, _, N = tab.shape
-    alt_rel, den, dmax = tab[:, 0], tab[:, 2], tab[:, 8]
-    cp2 = scalar_like(CP * CP, tab)
-    inv_f2 = 1.0 / (f * f)
-    thr = (f * f) / cp2
-
-    def Xval(kk):
-        return torch.gather(dmax, 1, kk) * cp2 * inv_f2
-
-    # the count #{j: dmax[j] < thr}; dmax is nondecreasing
-    k = torch.searchsorted(dmax.contiguous(),
-                           thr.expand(B, -1).contiguous())
-    k = torch.clamp(k, 1, N - 1)
-    for _ in range(2):
-        k = torch.where((Xval(k - 1) >= 1.0) & (k > 1), k - 1, k)
-    for _ in range(2):
-        k = torch.where((Xval(k) < 1.0) & (k < N - 1), k + 1, k)
-    f0 = Xval(k - 1)
-    f1 = Xval(k)
-    a0 = torch.gather(alt_rel, 1, k - 1)
-    a1 = torch.gather(alt_rel, 1, k)
-    r0 = torch.gather(den, 1, k - 1) * cp2 * inv_f2
-    first_exceeds = (dmax[:, 0:1] * cp2) * inv_f2 >= 1.0
-    valid = (dmax[:, N - 1:N] * cp2) * inv_f2 >= 1.0
-    valid = valid.expand_as(f0)
+    """O-mode in-kernel solve (``_osolve_tile``) on the table, [B, F] each:
+    :func:`_o_crossing` on the table's cummax(den) row, crossing geometry
+    in the relative-altitude frame."""
+    tab = _table(a)
+    f0, f1, a0, a1, r0, first_exceeds, valid = _o_crossing(
+        tab[:, 8], tab[:, 2], tab[:, 0], a.freq_hz)
     span, slope, emax = _crossing(f0, f1, a0, a1, r0, first_exceeds, valid,
                                   0.0, a.alt_min)
     return span, slope, emax, valid
@@ -837,6 +829,11 @@ def _resample_mxu_plain(a, span, slope, emax):
     return torch.cat(out, dim=0)
 
 
+def _host_solve(a):
+    """The host prep's solve as prepared args carry it (kernels 3 and 5)."""
+    return a.span, a.slope, a.emax, a.valid != 0
+
+
 def plain_ionogram(a):
     """The plain PyTorch version of kernel ``a.kind`` on prepared args.
 
@@ -844,22 +841,17 @@ def plain_ionogram(a):
     (its solve, its index, its μ' tail), on any device.
     """
     PLAIN_CALLS[a.kind] += 1
-    if a.kind == "gather_osolve":
-        span, slope, emax, valid = _osolve_plain(a)
-    elif a.kind == "gather_xsolve":
-        span, slope, emax, valid = _xsolve_plain(a)
-    elif a.kind in ("gather", "mxu"):
-        span, slope, emax, valid = a.span, a.slope, a.emax, a.valid != 0
-    else:
+    k = KINDS[a.kind]
+    if k.plain_solve is None:
         raise ValueError(f"no prepared-args plain version for {a.kind!r} "
                          "(the sweep's plain version is ionogram_fast_xla)")
-    if a.kind in ("gather_osolve", "gather_xsolve"):
+    span, slope, emax, valid = k.plain_solve(a)
+    if k.solve:
         # after the solve, as kernels 1 and 2 take it (first_node_ok)
         tab = _table(a)
         valid = _first_node_valid(valid, a.freq_hz, tab[:, 2, 0],
                                   tab[:, 4, 0], tab[:, 6, 0], a.mode_mult)
-    resample = _resample_mxu_plain if a.kind == "mxu" else _resample_plain
-    ih = resample(a, span, slope, emax)
+    ih = k.plain_resample(a, span, slope, emax)
     return torch.where(valid & (ih != 0.0), ih + a.alt_min, _NAN)
 
 
@@ -945,10 +937,10 @@ def kernel_layout(a):
     F, P = a.freq_hz.shape[0], a.mult.shape[0]
     dev = a.tab.device
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    k = KINDS[a.kind]
     bps = blocks_per_sm(dev.index, int(a.tab.dtype == torch.float64),
-                        1 if a.mode_mult > 0 else -1,
-                        a.kind in ("gather_osolve", "gather_xsolve"),
-                        a.inv_dalt is not None, C, a.n_alt, ld)
+                        1 if a.mode_mult > 0 else -1, k.solve, k.uniform, C,
+                        a.n_alt, ld)
     return launch_shape(B, F, P, n_sm, bps)
 
 
@@ -958,10 +950,10 @@ def ionogram_smem_bytes(kind, C, N, ld, itemsize):
     barrier, flag and sums, the 8 channels at row stride ``ld`` and, for
     the in-kernel solves, a 9th row (kernel 1's cummax(den), kernel 2's
     cutoff table)."""
-    if kind == "sweep":
+    k = KINDS[kind]
+    if not k.uniform:
         return itemsize * (C * N + 8)
-    solve = kind in ("gather_osolve", "gather_xsolve")
-    return 128 + itemsize * (9 if solve else 8) * ld
+    return 128 + itemsize * (8 + k.solve) * ld
 
 
 def launch_kernel(a):
@@ -979,17 +971,16 @@ def launch_kernel(a):
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"unsupported dtype {dtype}")
-    solve = a.kind in ("gather_osolve", "gather_xsolve")
-    uniform = a.inv_dalt is not None
-    if solve and not uniform:
-        raise ValueError("the in-kernel solve needs a uniform grid")
+    k = KINDS[a.kind]
+    if k.uniform and a.inv_dalt is None:
+        raise ValueError(f"kernel {a.kind!r} needs a uniform grid")
     B, C, ld = tab.shape
     N = a.n_alt
     F, P = a.freq_hz.shape[0], a.mult.shape[0]
     if N < 2 or F == 0 or B == 0:
         raise ValueError(f"degenerate launch B={B} F={F} N={N}")
     need = [tab, a.freq_hz, a.mult, a.omm, a.dmult, a.alt_min]
-    if not solve:
+    if not k.solve:
         need += [a.span, a.slope, a.emax]
     for t in need:
         if t.dtype != dtype or t.device != dev or not t.is_contiguous():
@@ -1011,7 +1002,7 @@ def launch_kernel(a):
         lay = kernel_layout(a)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = cuda_ext.load().pyrayhf_ionogram(
-            code, mode, int(solve), int(uniform),
+            code, mode, int(k.solve), int(k.uniform),
             ptr(tab), C, B, N, ld, ptr(a.mult), ptr(a.omm), ptr(a.dmult), P,
             ptr(a.freq_hz), F, lay.n_groups, lay.warps, int(lay.per_block),
             ptr(a.span), ptr(a.slope), ptr(a.emax), ptr(a.valid),
@@ -1044,7 +1035,7 @@ def launch_mxu(a):
 
     tab = a.tab
     dtype, dev = tab.dtype, tab.device
-    if a.kind != "mxu":
+    if not KINDS[a.kind].one_hot:
         raise ValueError(f"launch_mxu needs mxu args, got {a.kind!r}")
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
@@ -1083,8 +1074,71 @@ def launch_mxu(a):
     if err != 0:
         raise RuntimeError(f"mxu ionogram kernel launch failed: "
                            f"{cuda_ext.error_string(err)} ({err})")
-    LAUNCHES["mxu"] += 1
+    LAUNCHES[a.kind] += 1
     return out
+
+
+class Kind(NamedTuple):
+    """What this module needs to know of one ionogram kernel: the record
+    every function here reads in place of the kernel's name."""
+    channels: int       # rows of its segment table (9: cummax(den) as 8)
+    padded: bool        # table rows padded to 16 bytes (its bulk copies)
+    solve: bool         # reflection solve in the kernel (the C entry's flag)
+    uniform: bool       # needs a uniform grid: the arithmetic index (ditto)
+    one_hot: bool       # table in the mxu kernel's one-hot layout
+    # prepared args -> (span, slope, emax, valid) [B, F]; None for the
+    # sweep, whose plain version is ionogram_fast_xla on the inputs
+    plain_solve: Optional[Callable]
+    plain_resample: Optional[Callable]  # (args, span, slope, emax) -> ih
+    launch: Callable                    # prepared args -> vh on the card
+
+
+# channels, padded, solve, uniform, one_hot, plain solve and resample, launch
+KINDS = {
+    "gather_osolve": Kind(9, True, True, True, False, _osolve_plain,
+                          _resample_plain, launch_kernel),
+    "gather_xsolve": Kind(8, True, True, True, False, _xsolve_plain,
+                          _resample_plain, launch_kernel),
+    "gather": Kind(8, True, False, True, False, _host_solve,
+                   _resample_plain, launch_kernel),
+    "sweep": Kind(8, False, False, False, False, None, None, launch_kernel),
+    "mxu": Kind(8, False, False, True, True, _host_solve,
+                _resample_mxu_plain, launch_mxu),
+}
+
+
+def route(engine, den, alt, mode_mult, n_points, x_in_kernel_solve=True,
+          interpret=False):
+    """The launch config of a kernel engine on converted tensors (``den``
+    and ``alt`` as :func:`profile_tensors` gives them), or None where
+    ``engine="auto"`` takes the parity path.
+
+    The package's one read of the grid (:func:`uniform_inv_dalt`; on the
+    card a host sync) is made here, at most once a call. ``"auto"``: the
+    parity path on CPU tensors and for per-profile [B, N] grids, the
+    gather for a uniform shared grid on the card, the sweep for any other
+    shared grid. ``"pallas_gather"`` (the in-kernel solves; with
+    ``x_in_kernel_solve=False`` X mode solves on the host) and
+    ``"pallas_mxu"`` need a uniform grid and raise without one;
+    ``"pallas"`` is the sweep and reads nothing. Returns the ``cfg`` of
+    :func:`run_engine`: dict(engine, kind, mode_mult, n_points, inv_dalt,
+    interpret).
+    """
+    if engine == "auto" and (den.device.type != "cuda" or alt.ndim != 1):
+        return None
+    inv_dalt = None if engine == "pallas" else uniform_inv_dalt(alt)
+    if engine == "auto":
+        engine = "pallas_gather" if inv_dalt is not None else "pallas"
+    elif inv_dalt is None and engine != "pallas":
+        raise ValueError(f"ionogram_{engine} requires a uniformly spaced "
+                         "altitude grid (use ionogram_pallas)")
+    kind = {"pallas": "sweep", "pallas_mxu": "mxu"}.get(engine)
+    if kind is None:
+        kind = ("gather_osolve" if mode_mult > 0 else
+                "gather_xsolve" if x_in_kernel_solve else "gather")
+    return dict(engine=engine, kind=kind, mode_mult=mode_mult,
+                n_points=n_points, inv_dalt=inv_dalt,
+                interpret=bool(interpret))
 
 
 # --------------------------------------------------------------------------
@@ -1102,17 +1156,17 @@ def _run(cfg, freq_mhz, den, bmag, bpsi, alt):
         raise ValueError("interpret=True has no meaning for a CUDA kernel; "
                          "pass CPU tensors to run the plain version")
     kind, mm, P = cfg["kind"], cfg["mode_mult"], cfg["n_points"]
-    if dev == "cpu" and kind == "sweep":
+    k = KINDS[kind]
+    if dev == "cpu" and k.plain_solve is None:
         return ionogram_fast_xla(freq_mhz, den, bmag, bpsi, alt,
                                  mode_mult=mm, n_points=P)
-    inv_dalt = None if kind == "sweep" else cfg["inv_dalt"]
     with span("pyrayhf.prep"):
         a = prepare_kernel_args(kind, freq_mhz, den, bmag, bpsi, alt, mm, P,
-                                inv_dalt)
+                                cfg["inv_dalt"])
     if dev == "cpu":
         return plain_ionogram(a)
     with span("pyrayhf.launch"):
-        return launch_mxu(a) if kind == "mxu" else launch_kernel(a)
+        return k.launch(a)
 
 
 def _sweep_of(cfg, xs, at):
@@ -1177,7 +1231,7 @@ class _PallasAD(torch.autograd.Function):
         ts = tuple(torch.zeros_like(x) if t is None else t
                    for x, t in zip(xs, tangents))
         f = _sweep_of(ctx.cfg, xs, range(5))
-        # one torch.func forward level at most: _apply sends two or more to
+        # one torch.func forward level at most: run_engine sends two or more to
         # _KernelGap, as PyTorch does not differentiate a Function's jvp
         if _jvp_nesting() == 1:
             return torch.func.jvp(f, xs, ts)[1]
@@ -1204,7 +1258,7 @@ class _KernelGap(torch.autograd.Function):
     """The kernel's value less the sweep's, a constant to every transform.
 
     Under two or more forward transforms (``jacfwd`` of ``jacfwd``, ``jvp``
-    of ``jvp``), :func:`_apply` returns ``S + (K − S)``: ``S`` the sweep
+    of ``jvp``), :func:`run_engine` returns ``S + (K − S)``: ``S`` the sweep
     run through the transforms, so every derivative order is the sweep's,
     as the JAX custom JVP gives, and ``K − S`` this Function, computed on
     the innermost primals with no derivative. Where K and S lie within a
@@ -1266,9 +1320,10 @@ def _fold_profiles(apply, info, dims, cfg, lead, xs):
     return torch.stack(outs), 0
 
 
-def _apply(cfg, freq_mhz, den, bmag, bpsi, alt):
-    """A kernel entry's value: :class:`_PallasAD`, or under two or more
-    ``torch.func`` forward transforms the sweep plus :class:`_KernelGap`."""
+def run_engine(cfg, freq_mhz, den, bmag, bpsi, alt):
+    """A kernel engine's value on converted tensors under :func:`route`'s
+    ``cfg``: :class:`_PallasAD`, or under two or more ``torch.func``
+    forward transforms the sweep plus :class:`_KernelGap`."""
     if _jvp_nesting() < 2:
         return _PallasAD.apply(cfg, freq_mhz, den, bmag, bpsi, alt)
     s = _sweep(freq_mhz, den, bmag, bpsi, alt, cfg["mode_mult"],
@@ -1277,10 +1332,17 @@ def _apply(cfg, freq_mhz, den, bmag, bpsi, alt):
     return torch.where(torch.isnan(s), gap, s + gap)
 
 
-def _mode_mult(mode_mult, config):
+def _entry(engine, xs, mode_mult, n_points, config, interpret, device,
+           x_in_kernel_solve=True):
+    """A wrapper's call: ``xs`` (freq, den, bmag, bpsi, alt) converted once,
+    routed (:func:`route`) and run (:func:`run_engine`)."""
     if mode_mult is None:
-        return 1.0 if resolve(config, "mode", None, "O") == "O" else -1.0
-    return mode_mult
+        mode_mult = 1.0 if resolve(config, "mode", None, "O") == "O" else -1.0
+    xs = profile_tensors(*xs, device=device)
+    cfg = route(engine, xs[1], xs[4], mode_mult,
+                resolve(config, "n_points", n_points, 200), x_in_kernel_solve,
+                interpret)
+    return run_engine(cfg, *xs)
 
 
 def ionogram_pallas_gather(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
@@ -1301,29 +1363,9 @@ def ionogram_pallas_gather(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
     Differentiable through :class:`_PallasAD`. Host arrays go to the CUDA
     card unless ``device`` says otherwise (``device="cpu"``).
     """
-    return _ionogram_gather(freq_mhz, den, bmag, bpsi, alt,
-                            _mode_mult(mode_mult, config),
-                            resolve(config, "n_points", n_points, 200),
-                            uniform_inv_dalt(alt), x_in_kernel_solve,
-                            interpret, device)
-
-
-def _ionogram_gather(freq_mhz, den, bmag, bpsi, alt, mode_mult, n_points,
-                     inv_dalt, x_in_kernel_solve=True, interpret=False,
-                     device=None):
-    """:func:`ionogram_pallas_gather` with 1/Δalt already read from ``alt``
-    (``engine="auto"`` reads it while routing: one host sync per call)."""
-    if inv_dalt is None:
-        raise ValueError("ionogram_pallas_gather requires a uniformly "
-                         "spaced altitude grid (use ionogram_pallas)")
-    if mode_mult > 0:
-        kind = "gather_osolve"
-    else:
-        kind = "gather_xsolve" if x_in_kernel_solve else "gather"
-    cfg = dict(kind=kind, mode_mult=mode_mult, n_points=n_points,
-               inv_dalt=inv_dalt, interpret=bool(interpret))
-    return _apply(cfg, *profile_tensors(freq_mhz, den, bmag, bpsi,
-                                        alt, device=device))
+    return _entry("pallas_gather", (freq_mhz, den, bmag, bpsi, alt),
+                  mode_mult, n_points, config, interpret, device,
+                  x_in_kernel_solve)
 
 
 def ionogram_pallas(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
@@ -1342,12 +1384,8 @@ def ionogram_pallas(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
     :class:`_PallasAD`. Host arrays go to the CUDA card unless ``device``
     says otherwise (``device="cpu"``).
     """
-    mode_mult = _mode_mult(mode_mult, config)
-    n_points = resolve(config, "n_points", n_points, 200)
-    cfg = dict(kind="sweep", mode_mult=mode_mult, n_points=n_points,
-               inv_dalt=None, interpret=bool(interpret))
-    return _apply(cfg, *profile_tensors(freq_mhz, den, bmag, bpsi,
-                                        alt, device=device))
+    return _entry("pallas", (freq_mhz, den, bmag, bpsi, alt), mode_mult,
+                  n_points, config, interpret, device)
 
 
 def ionogram_pallas_mxu(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
@@ -1368,12 +1406,5 @@ def ionogram_pallas_mxu(freq_mhz, den, bmag, bpsi, alt, mode_mult=None,
     Differentiable through :class:`_PallasAD`. Host arrays go to the CUDA
     card unless ``device`` says otherwise (``device="cpu"``).
     """
-    inv_dalt = uniform_inv_dalt(alt)
-    if inv_dalt is None:
-        raise ValueError("ionogram_pallas_mxu requires a uniformly spaced "
-                         "altitude grid (use ionogram_pallas)")
-    cfg = dict(kind="mxu", mode_mult=_mode_mult(mode_mult, config),
-               n_points=resolve(config, "n_points", n_points, 200),
-               inv_dalt=inv_dalt, interpret=bool(interpret))
-    return _apply(cfg, *profile_tensors(freq_mhz, den, bmag, bpsi,
-                                        alt, device=device))
+    return _entry("pallas_mxu", (freq_mhz, den, bmag, bpsi, alt),
+                  mode_mult, n_points, config, interpret, device)

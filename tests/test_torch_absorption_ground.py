@@ -18,6 +18,8 @@ import pyrayhf_tpu.magnetoionic as JM
 import pyrayhf_tpu_torch.absorption as TA
 import pyrayhf_tpu_torch.ground as TG
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RTOL = 1e-12
 
 

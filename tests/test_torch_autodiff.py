@@ -18,7 +18,7 @@ entry is also held against JAX's ``jacfwd`` through its own kernel entry
 
 Forward over forward (``jacfwd`` of ``jacfwd``, ``jvp`` of ``jvp``) runs
 the sweep through the transforms plus the kernel's constant gap
-(``pallas_vh._apply``); it is held against ``jax.jacfwd(jax.jacfwd(·))``
+(``pallas_vh.run_engine``); it is held against ``jax.jacfwd(jax.jacfwd(·))``
 of the sweep, one compile per mode, on one profile of 60 nodes at three
 frequencies, and once through the JAX gather kernel in interpret mode.
 
@@ -45,16 +45,10 @@ import pyrayhf_tpu_torch.pallas_ray as TR
 import pyrayhf_tpu_torch.parallel as TP
 from pyrayhf_tpu_torch.forward import vertical_forward_operator_batch
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RTOL, RTOL_HESS = 1e-10, 1e-8
 P0 = (1.0, 0.0)                    # (density scale, ψ offset [deg])
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _workload(B=2, n_alt=180):

@@ -16,6 +16,8 @@ import pyrayhf_tpu_torch as prt
 from pyrayhf_tpu_torch import io as TIO
 from pyrayhf_tpu_torch import parallel as TP
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 def _profile(B=None):
     alt = np.linspace(90.0, 550.0, 120)

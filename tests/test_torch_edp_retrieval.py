@@ -33,6 +33,8 @@ import pyrayhf_tpu_torch.retrieval as TR
 from pyrayhf_tpu_torch.config import RetrievalConfig
 from pyrayhf_tpu_torch.interp import interp_exact
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 CPU = "cpu"
 GOLDEN_F2 = {"Nm": np.array([[1.17848165e+12]]),
              "fo": np.array([[9.64625394]]),

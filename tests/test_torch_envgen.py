@@ -20,6 +20,8 @@ import pyrayhf_tpu_torch.ccir as TC
 import pyrayhf_tpu_torch.envgen as TE
 from pyrayhf_tpu_torch import io as TIO
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RTOL = 1e-10
 CPU = "cpu"
 ALT = np.arange(80.0, 700.0, 10.0)

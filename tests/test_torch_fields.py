@@ -16,6 +16,8 @@ from numpy.testing import assert_allclose
 import pyrayhf_tpu.fields as JF
 import pyrayhf_tpu_torch.fields as TF
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RTOL = 1e-12
 
 

@@ -20,6 +20,8 @@ import pyrayhf_tpu_torch.pallas_vh as TV
 from pyrayhf_tpu.config import OperatorConfig as JaxOperatorConfig
 from pyrayhf_tpu_torch.config import OperatorConfig
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 TOL_KM = 1e-6
 
 
@@ -174,6 +176,33 @@ def test_kernel_engines_on_cpu_run_plain_versions():
             _assert_vh(port, ref)
             assert sum(TV.PLAIN_CALLS.values()) == 1
             assert sum(TV.LAUNCHES.values()) == 0
+
+
+def test_route_names_each_engines_kernel():
+    """The router on converted CPU tensors: ``auto`` takes parity (None)
+    without reading the grid; each kernel engine gets its kernel, and the
+    uniform-grid ones 1/Δalt (from the one read) or their error."""
+    freqs, den, bmag, bpsi, alt = map(_t, _workload(B=2))
+    inv = 1.0 / float(alt[1] - alt[0])
+
+    def kind(engine, mode_mult, **kw):
+        cfg = TV.route(engine, den, alt, mode_mult, 200, **kw)
+        assert cfg["mode_mult"] == mode_mult and cfg["n_points"] == 200
+        return cfg["kind"], cfg["inv_dalt"]
+
+    assert TV.route("auto", den, alt, 1.0, 200) is None
+    assert TV.route("auto", den, alt.expand(2, -1), 1.0, 200) is None
+    assert kind("pallas", 1.0) == ("sweep", None)
+    assert kind("pallas_gather", 1.0)[0] == "gather_osolve"
+    assert kind("pallas_gather", -1.0)[0] == "gather_xsolve"
+    assert kind("pallas_gather", -1.0, x_in_kernel_solve=False) == (
+        "gather", pytest.approx(inv, rel=1e-12))
+    assert kind("pallas_mxu", -1.0)[0] == "mxu"
+    assert set(TV.KINDS) == set(TV.KERNELS) - {"segment_table"}
+    alt_nu = alt + 0.01 * torch.linspace(0.0, 5.0, alt.shape[0]) ** 2
+    for engine in ("pallas_gather", "pallas_mxu"):
+        with pytest.raises(ValueError, match=f"ionogram_{engine} requires"):
+            TV.route(engine, den, alt_nu, 1.0, 200)
 
 
 def test_engine_errors():

@@ -15,6 +15,8 @@ import pyrayhf_tpu.geodesy as JG
 import pyrayhf_tpu_torch.geodesy as TG
 from pyrayhf_tpu_torch.constants import R_E
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 def _np(t):
     return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)

@@ -18,6 +18,8 @@ import pyrayhf_tpu_torch.fields as TF
 import pyrayhf_tpu_torch.gradient as TG
 from pyrayhf_tpu_torch import pallas_ray as TR
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RTOL, ATOL = 1e-8, 1e-10
 
 

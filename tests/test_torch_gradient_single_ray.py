@@ -24,6 +24,8 @@ import pyrayhf_tpu_torch.rays as TR
 from pyrayhf_tpu.config import GradientTracerConfig as JConfig
 from pyrayhf_tpu_torch.config import GradientTracerConfig
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 KEYS = ["group_path_km", "group_delay_sec", "ground_range_km", "x_apex_km",
         "z_apex_km"]
 CART = dict(z_max_km=600.0, x_min_km=0.0, x_max_km=1000.0)

@@ -15,6 +15,8 @@ from numpy.testing import assert_allclose
 import pyrayhf_tpu.grid as J
 import pyrayhf_tpu_torch.grid as T
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 def _profile(seed=3, n_alt=180, e_layer=False):
     alt = np.linspace(90.0, 550.0, n_alt)

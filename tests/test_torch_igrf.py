@@ -19,6 +19,8 @@ import pyrayhf_tpu_torch.igrf as TI
 import pyrayhf_tpu_torch.igrf13_table as TT
 import pyrayhf_tpu_torch.igrf_history as TH
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RTOL = 1e-12
 CPU = "cpu"
 

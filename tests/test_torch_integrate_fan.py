@@ -20,6 +20,8 @@ import torch
 import pyrayhf_tpu.gradient as JG
 import pyrayhf_tpu_torch.gradient as TG
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 C = (0.0, 0.0, -500.0)
 K = 0.02
 N_STEPS = 400

@@ -15,6 +15,8 @@ import pyrayhf_tpu_torch.config as TC
 import pyrayhf_tpu_torch.io as TIO
 from pyrayhf_tpu_torch import profiling
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 

@@ -22,6 +22,8 @@ import pyrayhf_tpu_torch.muf as TM
 import pyrayhf_tpu_torch.profiling as TP
 from pyrayhf_tpu_torch.constants import C_KM_S
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RTOL = 1e-10
 
 

@@ -23,6 +23,8 @@ from numpy.testing import assert_allclose
 import pyrayhf_tpu.retrieval as JR
 import pyrayhf_tpu_torch.retrieval as TR
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 CP = 8.97866275
 ALT = np.linspace(80.0, 699.0, 620)
 FREQ = np.arange(2.0, 11.51, 0.25)
@@ -78,17 +80,6 @@ def _recovered(fit, hm, bb):
 
 
 KW = dict(steps=25, chunk_size=None, retries=0)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """The LM on a few ionograms is bound by the cost of each op, not by
-    its arithmetic: one intra-op thread runs it nearly as fast alone and
-    does not oversubscribe the cores that parallel test workers share."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("case", ["golden_f1", "no_ledge"])

@@ -22,6 +22,8 @@ import pyrayhf_tpu_torch.magnetoionic as T
 from pyrayhf_tpu.constants import constants as jax_constants
 from pyrayhf_tpu_torch.constants import constants as torch_constants
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RTOL = 1e-12
 
 

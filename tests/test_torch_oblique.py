@@ -21,6 +21,8 @@ import pyrayhf_tpu.oblique as JO
 import pyrayhf_tpu_torch.oblique as TO
 from pyrayhf_tpu_torch import pallas_ray as TR
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RTOL, ATOL = 1e-8, 1e-10
 NAMES = ("range", "delay", "absorb", "path", "phase", "elevs")
 

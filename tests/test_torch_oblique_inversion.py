@@ -20,6 +20,8 @@ from pyrayhf_tpu.oblique_inversion import retrieve_from_oblique as jax_fit
 from pyrayhf_tpu.retrieval import _build_edp
 from pyrayhf_tpu_torch import retrieve_from_oblique
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 ALT = np.linspace(80.0, 600.0, 131)
 F1 = {"P": 0.0}
 E = {"Nm": 5e10, "hm": 110.0, "B_bot": 5.0, "B_top": 7.0}

@@ -19,6 +19,8 @@ import pyrayhf_tpu.pallas_vh as JV
 import pyrayhf_tpu_torch.forward as TF
 import pyrayhf_tpu_torch.pallas_vh as TV
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 TOL_KM = 1e-9
 
 

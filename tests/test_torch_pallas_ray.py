@@ -21,6 +21,8 @@ import pyrayhf_tpu.absorption as JA
 import pyrayhf_tpu.pallas_ray as JR
 import pyrayhf_tpu_torch.pallas_ray as TR
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RTOL, ATOL = 1e-8, 1e-10
 JAX_KEYS = ("ground_range_km", "group_delay_sec", "absorption_db",
             "group_path_km", "phase_path_km", "status_code", "x_final_km",
@@ -202,14 +204,6 @@ def test_fan_path_by_table_size(nz, nx, dtype, path):
 VMAP_ELEVS = np.linspace(8.0, 60.0, 8)
 
 
-@pytest.fixture
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _vmap_stack(mode="O"):
     z, x, mu, mup, kap = _fields(mode)
     return z, x, [np.stack([a, a * s]) for a, s in ((mu, 0.995), (mup, 1.01),
@@ -223,7 +217,7 @@ def _port_fan(z, x, elevs=VMAP_ELEVS):
     return fan
 
 
-def test_vmap_matches_jax_vmap(one_thread):
+def test_vmap_matches_jax_vmap():
     """``torch.func.vmap`` of ``fan_2d_pallas`` over V = 2 field stacks is
     ``jax.vmap`` of the JAX fan (interpret mode, batched by ``pallas_call``'s
     rule): rtol 1e-8, atol 1e-10, equal NaN positions and landings."""
@@ -243,7 +237,7 @@ def test_vmap_matches_jax_vmap(one_thread):
     assert np.array_equal(land, port["status_code"].numpy() == 1)
 
 
-def test_vmap_folds_into_one_launch(one_thread):
+def test_vmap_folds_into_one_launch():
     """Only the fields batched: one call (the plain version here) over the
     [V·F, E] fold, bit for bit the per-slice loop; a batched ``elevs`` runs
     one call per slice; forward mode under ``vmap`` still raises."""

@@ -32,6 +32,8 @@ import pyrayhf_tpu.pallas_vh as JV
 import pyrayhf_tpu_torch.forward as TF
 import pyrayhf_tpu_torch.pallas_vh as TV
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 TOL_KM = 1e-6
 
 
@@ -79,17 +81,6 @@ def _t(a):
 
 def _j(args):
     return [jnp.asarray(a) for a in args]
-
-
-@pytest.fixture
-def _one_thread():
-    """One intra-op thread: the sweep's plain version runs ~3,000 small ops
-    a call, which stall for seconds each on threads that test workers
-    share."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _first_exceeds(freqs, den, bmag, mode_mult):
@@ -762,7 +753,6 @@ def test_fast_vs_parity_beyond_1e6_km_is_the_jax_packages(mode, mm, cases):
         assert np.all(np.abs(d) > 1e-6) and np.all(np.abs(d) < 3e-6)
 
 
-@pytest.mark.usefixtures("_one_thread")
 @pytest.mark.parametrize("engine", ["gather_xsolve", "sweep", "auto"])
 @pytest.mark.parametrize("n_points", [200, 20000])
 def test_x_mode_matches_the_benchmark_reference(engine, n_points):
@@ -805,7 +795,6 @@ def test_x_mode_matches_the_benchmark_reference(engine, n_points):
     _assert_vh(got, want.numpy())
 
 
-@pytest.mark.usefixtures("_one_thread")
 @pytest.mark.parametrize("kind", ["gather_xsolve", "gather", "mxu", "sweep"])
 def test_f32_first_exceedance_pairs_take_the_f64_verdict(kind):
     """Below the gyrofrequency in X mode the first node's X is nearly 0 and

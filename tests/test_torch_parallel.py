@@ -29,6 +29,8 @@ import pyrayhf_tpu_torch as prt
 import pyrayhf_tpu_torch.pallas_vh as TV
 import pyrayhf_tpu_torch.parallel as TP
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 CPU = torch.device("cpu")
 TOL_KM = 1e-6
 EIGHT = ["ionogram_mesh", "synthesize_ionograms_sharded",
@@ -36,16 +38,6 @@ EIGHT = ["ionogram_mesh", "synthesize_ionograms_sharded",
          "retrieve_gradient_batch_sharded", "trace_fan_3d_sharded",
          "trace_fan_3d_aniso_sharded", "doppler_batch_sharded"]
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the port's host-bound loops run many small
-    ops, and beside the suite's other workers more threads only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 @pytest.fixture(scope="module")
 def mesh8():

@@ -28,6 +28,8 @@ import pyrayhf_tpu_torch.parallel as TP
 import pyrayhf_tpu_torch.trace3d as T3
 import pyrayhf_tpu_torch.trace3d_aniso as TA
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 CPU = torch.device("cpu")
 F0 = 8e6
 ELS = np.linspace(20.0, 55.0, 8)
@@ -35,16 +37,6 @@ AZS = np.array([170.0, 190.0])
 FAN = dict(step_km=4.0, s_max_km=1500.0)
 PATHS = ("alt", "lat", "lon", "ecef", "u")
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the port's host-bound loops run many small
-    ops, and beside the suite's other workers more threads only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 @pytest.fixture(scope="module")
 def mesh8():

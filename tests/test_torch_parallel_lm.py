@@ -24,22 +24,14 @@ import pyrayhf_tpu_torch.parallel as TP
 from pyrayhf_tpu_torch.magnetoionic import freq2den
 from pyrayhf_tpu_torch.retrieval import model_VH, retrieve_gradient_batch
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 CPU = torch.device("cpu")
 # the JAX test's grid at 5-km spacing: the port's LM is host-bound on the
 # CPU (one torch op per segment and channel of every forward), and a shard
 # pays a whole call's host time, so the 1-km grid would take minutes here
 DH_KM = 5.0
 
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: the port's host-bound loops run many small
-    ops, and beside the suite's other workers more threads only contend."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 @pytest.fixture(scope="module")
 def mesh8():

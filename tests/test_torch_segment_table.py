@@ -16,6 +16,8 @@ import torch
 
 import pyrayhf_tpu_torch.pallas_vh as TV
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 
 def _profiles(case, dtype):
     rng = np.random.default_rng(5)

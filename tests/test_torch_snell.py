@@ -23,6 +23,8 @@ import pyrayhf_tpu_torch.snell as TS
 from pyrayhf_tpu.config import SnellConfig as JSnellConfig
 from pyrayhf_tpu_torch.config import SnellConfig
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RTOL = 1e-10
 
 

@@ -21,6 +21,8 @@ import torch
 from pyrayhf_tpu_torch import profiling
 from pyrayhf_tpu_torch.forward import vertical_forward_operator_batch
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 PERF_MD = Path(__file__).resolve().parents[1] / "PERF.md"
 CPU_ONLY = [torch.profiler.ProfilerActivity.CPU]
 

@@ -26,6 +26,8 @@ import pyrayhf_tpu.trace3d as J
 import pyrayhf_tpu_torch.trace3d as T
 from pyrayhf_tpu_torch import io as TIO
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RTOL = 1e-9
 CPU = "cpu"
 F0 = 8e6

@@ -20,6 +20,8 @@ import torch
 import pyrayhf_tpu.trace3d_aniso as J
 import pyrayhf_tpu_torch.trace3d_aniso as T
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RTOL = 1e-9
 CPU = "cpu"
 F0 = 8e6

@@ -19,6 +19,8 @@ import torch
 import pyrayhf_tpu.trace3d_aniso as J
 import pyrayhf_tpu_torch.trace3d_aniso as T
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 F0 = 8e6
 
 

@@ -19,6 +19,8 @@ from pyrayhf_tpu.magnetoionic import freq2den
 
 import pyrayhf_tpu_torch.true_height as TT
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 CPU = "cpu"
 TOL_H = 1e-9
 TOL_KM = 1e-6

@@ -32,16 +32,10 @@ import pyrayhf_tpu_torch.magnetoionic as TM
 import pyrayhf_tpu_torch.parallel as TP
 import pyrayhf_tpu_torch.snell as TS
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 RTOL = 1e-10
 MODES = [("O", 1.0), ("X", -1.0)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _mixed(B=4, n_alt=180):

@@ -38,10 +38,6 @@ loudly when its line is missing, or a layout:
   solve's altitudes) (not kept);
 * ``stage``: mult, 1 - mult and dmult staged in shared memory at P <=
   512 (not kept);
-* ``ring``: a persistent grid with two table slots, the next item's
-  table copied while the block works on the current one (the kernel of
-  ``tools/ionogram_ring_variant.cuh`` in place of ``gather_kernel``; not
-  kept);
 * ``uncapped``: f64 registers not capped (80-97 a thread: 2-3 blocks an
   SM in place of 4);
 * ``cap_f32``: f32 registers capped too, for 6 blocks an SM (40 a thread;
@@ -68,7 +64,7 @@ Kernel 4 (``ionogram_kernel``, the sweep) is timed as ``earlier`` and
 ``full`` only: its code did not change.
 
 Step 0, before anything runs: the SASS of each library (``cuobjdump
--sass``, :func:`pyrayhf_tpu_torch.cuda_ext.sass_loops`): for the f32 and
+-sass``, :func:`tools.cuda_sass.sass_loops`): for the f32 and
 f64 instantiations of kernels 1 to 4 in ``earlier``, ``present`` and the
 current source, each loop with its instruction count and the fewest
 instructions one iteration can issue (``path``), its MUFU (division,
@@ -360,35 +356,6 @@ def cap5(cu):
                "__launch_bounds__(kMaxThreads, sizeof(T) == 8 ? 5 : 1)")
 
 
-def ring(cu):
-    """The persistent grid with two table slots in place of gather_kernel."""
-    start = "// Kernels 1 (O solve), 2 (X solve) and 3 (host solve), on a"
-    end = "// ---- launch ----"
-    if cu.count(start) != 1 or cu.count(end) != 1:
-        raise ValueError("variant edit: gather_kernel's markers not found")
-    i, j = cu.index(start), cu.index(end)
-    cu = cu[:i] + (REPO / "tools" / "ionogram_ring_variant.cuh").read_text() \
-        + "\n" + cu[j:]
-    cu = rep(cu, "  int C, N, ld;       // channels, altitude nodes, row stride",
-             "  int C, N, ld, B;")
-    cu = rep(cu, "Params<T> p{static_cast<const T*>(tab), C, N, ld,",
-             "Params<T> p{static_cast<const T*>(tab), C, N, ld, B,")
-    cu = rep(cu, "size_t n = (size_t)kRows * ld;",
-             "size_t n = (size_t)2 * kRows * ld;")
-    return rep(cu, """  kern<<<dim3(B, p.n_groups), warps * 32, smem, stream>>>(p);""",
-               """  if (K::gather) {
-    int dev = 0, n_sm = 1, bps = 1;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, kern, warps * 32,
-                                                  smem);
-    const int items = B * p.n_groups, room = n_sm * (bps > 0 ? bps : 1);
-    kern<<<items < room ? items : room, warps * 32, smem, stream>>>(p);
-  } else {
-    kern<<<dim3(B, p.n_groups), warps * 32, smem, stream>>>(p);
-  }""")
-
-
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("earlier", help="an earlier csrc/ionogram.cu")
@@ -410,6 +377,7 @@ def main():
     import chip_smoke as cs
     from pyrayhf_tpu_torch import cuda_ext, profiling
     from pyrayhf_tpu_torch import pallas_vh as pv
+    from tools.cuda_sass import sass_loops
 
     card = cs.card_line()
     cu = (cuda_ext.SRC_DIR / "ionogram.cu").read_text()
@@ -419,7 +387,6 @@ def main():
             "no_table": inline(no_table(cu), cuh),
             "trim": inline(trim(cu), cuh),
             "stage": inline(stage(cu), cuh),
-            "ring": inline(ring(cu), cuh),
             "uncapped": inline(uncapped(cu), cuh),
             "cap_f32": inline(cap_f32(cu), cuh),
             "present": inline(Path(args.present).read_text(), cuh),
@@ -459,7 +426,7 @@ def main():
     res["sass"] = {}
     by_kernel = {}
     for name in ("earlier", "present", "cur"):
-        for fn, loops in cuda_ext.sass_loops(OUT_DIR / f"{name}.so").items():
+        for fn, loops in sass_loops(OUT_DIR / f"{name}.so").items():
             key = kernel_of(fn)
             if key is None:
                 continue
@@ -506,7 +473,7 @@ def main():
     # (variant, source)
     variants = [("earlier", "earlier"), ("present", "present"),
                 ("no_table", "no_table"), ("trim", "trim"),
-                ("stage", "stage"), ("ring", "ring"),
+                ("stage", "stage"),
                 ("count", "count"), ("loads", "loads"),
                 ("uncapped", "uncapped"), ("cap_f32", "cap_f32"),
                 ("cap5", "cap5"), ("full", "cur")]
