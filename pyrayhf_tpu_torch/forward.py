@@ -129,8 +129,9 @@ def vertical_forward_operator_batch(freq, den, bmag, bpsi, alt,
     unless ``device`` says otherwise (``device="cpu"``); without a card
     and without that request the call raises. The inputs are converted
     once and the kernel engines routed by :func:`pallas_vh.route`, the
-    one read of the grid. The call is a ``pyrayhf.forward`` span and its
-    routing a ``pyrayhf.route`` span
+    one read of the grid (none on a repeat call with the same unchanged
+    CUDA grid and frequency tensors: its launch plan). The call is a
+    ``pyrayhf.forward`` span and its routing a ``pyrayhf.route`` span
     (:func:`pyrayhf_tpu_torch.profiling.span`).
     """
     with span("pyrayhf.forward"):
@@ -150,7 +151,8 @@ def vertical_forward_operator_batch(freq, den, bmag, bpsi, alt,
                                  "'pallas_gather', 'pallas_mxu' or 'xla'")
             cfg = None
             if engine not in ("parity", "xla"):
-                cfg = pallas_vh.route(engine, den, alt, mm, n_points)
+                cfg = pallas_vh.route(engine, freq, den, alt, mm,
+                                      n_points)
             if engine == "auto":
                 key = (cfg["engine"] if cfg else "parity", den.device.type,
                        shared_grid)

@@ -42,13 +42,19 @@ differences, cummax(den)) is built on the card by one more kernel,
 Each kernel is one record of :data:`KINDS` (its table, solve, grid, plain
 version and launcher), which the functions here read in place of its
 name. :func:`route` turns an engine into a launch config and makes the
-one read of the grid. Each wrapper runs the kernel on CUDA tensors and
-the plain version on CPU tensors, and only there; on any other device it
-raises. ``LAUNCHES`` counts kernel launches and ``PLAIN_CALLS`` calls of
-the plain versions, so a run can show which of the two it went through.
+one read of the grid; on CUDA tensors it keeps the config as a launch
+plan per grid tensor (:class:`PlanStore`), so that a repeat call on an
+unchanged grid reads nothing. Each wrapper runs the kernel on CUDA
+tensors and the plain version on CPU tensors, and only there; on any
+other device it raises. ``LAUNCHES`` counts kernel launches and
+``PLAIN_CALLS`` calls of the plain versions, so a run can show which of
+the two it went through; ``PLANS`` counts plans reused and made, and
+calls run without the autograd Function.
 
-Derivatives: :class:`_PallasAD` (the counterpart of the JAX
-``_pallas_ad`` custom JVP) runs the kernel forward and takes every
+Derivatives: a call that can be asked for none (no input records a
+derivative, no transform is open) runs the kernel directly; any other
+goes through :class:`_PallasAD` (the counterpart of the JAX
+``_pallas_ad`` custom JVP), which runs the kernel forward and takes every
 derivative (VJP, JVP, under ``torch.func`` transforms and
 ``torch.autograd.forward_ad`` alike) through the plain segment sweep
 :func:`ionogram_fast_xla`, which evaluates the same discretisation; the
@@ -60,12 +66,16 @@ kernel's value less the sweep's as a constant: every derivative order is
 the sweep's, as in JAX, and the value stays the kernel's bit for bit.
 """
 
+import collections
 import dataclasses
 import functools
+import threading
+import weakref
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from ._util import clip, host_f64, profile_tensors, scalar_like
 from .config import resolve
@@ -74,7 +84,7 @@ from .profiling import span
 
 __all__ = ["ionogram_pallas", "ionogram_pallas_gather", "ionogram_pallas_mxu",
            "ionogram_fast_xla", "prepare_profile_tables", "uniform_inv_dalt",
-           "LAUNCHES", "PLAIN_CALLS", "reset_counters"]
+           "LAUNCHES", "PLAIN_CALLS", "PLANS", "reset_counters"]
 
 _DH_BACKOFF = 1e-6
 _NAN = float("nan")
@@ -88,13 +98,19 @@ KERNELS = ("gather_osolve", "gather_xsolve", "gather", "sweep", "mxu",
            "segment_table")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
+# launch plans (:func:`route`, on CUDA grids): "hit" a plan reused, "miss"
+# one made anew; "direct" calls run without the autograd Function
+# (:func:`run_engine`)
+PLANS = dict.fromkeys(("hit", "miss", "direct"), 0)
 
 
 def reset_counters():
-    """Set every launch and plain-call count to 0."""
+    """Set every launch, plain-call and plan count to 0."""
     for k in KERNELS:
         LAUNCHES[k] = 0
         PLAIN_CALLS[k] = 0
+    for k in PLANS:
+        PLANS[k] = 0
 
 
 def uniform_inv_dalt(alt):
@@ -441,6 +457,24 @@ def _grid_tensors_on(n_points, dtype, device):
     return tuple(out)
 
 
+class GridValues(NamedTuple):
+    """What a launch reads that derives from the frequencies and the
+    altitude grid alone: the frequencies in Hz [F], min(alt) [1] and the
+    stretched grid's (mult, 1−mult, Δmult) [P]."""
+    freq_hz: torch.Tensor
+    alt_min: torch.Tensor
+    mult: torch.Tensor
+    omm: torch.Tensor
+    dmult: torch.Tensor
+
+
+def grid_values(freq_mhz, alt, n_points, like):
+    """The :class:`GridValues` of ``freq_mhz`` [F] MHz and ``alt`` [N] at
+    ``n_points``, the stretched grid in ``like``'s dtype and device."""
+    return GridValues(freq_mhz * 1e6, torch.amin(alt).reshape(1),
+                      *_grid_tensors(n_points, like))
+
+
 def ionogram_fast_xla(freq_mhz, den, bmag, bpsi, alt, mode_mult=1.0,
                       n_points=200, device=None):
     """Gather-free segment sweep of the fused kernel, in plain PyTorch.
@@ -617,22 +651,22 @@ def launch_segment_table(kind, den, bmag, bpsi, alt):
 
 
 def prepare_kernel_args(kind, freq_mhz, den, bmag, bpsi, alt, mode_mult,
-                        n_points, inv_dalt):
+                        n_points, inv_dalt, grid=None):
     """Host prep for one of the four kernels (torch ops on den's device;
-    kernels 1 and 2's table by ``csrc/segment_table.cu`` on the card)."""
-    freq_hz = freq_mhz * 1e6
-    mult, omm, dmult = _grid_tensors(n_points, den)
-    alt_min = torch.amin(alt).reshape(1)
-    common = dict(kind=kind, mode_mult=mode_mult, freq_hz=freq_hz,
-                  mult=mult, omm=omm, dmult=dmult, alt_min=alt_min,
-                  inv_dalt=inv_dalt, n_alt=den.shape[1])
+    kernels 1 and 2's table by ``csrc/segment_table.cu`` on the card).
+    ``grid`` is :func:`grid_values` of ``freq_mhz`` and ``alt`` where the
+    caller holds them (a launch plan, :func:`route`); None computes them."""
+    if grid is None:
+        grid = grid_values(freq_mhz, alt, n_points, den)
+    common = dict(kind=kind, mode_mult=mode_mult, inv_dalt=inv_dalt,
+                  n_alt=den.shape[1], **grid._asdict())
     k = KINDS[kind]
     if k.solve:
         table = (launch_segment_table if den.device.type == "cuda"
                  else plain_segment_table)
         return KernelArgs(tab=table(kind, den, bmag, bpsi, alt), **common)
     seg, crit, valid, slope, emax = prepare_profile_tables(
-        freq_hz, den, bmag, bpsi, alt, mode_mult)
+        grid.freq_hz, den, bmag, bpsi, alt, mode_mult)
     tab = (_mxu_table(seg) if k.one_hot
            else _rows(seg.transpose(1, 2), k.padded))
     return KernelArgs(tab=tab,
@@ -1107,11 +1141,103 @@ KINDS = {
 }
 
 
-def route(engine, den, alt, mode_mult, n_points, x_in_kernel_solve=True,
-          interpret=False):
-    """The launch config of a kernel engine on converted tensors (``den``
-    and ``alt`` as :func:`profile_tensors` gives them), or None where
-    ``engine="auto"`` takes the parity path.
+def _keepable(t):
+    """Whether tensor ``t`` has a version counter of its own: not an
+    inference tensor, nor one a ``torch.func`` transform wraps (those read
+    version 0 whatever is written)."""
+    return not (t.is_inference()
+                or torch._C._functorch.is_functorch_wrapped_tensor(t))
+
+
+def _stamp(t):
+    """What a plan made from tensor ``t`` needs unchanged."""
+    return t._version, t.data_ptr(), t.shape, t.stride()
+
+
+class PlanStore:
+    """Launch plans kept per pair of grid tensors (``alt``, ``freq``) and a
+    key, at most ``size`` of them, the least recently used dropped first.
+
+    A plan is handed back only while both tensors are the very objects it
+    was kept for, each with the version counter, data pointer, shape and
+    strides it had then. The tensors are held by weak reference: an
+    ``id`` reused after garbage collection never matches, and a tensor
+    that is collected takes its plans with it. Any in-place write made
+    through PyTorch, to the tensor or to a view of it, bumps the version
+    counter, so the next lookup misses. A tensor without a version counter
+    of its own (an inference tensor, or one a ``torch.func`` transform
+    wraps) is never kept. As with autograd's saved tensors, a write that
+    does not go through PyTorch (DLPack, a raw pointer, a numpy array
+    sharing a CPU tensor's memory) is not seen. Safe to share between
+    threads.
+    """
+
+    def __init__(self, size=16):
+        self.size = size
+        self._plans = collections.OrderedDict()
+        self._lock = threading.Lock()
+        # (key, weak reference) of collected tensors: a weak reference's
+        # callback runs wherever the collector does, so it only queues
+        self._dead = []
+
+    def __len__(self):
+        with self._lock:
+            self._purge()
+            return len(self._plans)
+
+    def _purge(self):
+        while self._dead:
+            at, ref = self._dead.pop()
+            entry = self._plans.get(at)
+            if entry is not None and any(r is ref for r in entry[0]):
+                del self._plans[at]
+
+    def get(self, alt, freq, key):
+        """The plan kept for (``alt``, ``freq``, ``key``), or None."""
+        at = (id(alt), id(freq), key)
+        with self._lock:
+            self._purge()
+            entry = self._plans.get(at)
+            if entry is None:
+                return None
+            (ref_a, ref_f), stamps, plan = entry
+            if (ref_a() is not alt or ref_f() is not freq
+                    or stamps != (_stamp(alt), _stamp(freq))):
+                return None
+            self._plans.move_to_end(at)
+            return plan
+
+    def put(self, alt, freq, key, plan):
+        """Keep ``plan`` for (``alt``, ``freq``, ``key``) where both tensors
+        can be kept (:func:`_keepable`); returns whether it was kept."""
+        if not (_keepable(alt) and _keepable(freq)):
+            return False
+        at = (id(alt), id(freq), key)
+        dead = self._dead
+
+        def forget(ref):
+            dead.append((at, ref))
+
+        entry = ((weakref.ref(alt, forget), weakref.ref(freq, forget)),
+                 (_stamp(alt), _stamp(freq)), plan)
+        with self._lock:
+            self._purge()
+            self._plans[at] = entry
+            self._plans.move_to_end(at)
+            while len(self._plans) > self.size:
+                self._plans.popitem(last=False)
+        return True
+
+
+# the launch plans of route on CUDA grids
+_PLAN_STORE = PlanStore()
+
+
+def route(engine, freq, den, alt, mode_mult, n_points,
+          x_in_kernel_solve=True, interpret=False):
+    """The launch config of a kernel engine on converted tensors (``freq``,
+    ``den`` and ``alt`` as :func:`profile_tensors` gives them), or None
+    where ``engine="auto"`` takes the parity path.
 
     The package's one read of the grid (:func:`uniform_inv_dalt`; on the
     card a host sync) is made here, at most once a call. ``"auto"``: the
@@ -1122,10 +1248,27 @@ def route(engine, den, alt, mode_mult, n_points, x_in_kernel_solve=True,
     ``"pallas_mxu"`` need a uniform grid and raise without one;
     ``"pallas"`` is the sweep and reads nothing. Returns the ``cfg`` of
     :func:`run_engine`: dict(engine, kind, mode_mult, n_points, inv_dalt,
-    interpret).
+    interpret, grid), ``grid`` the :class:`GridValues` of ``freq`` and
+    ``alt`` or None.
+
+    On CUDA tensors the config is a launch plan, kept in a
+    :class:`PlanStore` per (``alt``, ``freq``, engine, mode, ``n_points``,
+    ``x_in_kernel_solve``, ``interpret``, dtype, device) with its
+    :class:`GridValues`: a repeat call on the same unchanged tensors reads
+    nothing from the card and launches nothing here (``PLANS["hit"]``).
+    CPU grids are read on every call (a view, no sync) and keep no plan.
     """
     if engine == "auto" and (den.device.type != "cuda" or alt.ndim != 1):
         return None
+    planned = den.device.type == "cuda"
+    if planned:
+        key = (engine, mode_mult, n_points, x_in_kernel_solve,
+               bool(interpret), den.dtype, den.device)
+        cfg = _PLAN_STORE.get(alt, freq, key)
+        if cfg is not None:
+            PLANS["hit"] += 1
+            return cfg
+        PLANS["miss"] += 1
     inv_dalt = None if engine == "pallas" else uniform_inv_dalt(alt)
     if engine == "auto":
         engine = "pallas_gather" if inv_dalt is not None else "pallas"
@@ -1136,9 +1279,16 @@ def route(engine, den, alt, mode_mult, n_points, x_in_kernel_solve=True,
     if kind is None:
         kind = ("gather_osolve" if mode_mult > 0 else
                 "gather_xsolve" if x_in_kernel_solve else "gather")
-    return dict(engine=engine, kind=kind, mode_mult=mode_mult,
-                n_points=n_points, inv_dalt=inv_dalt,
-                interpret=bool(interpret))
+    cfg = dict(engine=engine, kind=kind, mode_mult=mode_mult,
+               n_points=n_points, inv_dalt=inv_dalt,
+               interpret=bool(interpret), grid=None)
+    if planned and _PLAN_STORE.put(alt, freq, key, cfg):
+        # made outside autograd, inference mode and any torch.func
+        # transform: a plan outlives the call
+        with (torch.no_grad(), torch.inference_mode(False),
+              torch._C._DisableFuncTorch()):
+            cfg["grid"] = grid_values(freq, alt, n_points, den)
+    return cfg
 
 
 # --------------------------------------------------------------------------
@@ -1162,7 +1312,7 @@ def _run(cfg, freq_mhz, den, bmag, bpsi, alt):
                                  mode_mult=mm, n_points=P)
     with span("pyrayhf.prep"):
         a = prepare_kernel_args(kind, freq_mhz, den, bmag, bpsi, alt, mm, P,
-                                cfg["inv_dalt"])
+                                cfg["inv_dalt"], cfg["grid"])
     if dev == "cpu":
         return plain_ionogram(a)
     with span("pyrayhf.launch"):
@@ -1320,10 +1470,28 @@ def _fold_profiles(apply, info, dims, cfg, lead, xs):
     return torch.stack(outs), 0
 
 
+def _no_derivative(xs):
+    """Whether no derivative of a call on tensors ``xs`` can be asked for:
+    no ``torch.func`` transform is open, no input carries a
+    ``torch.autograd.forward_ad`` tangent, and autograd records none of
+    them (grad mode off, or none requires grad)."""
+    if torch._C._functorch.maybe_current_level() is not None:
+        return False
+    if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+        return False
+    return fwAD._current_level < 0 or all(
+        fwAD.unpack_dual(x).tangent is None for x in xs)
+
+
 def run_engine(cfg, freq_mhz, den, bmag, bpsi, alt):
-    """A kernel engine's value on converted tensors under :func:`route`'s
-    ``cfg``: :class:`_PallasAD`, or under two or more ``torch.func``
-    forward transforms the sweep plus :class:`_KernelGap`."""
+    """A kernel engine's value on the converted tensors :func:`route` made
+    ``cfg`` for: the kernel alone where no derivative can be asked for
+    (:func:`_no_derivative`, counted in ``PLANS["direct"]``), else
+    :class:`_PallasAD`, or under two or more ``torch.func`` forward
+    transforms the sweep plus :class:`_KernelGap`."""
+    if _no_derivative((freq_mhz, den, bmag, bpsi, alt)):
+        PLANS["direct"] += 1
+        return _run(cfg, freq_mhz, den, bmag, bpsi, alt)
     if _jvp_nesting() < 2:
         return _PallasAD.apply(cfg, freq_mhz, den, bmag, bpsi, alt)
     s = _sweep(freq_mhz, den, bmag, bpsi, alt, cfg["mode_mult"],
@@ -1339,7 +1507,7 @@ def _entry(engine, xs, mode_mult, n_points, config, interpret, device,
     if mode_mult is None:
         mode_mult = 1.0 if resolve(config, "mode", None, "O") == "O" else -1.0
     xs = profile_tensors(*xs, device=device)
-    cfg = route(engine, xs[1], xs[4], mode_mult,
+    cfg = route(engine, xs[0], xs[1], xs[4], mode_mult,
                 resolve(config, "n_points", n_points, 200), x_in_kernel_solve,
                 interpret)
     return run_engine(cfg, *xs)

@@ -186,12 +186,13 @@ def test_route_names_each_engines_kernel():
     inv = 1.0 / float(alt[1] - alt[0])
 
     def kind(engine, mode_mult, **kw):
-        cfg = TV.route(engine, den, alt, mode_mult, 200, **kw)
+        cfg = TV.route(engine, freqs, den, alt, mode_mult, 200, **kw)
         assert cfg["mode_mult"] == mode_mult and cfg["n_points"] == 200
         return cfg["kind"], cfg["inv_dalt"]
 
-    assert TV.route("auto", den, alt, 1.0, 200) is None
-    assert TV.route("auto", den, alt.expand(2, -1), 1.0, 200) is None
+    assert TV.route("auto", freqs, den, alt, 1.0, 200) is None
+    assert TV.route("auto", freqs, den, alt.expand(2, -1), 1.0,
+                    200) is None
     assert kind("pallas", 1.0) == ("sweep", None)
     assert kind("pallas_gather", 1.0)[0] == "gather_osolve"
     assert kind("pallas_gather", -1.0)[0] == "gather_xsolve"
@@ -202,7 +203,7 @@ def test_route_names_each_engines_kernel():
     alt_nu = alt + 0.01 * torch.linspace(0.0, 5.0, alt.shape[0]) ** 2
     for engine in ("pallas_gather", "pallas_mxu"):
         with pytest.raises(ValueError, match=f"ionogram_{engine} requires"):
-            TV.route(engine, den, alt_nu, 1.0, 200)
+            TV.route(engine, freqs, den, alt_nu, 1.0, 200)
 
 
 def test_engine_errors():

@@ -82,8 +82,10 @@ def test_kernel_matches_plain(cuda, kind, mode_mult, n_points, two_peak):
 
 
 def test_auto_reads_the_grid_once(cuda, monkeypatch):
-    """``engine="auto"`` copies ``alt`` to the host once per call: the
-    router hands 1/Δalt to the gather, which launches its kernel."""
+    """``engine="auto"`` copies ``alt`` to the host on its first call with a
+    grid and keeps the launch plan: the router hands 1/Δalt to the gather,
+    which launches its kernel; a repeat call on the same tensors reads
+    nothing, and one after an in-place write to ``alt`` reads it again."""
     from pyrayhf_tpu_torch.forward import vertical_forward_operator_batch
     reads = []
     real = TV.uniform_inv_dalt
@@ -97,6 +99,36 @@ def test_auto_reads_the_grid_once(cuda, monkeypatch):
     assert len(reads) == 1
     assert TV.LAUNCHES["gather_osolve"] == 1
     assert sum(TV.PLAIN_CALLS.values()) == 0
+    vertical_forward_operator_batch(*args, mode="O")
+    assert len(reads) == 1
+    args[4].add_(0.0)
+    vertical_forward_operator_batch(*args, mode="O")
+    assert len(reads) == 2
+    assert TV.LAUNCHES["gather_osolve"] == 3
+    assert TV.PLANS == {"hit": 1, "miss": 2, "direct": 3}
+
+
+@pytest.mark.parametrize("engine", ["pallas", "pallas_gather", "pallas_mxu"])
+@pytest.mark.parametrize("mode", ["O", "X"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_a_repeat_call_equals_the_first(cuda, engine, mode, dtype):
+    """A call that reuses its launch plan gives the first call's output
+    bit for bit, as does a call on a fresh copy of the grid."""
+    from pyrayhf_tpu_torch.forward import vertical_forward_operator_batch
+    args = [torch.as_tensor(a, dtype=dtype, device=cuda)
+            for a in _case(True)]
+
+    def call(*xs):
+        return vertical_forward_operator_batch(*xs, mode=mode,
+                                               engine=engine).view(
+            torch.int32 if dtype == torch.float32 else torch.int64)
+
+    TV.reset_counters()
+    first = call(*args)
+    again = call(*args)
+    fresh = call(args[0].clone(), *args[1:4], args[4].clone())
+    assert TV.PLANS["hit"] == 1 and TV.PLANS["miss"] == 2
+    assert torch.equal(first, again) and torch.equal(first, fresh)
 
 
 def test_sweep_kernel_nonuniform_grid(cuda):
@@ -843,6 +875,8 @@ def test_spans_of_one_auto_call_on_the_card(cuda, tmp_path):
     args = [torch.as_tensor(a, dtype=torch.float64, device=cuda)
             for a in _case(False)]
     off = vertical_forward_operator_batch(*args, mode="O")
+    # a fresh grid: the call misses its launch plan and reads the grid
+    args[0], args[4] = args[0].clone(), args[4].clone()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -883,6 +917,39 @@ def test_spans_of_one_auto_call_on_the_card(cuda, tmp_path):
     (r0, r1), = spans["pyrayhf.route"]
     (h0, h1), = spans["pyrayhf.host_read"]
     assert r0 <= h0 <= h1 <= r1
+
+
+@pytest.mark.parametrize("mode", ["O", "X"])
+def test_a_repeat_auto_call_launches_the_table_and_the_kernel(
+        cuda, mode, tmp_path):
+    """A repeat ``engine="auto"`` call, f64, under ``torch.profiler``: its
+    launch plan hit, no ``pyrayhf.host_read`` span, and on the card only
+    the segment table and the gather kernel: no copy, no other op."""
+    import json
+
+    from pyrayhf_tpu_torch.forward import vertical_forward_operator_batch
+    args = [torch.as_tensor(a, dtype=torch.float64, device=cuda)
+            for a in _case(False)]
+    vertical_forward_operator_batch(*args, mode=mode)
+    torch.cuda.synchronize()
+    TV.reset_counters()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        vertical_forward_operator_batch(*args, mode=mode)
+        torch.cuda.synchronize()
+    assert TV.PLANS == {"hit": 1, "miss": 0, "direct": 1}
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    spans = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert "pyrayhf.route" in spans and "pyrayhf.host_read" not in spans
+    device = sorted(e["name"] for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    assert len(device) == 2, device
+    assert any("segment_table_pack" in k for k in device), device
+    assert any("gather_kernel" in k for k in device), device
 
 
 def _table_profiles(case, dtype, dev):
