@@ -132,3 +132,12 @@ def host_f64(a):
                     a = a.cpu()
             a = a.double().numpy()
     return np.asarray(a, dtype=np.float64)
+
+
+def host_float(t):
+    """A 0-d tensor's value as a Python float; a read from a device (a
+    host sync) is a ``pyrayhf.host_read`` span."""
+    if isinstance(t, torch.Tensor) and t.device.type != "cpu":
+        with span("pyrayhf.host_read"):
+            return float(t)
+    return float(t)

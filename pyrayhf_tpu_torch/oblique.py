@@ -31,6 +31,7 @@ import torch
 from ._util import as_tensors, host_f64
 from .constants import C_KM_S, R_E
 from .magnetoionic import mode_multiplier
+from .profiling import span
 
 __all__ = ["synthesize_oblique_ionogram",
            "synthesize_oblique_ionogram_2d"]
@@ -262,15 +263,16 @@ def _fan_fields(f0s, Ne2d, Babs2d, bpsi2d, nu_z, mode):
     from .absorption import absorption_coefficient
     from .magnetoionic import find_mu_mup, find_X, find_Y
 
-    f = f0s[:, None, None]
-    X = find_X(Ne2d[None, :, :], f)
-    Y = find_Y(f, Babs2d[None, :, :])
-    mu_f, mup_f = find_mu_mup(X, Y, bpsi2d[None, :, :], mode)
-    kappa_f = absorption_coefficient(
-        Ne2d[None, :, :], nu_z[None, :, None], f, Babs2d[None, :, :],
-        bpsi2d[None, :, :], mu_f, mode)
-    kappa_f = torch.where(torch.isfinite(kappa_f), kappa_f, 0.0)
-    return mu_f, mup_f, kappa_f
+    with span("pyrayhf.fan_fields"):
+        f = f0s[:, None, None]
+        X = find_X(Ne2d[None, :, :], f)
+        Y = find_Y(f, Babs2d[None, :, :])
+        mu_f, mup_f = find_mu_mup(X, Y, bpsi2d[None, :, :], mode)
+        kappa_f = absorption_coefficient(
+            Ne2d[None, :, :], nu_z[None, :, None], f, Babs2d[None, :, :],
+            bpsi2d[None, :, :], mu_f, mode)
+        kappa_f = torch.where(torch.isfinite(kappa_f), kappa_f, 0.0)
+        return mu_f, mup_f, kappa_f
 
 
 def _fan_2d_fn(z_np, x_np, mode, geometry, n_elev, n_steps, n_hops,
@@ -376,72 +378,86 @@ def synthesize_oblique_ionogram_2d(f0s_hz, ground_range_km, x_grid_km,
     ground node. The fields keep their device; host data goes to the CUDA
     card unless ``device`` says otherwise (``device="cpu"``).
     """
-    from .absorption import collision_frequency
+    with span("pyrayhf.oblique"):
+        from .absorption import collision_frequency
 
-    if geometry not in ("cartesian", "spherical"):
-        raise ValueError("geometry must be 'cartesian' or 'spherical'")
-    z = host_f64(z_grid_km)
-    x = host_f64(x_grid_km)
-    (Ne2d,) = as_tensors(Ne2d, device=device)
-    Babs2d, bpsi2d, _ = as_tensors(Babs2d, bpsi2d, Ne2d, dtype=Ne2d.dtype)
-    nu_z = (collision_frequency(z, device="cpu").numpy() if nu is None
-            else host_f64(nu))
-    if z[0] > 0.0:
-        # free-space extension to the ground (the reference's layered
-        # tracer inserts a ground level the same way, ref
-        # library.py:1174-1182); a ladder at the grid's own spacing keeps
-        # a uniform grid uniform
-        dz = np.diff(z)
-        k = z[0] / dz[0]
-        if (np.allclose(dz, dz[0], rtol=1e-6, atol=0.0)
-                and abs(k - round(k)) < 1e-9 * max(k, 1.0)):
-            ladder = z[0] - dz[0] * np.arange(int(round(k)), 0, -1)
-            ladder[0] = 0.0                      # exact ground node
-        else:
-            ladder = np.array([0.0])
-        n_ext = ladder.size
-        z = np.concatenate([ladder, z])
-        Ne2d = torch.cat([Ne2d.new_zeros((n_ext, Ne2d.shape[1])), Ne2d])
-        Babs2d = torch.cat([Babs2d[:1].expand(n_ext, -1), Babs2d])
-        bpsi2d = torch.cat([bpsi2d[:1].expand(n_ext, -1), bpsi2d])
-        # ν keeps its value at z[0] below (κ is 0 there: Ne = 0)
-        nu_z = np.concatenate([np.repeat(nu_z[:1], n_ext), nu_z])
+        if geometry not in ("cartesian", "spherical"):
+            raise ValueError("geometry must be 'cartesian' or 'spherical'")
+        z = host_f64(z_grid_km)
+        x = host_f64(x_grid_km)
+        (Ne2d,) = as_tensors(Ne2d, device=device)
+        Babs2d, bpsi2d, _ = as_tensors(Babs2d, bpsi2d, Ne2d,
+                                       dtype=Ne2d.dtype)
+        nu_z = (collision_frequency(z, device="cpu").numpy() if nu is None
+                else host_f64(nu))
+        if z[0] > 0.0:
+            # free-space extension to the ground (the reference's layered
+            # tracer inserts a ground level the same way, ref
+            # library.py:1174-1182); a ladder at the grid's own spacing
+            # keeps a uniform grid uniform
+            dz = np.diff(z)
+            k = z[0] / dz[0]
+            if (np.allclose(dz, dz[0], rtol=1e-6, atol=0.0)
+                    and abs(k - round(k)) < 1e-9 * max(k, 1.0)):
+                ladder = z[0] - dz[0] * np.arange(int(round(k)), 0, -1)
+                ladder[0] = 0.0                      # exact ground node
+            else:
+                ladder = np.array([0.0])
+            n_ext = ladder.size
+            z = np.concatenate([ladder, z])
+            Ne2d = torch.cat([Ne2d.new_zeros((n_ext, Ne2d.shape[1])),
+                              Ne2d])
+            Babs2d = torch.cat([Babs2d[:1].expand(n_ext, -1), Babs2d])
+            bpsi2d = torch.cat([bpsi2d[:1].expand(n_ext, -1), bpsi2d])
+            # ν keeps its value at z[0] below (κ is 0 there: Ne = 0)
+            nu_z = np.concatenate([np.repeat(nu_z[:1], n_ext), nu_z])
 
-    f0s, nu_t, lims, step, _ = as_tensors(
-        np.atleast_1d(host_f64(f0s_hz)), nu_z,
-        [float(elev_min_deg), float(elev_max_deg)], float(step_km), Ne2d,
-        dtype=Ne2d.dtype)
-    n_hops = int(n_hops)
-    n_steps = int(round(float(s_max_km) / float(step_km)))
-    fan = _fan_2d_fn(z, x, mode, geometry, int(n_elev), n_steps, n_hops,
-                     engine=engine)
-    range_fe, delay_fe, absorb_fe, path_fe, phase_fe, elevs = fan(
-        f0s, lims, Ne2d, Babs2d, bpsi2d, nu_t, step)
+        f0s, nu_t, lims, step, _ = as_tensors(
+            np.atleast_1d(host_f64(f0s_hz)), nu_z,
+            [float(elev_min_deg), float(elev_max_deg)], float(step_km),
+            Ne2d, dtype=Ne2d.dtype)
+        n_hops = int(n_hops)
+        n_steps = int(round(float(s_max_km) / float(step_km)))
+        fan = _fan_2d_fn(z, x, mode, geometry, int(n_elev), n_steps,
+                         n_hops, engine=engine)
+        range_fe, delay_fe, absorb_fe, path_fe, phase_fe, elevs = fan(
+            f0s, lims, Ne2d, Babs2d, bpsi2d, nu_t, step)
 
-    D = float(ground_range_km)
-    chord_1 = (D / n_hops if geometry == "cartesian"
-               else 2.0 * R_E * math.sin(0.5 * D / n_hops / R_E))
-    lo, hi = _crossings(range_fe, (delay_fe, absorb_fe, path_fe, phase_fe),
-                        elevs, D, float(max_range_jump_km),
-                        n_hops * chord_1 / C_KM_S)
-    dl_lo, ab_lo, pa_lo, ph_lo, el_lo, sl_lo = lo
-    dl_hi, ab_hi, pa_hi, ph_hi, el_hi, sl_hi = hi
-    # fan ranges and paths are n-hop totals (traced through the bounces);
-    # the launch elevation stands in for the arrival elevation
-    fg_lo = _focusing_gain_db(pa_lo, sl_lo, el_lo, D, geometry)
-    fg_hi = _focusing_gain_db(pa_hi, sl_hi, el_hi, D, geometry)
-    gl_lo = _ground_loss_db(f0s, el_lo, ground, n_hops)
-    gl_hi = _ground_loss_db(f0s, el_hi, ground, n_hops)
-    return {"delay_low_sec": dl_lo, "delay_high_sec": dl_hi,
-            "elev_low_deg": el_lo, "elev_high_deg": el_hi,
-            "absorption_low_db": ab_lo, "absorption_high_db": ab_hi,
-            "group_path_low_km": pa_lo, "group_path_high_km": pa_hi,
-            "phase_path_low_km": ph_lo, "phase_path_high_km": ph_hi,
-            "focusing_gain_low_db": fg_lo, "focusing_gain_high_db": fg_hi,
-            "ground_loss_low_db": gl_lo, "ground_loss_high_db": gl_hi,
-            "link_loss_low_db": _link_loss_db(f0s, pa_lo, ab_lo, fg_lo,
-                                              gl_lo),
-            "link_loss_high_db": _link_loss_db(f0s, pa_hi, ab_hi, fg_hi,
-                                               gl_hi),
-            "fan_range_km": range_fe, "fan_delay_sec": delay_fe,
-            "elevations_deg": elevs}
+        return _home_2d(f0s, range_fe, delay_fe, absorb_fe, path_fe,
+                        phase_fe, elevs, float(ground_range_km), n_hops,
+                        geometry, float(max_range_jump_km), ground)
+
+
+def _home_2d(f0s, range_fe, delay_fe, absorb_fe, path_fe, phase_fe, elevs,
+             D, n_hops, geometry, max_jump, ground):
+    """The low and high rays of a 2-D fan that land at ``D`` km, and their
+    link budget: the returned dict of
+    :func:`synthesize_oblique_ionogram_2d`."""
+    with span("pyrayhf.homing"):
+        chord_1 = (D / n_hops if geometry == "cartesian"
+                   else 2.0 * R_E * math.sin(0.5 * D / n_hops / R_E))
+        lo, hi = _crossings(range_fe, (delay_fe, absorb_fe, path_fe,
+                                       phase_fe),
+                            elevs, D, max_jump, n_hops * chord_1 / C_KM_S)
+        dl_lo, ab_lo, pa_lo, ph_lo, el_lo, sl_lo = lo
+        dl_hi, ab_hi, pa_hi, ph_hi, el_hi, sl_hi = hi
+        # fan ranges and paths are n-hop totals (traced through the
+        # bounces); the launch elevation stands in for the arrival elevation
+        fg_lo = _focusing_gain_db(pa_lo, sl_lo, el_lo, D, geometry)
+        fg_hi = _focusing_gain_db(pa_hi, sl_hi, el_hi, D, geometry)
+        gl_lo = _ground_loss_db(f0s, el_lo, ground, n_hops)
+        gl_hi = _ground_loss_db(f0s, el_hi, ground, n_hops)
+        return {"delay_low_sec": dl_lo, "delay_high_sec": dl_hi,
+                "elev_low_deg": el_lo, "elev_high_deg": el_hi,
+                "absorption_low_db": ab_lo, "absorption_high_db": ab_hi,
+                "group_path_low_km": pa_lo, "group_path_high_km": pa_hi,
+                "phase_path_low_km": ph_lo, "phase_path_high_km": ph_hi,
+                "focusing_gain_low_db": fg_lo,
+                "focusing_gain_high_db": fg_hi,
+                "ground_loss_low_db": gl_lo, "ground_loss_high_db": gl_hi,
+                "link_loss_low_db": _link_loss_db(f0s, pa_lo, ab_lo, fg_lo,
+                                                  gl_lo),
+                "link_loss_high_db": _link_loss_db(f0s, pa_hi, ab_hi, fg_hi,
+                                                   gl_hi),
+                "fan_range_km": range_fe, "fan_delay_sec": delay_fe,
+                "elevations_deg": elevs}

@@ -35,10 +35,11 @@ import numpy as np
 import torch
 
 from . import cuda_ext
-from ._util import host_f64
+from ._util import host_f64, host_float
 from .constants import R_E
 from .fields import RefractiveField, _mup_function, gradient_ord2, \
     uniform_axis
+from .profiling import span
 
 __all__ = ["fan_2d_pallas", "fan_2d_pallas_available", "plain_fan",
            "launch_fan", "pack_tables", "table_views", "fan_path",
@@ -142,17 +143,18 @@ def pack_tables(geo, mu_f, mup_f, kappa_f):
     ``gradient_ord2`` of μ on the uniform native axes rebuilt as
     o + i/inv_d in the working dtype, as the JAX host side builds them.
     """
-    kw = dict(dtype=mu_f.dtype, device=mu_f.device)
-    c0_ax = (torch.tensor(geo.o0, **kw) + torch.arange(geo.nz, **kw)
-             / torch.tensor(geo.inv_d0, **kw))
-    c1_ax = (torch.tensor(geo.o1, **kw) + torch.arange(geo.nx, **kw)
-             / torch.tensor(geo.inv_d1, **kw))
-    g0, g1 = gradient_ord2(mu_f, c0_ax, c1_ax)
-    tab = torch.empty(_CHANNELS * mu_f.numel(), **kw)
-    rec, kap = table_views(geo, tab)
-    torch.stack([mu_f, g0, g1, mup_f], dim=-1, out=rec)
-    kap.copy_(kappa_f)
-    return tab
+    with span("pyrayhf.fan_pack"):
+        kw = dict(dtype=mu_f.dtype, device=mu_f.device)
+        c0_ax = (torch.tensor(geo.o0, **kw) + torch.arange(geo.nz, **kw)
+                 / torch.tensor(geo.inv_d0, **kw))
+        c1_ax = (torch.tensor(geo.o1, **kw) + torch.arange(geo.nx, **kw)
+                 / torch.tensor(geo.inv_d1, **kw))
+        g0, g1 = gradient_ord2(mu_f, c0_ax, c1_ax)
+        tab = torch.empty(_CHANNELS * mu_f.numel(), **kw)
+        rec, kap = table_views(geo, tab)
+        torch.stack([mu_f, g0, g1, mup_f], dim=-1, out=rec)
+        kap.copy_(kappa_f)
+        return tab
 
 
 def table_views(geo, tab):
@@ -252,49 +254,50 @@ def launch_fan(geo, tab, elevs, ds, *, n_steps, n_hops=1, x0=0.0, z0=None):
     by table size (:func:`fan_path`), launches on the current stream and
     raises on any CUDA error the launch reports.
     """
-    from .gradient import _launch_direction
+    with span("pyrayhf.fan_launch"):
+        from .gradient import _launch_direction
 
-    dtype, dev = tab.dtype, tab.device
-    if dev.type != "cuda":
-        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"unsupported dtype {dtype}")
-    F = table_views(geo, tab)[1].shape[0]
-    E = elevs.shape[0]
-    if not tab.is_contiguous() or tab.data_ptr() % 16:
-        raise ValueError("tables must be contiguous and 16-byte aligned, "
-                         "as pack_tables makes them")
-    if (elevs.dtype != dtype or elevs.device != dev or elevs.dim() != 1
-            or not elevs.is_contiguous()):
-        raise ValueError("elevations must be a contiguous 1-D tensor in the "
-                         "tables' dtype and device")
-    if F == 0 or E == 0 or geo.nz < 2 or geo.nx < 2 or n_steps < 0:
-        raise ValueError(f"degenerate launch F={F} E={E} nz={geo.nz} "
-                         f"nx={geo.nx} n_steps={n_steps}")
-    z0 = float(geo.z[0]) if z0 is None else float(z0)
-    sph = geo.geometry == "spherical"
-    # the launch state, formed as the plain version's cores form it: the
-    # position in float64 on the host, the direction by the same torch ops
-    a0, b0 = (geo.re + z0, float(x0) / geo.re) if sph else (float(x0), z0)
-    va0, vb0 = (v.contiguous() for v in _launch_direction(elevs, sph))
-    scalars = (ctypes.c_double * 16)(
-        float(ds), a0, b0, geo.o0, geo.inv_d0, geo.o1, geo.inv_d1,
-        geo.c0_lo, geo.c0_hi, geo.c1_lo, geo.c1_hi,
-        geo.ground, geo.top, geo.lo, geo.hi, geo.re)
-    out = torch.empty((len(OUTPUTS), F, E), dtype=dtype, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = cuda_ext.load().pyrayhf_fan2d(
-            0 if dtype == torch.float32 else 1, int(sph),
-            int(fan_path(geo, dtype) == "shared"),
-            tab.data_ptr(), F, geo.nz, geo.nx, va0.data_ptr(),
-            vb0.data_ptr(), E, int(n_steps), int(n_hops) - 1, scalars,
-            out.data_ptr(), _BLOCK, stream)
-    if err != 0:
-        raise RuntimeError(f"fan kernel launch failed: "
-                           f"{cuda_ext.error_string(err)} ({err})")
-    LAUNCHES["fan_2d"] += 1
-    return dict(zip(OUTPUTS, out.unbind(0)))
+        dtype, dev = tab.dtype, tab.device
+        if dev.type != "cuda":
+            raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"unsupported dtype {dtype}")
+        F = table_views(geo, tab)[1].shape[0]
+        E = elevs.shape[0]
+        if not tab.is_contiguous() or tab.data_ptr() % 16:
+            raise ValueError("tables must be contiguous and 16-byte aligned, "
+                             "as pack_tables makes them")
+        if (elevs.dtype != dtype or elevs.device != dev or elevs.dim() != 1
+                or not elevs.is_contiguous()):
+            raise ValueError("elevations must be a contiguous 1-D tensor in "
+                             "the tables' dtype and device")
+        if F == 0 or E == 0 or geo.nz < 2 or geo.nx < 2 or n_steps < 0:
+            raise ValueError(f"degenerate launch F={F} E={E} nz={geo.nz} "
+                             f"nx={geo.nx} n_steps={n_steps}")
+        z0 = float(geo.z[0]) if z0 is None else float(z0)
+        sph = geo.geometry == "spherical"
+        # the launch state, formed as the plain version's cores form it: the
+        # position in float64 on the host, the direction by the same torch ops
+        a0, b0 = (geo.re + z0, float(x0) / geo.re) if sph else (float(x0), z0)
+        va0, vb0 = (v.contiguous() for v in _launch_direction(elevs, sph))
+        scalars = (ctypes.c_double * 16)(
+            host_float(ds), a0, b0, geo.o0, geo.inv_d0, geo.o1, geo.inv_d1,
+            geo.c0_lo, geo.c0_hi, geo.c1_lo, geo.c1_hi,
+            geo.ground, geo.top, geo.lo, geo.hi, geo.re)
+        out = torch.empty((len(OUTPUTS), F, E), dtype=dtype, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = cuda_ext.load().pyrayhf_fan2d(
+                0 if dtype == torch.float32 else 1, int(sph),
+                int(fan_path(geo, dtype) == "shared"),
+                tab.data_ptr(), F, geo.nz, geo.nx, va0.data_ptr(),
+                vb0.data_ptr(), E, int(n_steps), int(n_hops) - 1, scalars,
+                out.data_ptr(), _BLOCK, stream)
+        if err != 0:
+            raise RuntimeError(f"fan kernel launch failed: "
+                               f"{cuda_ext.error_string(err)} ({err})")
+        LAUNCHES["fan_2d"] += 1
+        return dict(zip(OUTPUTS, out.unbind(0)))
 
 
 def _differentiated(t):
@@ -353,12 +356,13 @@ def fan_2d_pallas(z_np, x_np, mu_f, mup_f, kappa_f, elevs, ds, *,
 
 def _fan(geo, kw, mu_f, mup_f, kappa_f, elevs, ds):
     """Pack the tables; the kernel on CUDA tensors, its plain version on
-    CPU tensors."""
+    CPU tensors (there the ``pyrayhf.fan_launch`` span holds it)."""
     tab = pack_tables(geo, mu_f, mup_f, kappa_f)
     elevs = elevs.contiguous()
     if mu_f.device.type == "cuda":
         return launch_fan(geo, tab, elevs, ds, **kw)
-    return plain_fan(geo, tab, elevs, ds, **kw)
+    with span("pyrayhf.fan_launch"):
+        return plain_fan(geo, tab, elevs, ds, **kw)
 
 
 class _FanKernel(torch.autograd.Function):

@@ -12,18 +12,34 @@ card it raises.
 forward operator, and :func:`trace` captures a ``torch.profiler`` trace of
 the card (and the host) into a TensorBoard directory.
 
-:func:`span` marks a layer of the vertical forward operator's main path
-(the names in ``SPANS``) as a ``record_function`` event while a torch
-profiler records, so the spans land in its trace beside the kernels and
-copies they launch, on the same clock:
+:func:`span` marks a layer of a main path (the names in ``SPANS``) as a
+``record_function`` event while a torch profiler records, so the spans
+land in its trace beside the kernels and copies they launch, on the same
+clock. The vertical forward operator's:
 
 * ``pyrayhf.forward``: the whole of ``vertical_forward_operator_batch``;
 * ``pyrayhf.route``: its routing, before the engine runs (argument
   resolution, tensor conversion, the ``engine="auto"`` choice);
 * ``pyrayhf.prep``: ``pallas_vh.prepare_kernel_args``;
 * ``pyrayhf.launch``: ``pallas_vh.launch_kernel``/``launch_mxu``;
-* ``pyrayhf.host_read``: one device-to-host read of ``_util.host_f64``
-  (a host sync), one span per read.
+
+the 2-D oblique ionogram's:
+
+* ``pyrayhf.oblique``: the whole of
+  ``oblique.synthesize_oblique_ionogram_2d``;
+* ``pyrayhf.fan_fields``: ``oblique._fan_fields``, the broadcast
+  Appleton–Hartree fields of every frequency;
+* ``pyrayhf.fan_pack``: ``pallas_ray.pack_tables``;
+* ``pyrayhf.fan_launch``: ``pallas_ray.launch_fan``, its checks to the
+  library call (on CPU tensors the kernel's plain version in its
+  place);
+* ``pyrayhf.homing``: the low/high-ray crossings and the loss terms
+  after them;
+
+and both paths':
+
+* ``pyrayhf.host_read``: one device-to-host read (a host sync) of
+  ``_util.host_f64`` or ``_util.host_float``, one span per read.
 
 With no profiler recording a span is one check and a shared no-op
 context: no allocation, no op dispatch.
@@ -39,7 +55,9 @@ __all__ = ["time_launch", "vh_evals_per_s", "operator_cost", "trace",
            "span", "SPANS"]
 
 SPANS = ("pyrayhf.forward", "pyrayhf.route", "pyrayhf.prep",
-         "pyrayhf.launch", "pyrayhf.host_read")
+         "pyrayhf.launch", "pyrayhf.host_read", "pyrayhf.oblique",
+         "pyrayhf.fan_fields", "pyrayhf.fan_pack", "pyrayhf.fan_launch",
+         "pyrayhf.homing")
 _NO_SPAN = contextlib.nullcontext()
 
 

@@ -657,6 +657,62 @@ def test_fan_wrapper_on_the_card(cuda):
     assert TR.LAUNCHES["fan_2d"] == 1 and TR.PLAIN_CALLS["fan_2d"] == 0
 
 
+def test_oblique_entry_on_the_card_launches_once_and_reads_once(
+        cuda, monkeypatch):
+    """``synthesize_oblique_ionogram_2d(engine="auto")`` in f64 on CUDA
+    tensors at a small slice: one fan-kernel launch and no plain version;
+    its spans, recorded by a stand-in for ``profiling.span``, are the
+    fields, the tables, the launch with the path's one
+    ``pyrayhf.host_read`` (the step's read) inside it, and the homing, in
+    that order, inside ``pyrayhf.oblique``; the outputs within 1e-8
+    relative of the plain version's on the CPU. (No profiler session
+    here: one, even CPU-only, this early in the file made the later
+    profiled tests of this file lose device events.)"""
+    import contextlib
+
+    import pyrayhf_tpu_torch._util as U
+    import pyrayhf_tpu_torch.oblique as OB
+    import pyrayhf_tpu_torch.pallas_ray as TR
+    from pyrayhf_tpu_torch import synthesize_oblique_ionogram_2d
+    z, x = np.linspace(0.0, 400.0, 101), np.linspace(0.0, 2000.0, 17)
+    h = (z[:, None] - 250.0) / 45.0
+    ne = 8.0e11 * (1.0 + 0.15 * (x[None, :] / x[-1] - 0.5)) * np.exp(
+        0.5 * (1.0 - h - np.exp(-h)))
+    host = [ne, np.full(ne.shape, 4.5e-5), np.full(ne.shape, 30.0)]
+
+    def call(dev):
+        t = [torch.as_tensor(a, dtype=torch.float64, device=dev)
+             for a in host]
+        return synthesize_oblique_ionogram_2d(
+            [6e6, 8e6], 800.0, x, z, *t, n_elev=24, step_km=10.0,
+            s_max_km=2500.0, engine="auto")
+
+    seen = []
+
+    @contextlib.contextmanager
+    def record(name):
+        seen.append("+" + name.removeprefix("pyrayhf."))
+        yield
+        seen.append("-" + name.removeprefix("pyrayhf."))
+
+    for mod in (U, OB, TR):
+        monkeypatch.setattr(mod, "span", record)
+    TR.reset_counters()
+    on = call(cuda)
+    torch.cuda.synchronize()
+    assert TR.LAUNCHES["fan_2d"] == 1 and TR.PLAIN_CALLS["fan_2d"] == 0
+    assert seen == ["+oblique", "+fan_fields", "-fan_fields", "+fan_pack",
+                    "-fan_pack", "+fan_launch", "+host_read", "-host_read",
+                    "-fan_launch", "+homing", "-homing", "-oblique"]
+    monkeypatch.undo()
+    cpu = call("cpu")
+    assert torch.isfinite(cpu["delay_low_sec"]).any()
+    for k in ("fan_range_km", "fan_delay_sec", "delay_low_sec",
+              "delay_high_sec", "absorption_low_db"):
+        torch.testing.assert_close(on[k].cpu(), cpu[k], rtol=1e-8,
+                                   atol=1e-12, equal_nan=True)
+
+
 def test_fan_kernel_on_a_two_node_x_axis(cuda):
     """An x axis of 2 nodes (one cell across; the JAX package's kernel
     clamps the cell index to it too), on both of the kernel's paths: the
@@ -863,7 +919,8 @@ def test_jacfwd_of_jacfwd_through_kernel_2(cuda):
 
 def test_spans_of_one_auto_call_on_the_card(cuda, tmp_path):
     """One ``engine="auto"`` call, f64, under ``torch.profiler`` (CPU and
-    CUDA): one each of the operator's five spans; the kernel launched
+    CUDA): one each of the vertical operator's five spans (and none of
+    the 2-D oblique path's); the kernel launched
     inside ``pyrayhf.launch`` (its runtime call matched to the
     ``gather_kernel`` device event by correlation id); every other
     device op launched inside ``pyrayhf.route`` or ``pyrayhf.prep``; the
@@ -872,6 +929,8 @@ def test_spans_of_one_auto_call_on_the_card(cuda, tmp_path):
 
     from pyrayhf_tpu_torch.forward import vertical_forward_operator_batch
     from pyrayhf_tpu_torch.profiling import SPANS
+    vertical = ("pyrayhf.forward", "pyrayhf.route", "pyrayhf.prep",
+                "pyrayhf.launch", "pyrayhf.host_read")
     args = [torch.as_tensor(a, dtype=torch.float64, device=cuda)
             for a in _case(False)]
     off = vertical_forward_operator_batch(*args, mode="O")
@@ -893,7 +952,8 @@ def test_spans_of_one_auto_call_on_the_card(cuda, tmp_path):
         if e.get("cat") == "user_annotation" and e["name"] in SPANS:
             spans.setdefault(e["name"], []).append(
                 (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
-    assert {k: len(v) for k, v in spans.items()} == dict.fromkeys(SPANS, 1)
+    assert {k: len(v) for k, v in spans.items()} == dict.fromkeys(
+        vertical, 1)
     launch_at = {e["args"]["correlation"]: float(e["ts"]) for e in events
                  if e.get("cat") in ("cuda_runtime", "cuda_driver")
                  and "correlation" in e.get("args", {})}

@@ -1,12 +1,15 @@
-"""The operator's spans (``pyrayhf_tpu_torch.profiling.span``) on the CPU.
+"""The program's spans (``pyrayhf_tpu_torch.profiling.span``) on the CPU.
 
 With the profiler off a span is one shared no-op; with it on, a call of
 ``vertical_forward_operator_batch`` records ``pyrayhf.forward`` around its
-``pyrayhf.route`` and, on the kernel engines, ``pyrayhf.prep``. Neither
-moves a bit of the output, under ``torch.func`` transforms too. The port
-is held against itself here, at a toy size (B = 2, 48 nodes, 8
-frequencies); the card's spans (``pyrayhf.launch``, ``pyrayhf.host_read``)
-are checked in ``tests/test_torch_gpu_kernels.py``.
+``pyrayhf.route`` and, on the kernel engines, ``pyrayhf.prep``, and a call
+of ``synthesize_oblique_ionogram_2d`` records ``pyrayhf.oblique`` around
+``pyrayhf.fan_fields``, ``pyrayhf.fan_pack``, ``pyrayhf.fan_launch`` and
+``pyrayhf.homing``. None moves a bit of the output, under ``torch.func``
+transforms too. The port is held against itself here, at a toy size (B =
+2, 48 nodes, 8 frequencies; a 41 × 20 slice); the card's spans
+(``pyrayhf.launch``, ``pyrayhf.host_read``, the fan kernel's launch) are
+checked in ``tests/test_torch_gpu_kernels.py``.
 """
 
 import contextlib
@@ -117,6 +120,55 @@ def test_transforms_through_the_gather_entry_with_the_profiler_on(transform):
         on = run()
     assert torch.isfinite(off).any()
     assert torch.equal(_bits(on), _bits(off))
+
+
+def _oblique_call(engine):
+    """A toy 2-D oblique ionogram on CPU tensors: a 41 × 20 Chapman slice
+    with a horizontal gradient, 2 frequencies × 12 elevations, 50 steps;
+    the 600 km link homes at both."""
+    from pyrayhf_tpu_torch.oblique import synthesize_oblique_ionogram_2d
+    z, x = np.linspace(0.0, 600.0, 41), np.linspace(0.0, 3800.0, 20)
+    h = (z[:, None] - 280.0) / 50.0
+    ne = (1e12 * (1.0 + 0.2 * x[None, :] / x[-1])
+          * np.exp(0.5 * (1.0 - h - np.exp(-h))))
+    t = [torch.as_tensor(a, dtype=torch.float64)
+         for a in (ne, np.full_like(ne, 4.5e-5), np.full_like(ne, 60.0))]
+    return synthesize_oblique_ionogram_2d(
+        np.array([5e6, 8e6]), 600.0, x, z, *t, n_elev=12, step_km=30.0,
+        s_max_km=1500.0, engine=engine)
+
+
+@pytest.mark.parametrize("engine", ["pallas", "xla"])
+def test_oblique_outputs_bit_identical_with_the_profiler_on_and_off(engine):
+    off = _oblique_call(engine)
+    on, _ = _traced(lambda: _oblique_call(engine))
+    assert torch.isfinite(off["delay_low_sec"]).any()
+    assert set(on) == set(off)
+    for k in off:
+        assert torch.equal(_bits(on[k]), _bits(off[k])), k
+
+
+def test_spans_of_one_cpu_oblique_call():
+    """The 2-D oblique ionogram through the fan kernel's plain version:
+    the fields, the tables, the fan (the plain version stands in for the
+    launch) and the homing, one span each and in that order, inside
+    ``pyrayhf.oblique``; CPU tensors read nothing from a card."""
+    from pyrayhf_tpu_torch import pallas_ray
+    pallas_ray.reset_counters()
+    out, events = _traced(lambda: _oblique_call("pallas"))
+    assert pallas_ray.PLAIN_CALLS["fan_2d"] == 1
+    assert torch.isfinite(out["fan_range_km"]).any()
+    ours = [e for e in events if e.name.startswith("pyrayhf.")]
+    inner = ("pyrayhf.fan_fields", "pyrayhf.fan_pack", "pyrayhf.fan_launch",
+             "pyrayhf.homing")
+    assert sorted(e.name for e in ours) == sorted(
+        ("pyrayhf.oblique",) + inner)
+    rng = {e.name: (e.time_range.start, e.time_range.end) for e in ours}
+    lo, hi = rng["pyrayhf.oblique"]
+    for k in inner:
+        assert lo <= rng[k][0] <= rng[k][1] <= hi
+    for a, b in zip(inner, inner[1:]):
+        assert rng[a][1] <= rng[b][0]
 
 
 def test_spans_are_the_ones_perf_md_documents():
