@@ -268,6 +268,13 @@ LM_CPU_RTOL = 1e-8
 # elevations 5-85 deg, 2,000 RK4 steps of 2 km
 FAN_F, FAN_E, FAN_STEP, FAN_SMAX = 64, 128, 2.0, 4000.0
 FAN_SOURCE = "pyrayhf_tpu_torch/csrc/fan2d.cu"
+FAN_TABLES_SOURCE = "pyrayhf_tpu_torch/csrc/fan_tables.cu"
+# operations per (frequency, node) of csrc/fan_tables.cu, each add,
+# multiply, division, root and comparison as one (its source note's
+# count): X and Y 2, the Appleton-Hartree mu ~26, mu' ~35, kappa ~12, the
+# two gradients ~12, mu again on the tile's halo ~9 (80 halo nodes a
+# 256-node tile, mu alone)
+FAN_TABLE_OPS = 96
 FAN_REPLACES = "pyrayhf_tpu/pallas_ray.py:130"
 # f64 kernel vs f64 plain: the JAX package's own bound for the kernel
 # against the scan fan (tests/test_pallas_ray.py:58)
@@ -758,7 +765,8 @@ def compare(name, out, ref, tol, degenerate, masks_equal, excused=None):
 
 def fan_phase(torch, prt, dev, card, sass):
     """The 2-D oblique slice: main path (counted), kernel against plain
-    version, timing. Returns the kernels-line entry of ``fan_2d``."""
+    version, timing. Returns the kernels-line entries of ``fan_tables`` and
+    ``fan_2d``."""
     from pyrayhf_tpu_torch import oblique, profiling
     from pyrayhf_tpu_torch import pallas_ray as pr
 
@@ -796,7 +804,9 @@ def fan_phase(torch, prt, dev, card, sass):
     print(f"fan main path: {main_s:.3f} s wall; kernel launches {launches}; "
           f"plain-version calls {plain}", flush=True)
     check(launches["fan_2d"] >= 9, f"fan kernel launches {launches}")
-    check(plain["fan_2d"] == 0, f"fan plain versions ran: {plain}")
+    check(launches["fan_tables"] == launches["fan_2d"],
+          f"fan table kernel launches {launches}")
+    check(sum(plain.values()) == 0, f"fan plain versions ran: {plain}")
     for name, (syn, fan) in outs.items():
         _, _, _, hops, rng_km, ground = FAN_CASES[name]
         fr = syn["fan_range_km"].cpu().numpy()
@@ -1135,8 +1145,10 @@ def fan_phase(torch, prt, dev, card, sass):
           f"fields {fields_ms:.4f} ms and table packing {pack_ms:.4f} ms; "
           f"plain version once (f32, above): {plain_ms:.1f} ms "
           f"({FAN_F * FAN_E / (plain_ms * 1e-3):.4e} rays/s)", flush=True)
+    tables = fan_tables_timing(torch, pr, oblique, profiling, dev, card, sass,
+                               f0s, launches["fan_tables"])
     r = rows["typical_cart"]
-    return {
+    return tables, {
         "name": "fan_2d", "route": "cuda", "source": FAN_SOURCE,
         "replaces": FAN_REPLACES, "launches": launches["fan_2d"],
         "max_abs_err": max(err64), "tol": {"rtol": FAN_RTOL,
@@ -1157,6 +1169,109 @@ def fan_phase(torch, prt, dev, card, sass):
             for k, v in rows.items()},
         "shape": f"F={FAN_F} E={FAN_E} steps={n_steps} 512x32 cartesian "
                  f"f32"}
+
+
+def table_bits_differ(torch, got, want):
+    """(elements whose bits differ, NaN counting as one value; the largest
+    difference in units in the last place of ``want``)."""
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    ints = torch.int64 if got.dtype == torch.float64 else torch.int32
+    bad = (nan_g != nan_w) | (~nan_w & (got.view(ints) != want.view(ints)))
+    both = ~nan_g & ~nan_w & bad
+    ulps = 0.0
+    if both.any():
+        w = want[both]
+        ulp = (torch.nextafter(w.abs(), torch.full_like(w, np.inf))
+               - w.abs())
+        ulps = float(((got[both] - w).abs() / ulp).max())
+    return int(bad.sum()), ulps
+
+
+def fan_tables_timing(torch, pr, oblique, profiling, dev, card, sass, f0s,
+                      main_launches):
+    """``csrc/fan_tables.cu`` at the benchmark cell's shape (F = 64, 621 x
+    800): its table against ``pack_tables`` of ``_fan_fields``, bit for
+    bit in f64 (O and X, Cartesian and spherical) and in f32 (O,
+    Cartesian), then its time beside theirs, its bound (the table written
+    once, the slice read once) and its issue time (the frequency loop's
+    longest path: its shortest is a thread with no node of the grid), f64
+    and f32. Returns the kernels-line entry of ``fan_tables``."""
+    z, x, ne, babs, bpsi, nu = fan_scene("large")
+    print(f"fan tables: the table kernel against pack_tables(_fan_fields) "
+          f"on the {len(z)} x {len(x)} slice, F={len(f0s)}; card: {card}",
+          flush=True)
+    rows = {}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        args = tuple(torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+                     for a in (f0s, ne, babs, bpsi, nu))
+        cases = ([(g, m) for g in ("cartesian", "spherical")
+                  for m in ("O", "X")] if dtype == torch.float64
+                 else [("cartesian", "O")])
+        for geom, mode in cases:
+            geo = pr.fan_geometry(z, x, geom)
+            n0 = pr.LAUNCHES["fan_tables"]
+            got = pr.fan_tables(geo, *args, mode)
+            check(pr.LAUNCHES["fan_tables"] == n0 + 1,
+                  "fan_tables did not launch the kernel")
+            want = pr.pack_tables(geo, *oblique._fan_fields(*args, mode))
+            bad, ulps = table_bits_differ(torch, got, want)
+            nan_mu = int(torch.isnan(pr.table_views(geo, want)[0][..., 0])
+                         .sum())
+            del got, want
+            print(f"  {dname} {geom} {mode}: {bad} of "
+                  f"{5 * len(f0s) * geo.nz * geo.nx} table elements differ "
+                  f"in their bits (largest "
+                  f"{ulps:.1f} ulp); NaN-mu nodes {nan_mu}", flush=True)
+            check(bad == 0,
+                  f"fan tables {dname} {geom} {mode}: {bad} elements differ")
+            rows.setdefault(dname, {})[f"{geom}_{mode}_bits_differ"] = bad
+            rows[dname][f"{geom}_{mode}_max_ulp"] = ulps
+        geo = pr.fan_geometry(z, x, "cartesian")
+
+        def kernel():
+            return pr.launch_fan_tables(geo, *args, "O")
+
+        k_ms, _ = profiling.time_launch(kernel, iters=TIMING_ITERS)
+        f_ms, _ = profiling.time_launch(oblique._fan_fields, *args, "O",
+                                        iters=TIMING_ITERS)
+        fields = oblique._fan_fields(*args, "O")
+        p_ms, _ = profiling.time_launch(pr.pack_tables, geo, *fields,
+                                        iters=TIMING_ITERS)
+        del fields
+        n = len(f0s) * geo.nz * geo.nx
+        item = args[1].element_size()
+        b_ms, b_by = bound_ms(n * FAN_TABLE_OPS,
+                              item * (5 * n + 3 * geo.nz * geo.nx + geo.nz
+                                      + len(f0s)), dname)
+        loop = main_loop(sass_function(
+            f"fan_tables_kernel<{'double' if item == 8 else 'float'}, "
+            f"(bool)0>", sass), "RSQ")
+        # every warp of a tile runs each frequency of its chunk once
+        warp_iters = (-(-geo.nx // 32)) * (-(-geo.nz // 8)) * 8 * len(f0s)
+        clock = sm_clock_under(torch, kernel)
+        i_ms = issue_ms(torch, dev, loop["longest"] * warp_iters, clock)
+        torch.cuda.empty_cache()
+        rows[dname].update(ms=k_ms, fields_ms=f_ms, pack_ms=p_ms,
+                           plain_ms=f_ms + p_ms, bound_ms=b_ms,
+                           bound_by=b_by, issue_ms=i_ms, sm_clock_mhz=clock,
+                           loop_instructions=loop["longest"])
+        print(f"  {dname} O cartesian: kernel {k_ms:.4f} ms; _fan_fields "
+              f"{f_ms:.4f} ms + pack_tables {p_ms:.4f} ms; bound "
+              f"{b_ms:.4f} ms ({b_by}); issue {i_ms:.4f} ms "
+              f"({loop['longest']} instructions a frequency on the longest "
+              f"path x {warp_iters} warp iterations at {clock} MHz)",
+              flush=True)
+    r = rows["float64"]
+    return {"name": "fan_tables", "route": "cuda",
+            "source": FAN_TABLES_SOURCE, "replaces": None,
+            "launches": main_launches, "bits_differ_f64": sum(
+                v for k, v in r.items() if k.endswith("_bits_differ")),
+            "f32": rows["float32"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "fields_ms": r["fields_ms"], "pack_ms": r["pack_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "issue_ms": r["issue_ms"], "sm_clock_mhz": r["sm_clock_mhz"], "library_ms": None,
+            "shape": f"F={len(f0s)} 621x800 f64"}
 
 
 def segment_table_timing(torch, pv, profiling, dev, card, prof, alt):
@@ -3667,7 +3782,7 @@ def main():
           f"{card_state()}", flush=True)
 
     # ---- 7. the 2-D oblique fan ----------------------------------------
-    fan_entry = fan_phase(torch, prt, dev, card, sass)
+    fan_tables_entry, fan_entry = fan_phase(torch, prt, dev, card, sass)
     print(f"card state after the fan phase (clocks.sm, power.draw, temp): "
           f"{card_state()}", flush=True)
 
@@ -3746,6 +3861,7 @@ def main():
     fan_entry["launches_ad_phase"] = ad_launches["fan_2d"]
     kernels.append(mxu_entry)
     kernels.append(fan_entry)
+    kernels.append(fan_tables_entry)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

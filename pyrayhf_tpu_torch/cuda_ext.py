@@ -160,6 +160,12 @@ def load():
                 p, i, i, i, i,         # alt, B, N, C, ld
                 p, p]                  # tab, stream
             lib.pyrayhf_segment_table.restype = ctypes.c_int
+            lib.pyrayhf_fan_tables.argtypes = [
+                i, i, p, p, p, p, p,   # dtype, X, ne, babs, bpsi, nu, f0s
+                i, i, i,               # F, nz, nx
+                ctypes.POINTER(d),     # 13 scalars (see csrc/fan_tables.cu)
+                p, p, p]               # flag, tab, stream
+            lib.pyrayhf_fan_tables.restype = ctypes.c_int
             lib.pyrayhf_error_string.argtypes = [ctypes.c_int]
             lib.pyrayhf_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -16,11 +16,14 @@ Conventions (as the JAX module):
 * frequencies whose fan never reaches the target range (above the link
   MUF) return NaN — the nose of the oblique ionogram.
 
-The fan runs on the CUDA fan kernel (``csrc/fan2d.cu``, through
-:func:`pyrayhf_tpu_torch.pallas_ray.fan_2d_pallas`) for CUDA tensors on
-uniform grids, and on the plain gradient-ODE fan of :mod:`.gradient`
-otherwise (``engine="auto"``). The Snell fan is plain PyTorch, as it is
-XLA code in the JAX package.
+The fan runs on the CUDA fan kernel (``csrc/fan2d.cu``) for CUDA tensors
+on uniform grids, its tables written from the slice by
+``csrc/fan_tables.cu``
+(:func:`pyrayhf_tpu_torch.pallas_ray.fan_from_slice`; under
+``torch.func`` transforms the fields go through
+:func:`pyrayhf_tpu_torch.pallas_ray.fan_2d_pallas`), and on the plain
+gradient-ODE fan of :mod:`.gradient` otherwise (``engine="auto"``). The
+Snell fan is plain PyTorch, as it is XLA code in the JAX package.
 """
 
 import math
@@ -282,7 +285,10 @@ def _fan_2d_fn(z_np, x_np, mode, geometry, n_elev, n_steps, n_hops,
     Returns ``fan(f0s, elev_lims, Ne2d, Babs2d, bpsi2d, nu_z, step_km,
     device=None)`` → (range, delay, absorption, group path, phase path)
     each [F, E], and the elevations [E]. The fields are
-    :func:`_fan_fields`. Their dtype and device
+    :func:`_fan_fields`; the kernel engine takes its tables straight from
+    the slice (:func:`pyrayhf_tpu_torch.pallas_ray.fan_from_slice`; under
+    ``torch.func`` it builds the fields, folds ``vmap`` and refuses
+    derivatives). Their dtype and device
     are those of ``Ne2d`` (host data: the CUDA card unless ``device``
     says otherwise); ``engine="auto"`` resolves on that device at call
     time, an invalid engine raises here.
@@ -302,16 +308,16 @@ def _fan_2d_fn(z_np, x_np, mode, geometry, n_elev, n_steps, n_hops,
         f0s = f0s.reshape(-1)
         eng = _resolve_fan_engine(engine, z64, x64, Ne2d.device.type)
         elevs = _linspace(elev_lims[0], elev_lims[1], int(n_elev))
-        mu_f, mup_f, kappa_f = _fan_fields(f0s, Ne2d, Babs2d, bpsi2d, nu_z,
-                                           mode)
         if eng == "pallas":
-            from .pallas_ray import fan_2d_pallas
-            out = fan_2d_pallas(z64, x64, mu_f, mup_f, kappa_f, elevs,
-                                step_km, geometry=geometry, n_steps=n_steps,
-                                n_hops=n_hops, x0=0.0, z0=float(z64[0]))
+            from .pallas_ray import fan_from_slice
+            out = fan_from_slice(z64, x64, f0s, Ne2d, Babs2d, bpsi2d, nu_z,
+                                 mode, elevs, step_km, geometry=geometry,
+                                 n_steps=n_steps, n_hops=n_hops, x0=0.0,
+                                 z0=float(z64[0]))
         else:
-            out = _xla_fan(z64, x64, geometry, mu_f, mup_f, kappa_f, elevs,
-                           step_km, n_steps, n_hops)
+            out = _xla_fan(z64, x64, geometry, *_fan_fields(
+                f0s, Ne2d, Babs2d, bpsi2d, nu_z, mode), elevs, step_km,
+                n_steps, n_hops)
         return (out["ground_range_km"], out["group_delay_sec"],
                 out["absorption_db"], out["group_path_km"],
                 out["phase_path_km"], elevs)

@@ -12,11 +12,19 @@ them there (:func:`fan_path`).
 * :func:`pack_tables` builds those tables from the [F, nz, nx] fields, the
   gradients taken on the uniform axes rebuilt from origin and spacing, as
   the JAX host side does;
+* :func:`fan_tables` builds them straight from the slice (Ne, |B|, ψ, ν):
+  on CUDA tensors ``csrc/fan_tables.cu`` (:func:`launch_fan_tables`)
+  writes them with no [F, nz, nx] field in device memory, on CPU tensors
+  :func:`pack_tables` of the oblique fields;
 * :func:`plain_fan` is the kernel's plain PyTorch version: the batched
   fixed-step fan of :mod:`.gradient` over the same packed tables;
-* :func:`launch_fan` launches the kernel;
+* :func:`launch_fan` launches the kernel, :func:`run_fan` runs it (or
+  its plain version on CPU tensors) on packed tables;
 * :func:`fan_2d_pallas` (the JAX signature) runs the kernel on CUDA
-  tensors and the plain version on CPU tensors, and raises otherwise.
+  tensors and the plain version on CPU tensors, and raises otherwise;
+* :func:`fan_from_slice` runs it from the slice: :func:`fan_tables` then
+  :func:`run_fan`, or under ``torch.func`` the fields through
+  :func:`fan_2d_pallas`.
 
 ``LAUNCHES`` and ``PLAIN_CALLS`` count kernel launches and plain calls.
 The kernel has no backward (the TPU kernel had no autodiff rule either):
@@ -30,6 +38,7 @@ allocator's ``torch.cuda.OutOfMemoryError``.
 
 import ctypes
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -42,11 +51,13 @@ from .fields import RefractiveField, _mup_function, gradient_ord2, \
 from .profiling import span
 
 __all__ = ["fan_2d_pallas", "fan_2d_pallas_available", "plain_fan",
-           "launch_fan", "pack_tables", "table_views", "fan_path",
-           "fan_geometry", "OUTPUTS", "LAUNCHES", "PLAIN_CALLS",
-           "reset_counters"]
+           "launch_fan", "run_fan", "pack_tables", "fan_tables",
+           "launch_fan_tables", "fan_from_slice", "table_views", "fan_path", "fan_geometry",
+           "OUTPUTS", "LAUNCHES", "PLAIN_CALLS", "reset_counters"]
 
-KERNELS = ("fan_2d",)
+# "fan_tables" (csrc/fan_tables.cu) writes the fan kernel's tables from
+# the slice on the card; its plain version is pack_tables of the fields
+KERNELS = ("fan_2d", "fan_tables")
 LAUNCHES = dict.fromkeys(KERNELS, 0)
 PLAIN_CALLS = dict.fromkeys(KERNELS, 0)
 
@@ -155,6 +166,93 @@ def pack_tables(geo, mu_f, mup_f, kappa_f):
         torch.stack([mu_f, g0, g1, mup_f], dim=-1, out=rec)
         kap.copy_(kappa_f)
         return tab
+
+
+def fan_tables(geo, f0s, Ne2d, Babs2d, bpsi2d, nu_z, mode):
+    """The kernel's tables straight from the slice: ``pack_tables(geo,
+    *oblique._fan_fields(f0s, Ne2d, Babs2d, bpsi2d, nu_z, mode))``.
+
+    ``f0s`` [F] (Hz), ``Ne2d``, ``Babs2d``, ``bpsi2d`` [nz, nx] (ψ in
+    degrees) and ``nu_z`` [nz] of one dtype and device. CUDA tensors take
+    :func:`launch_fan_tables` (the same tensor bit for bit), CPU tensors
+    that composition, counted in ``PLAIN_CALLS["fan_tables"]``.
+    """
+    if Ne2d.device.type == "cuda":
+        return launch_fan_tables(geo, f0s, Ne2d, Babs2d, bpsi2d, nu_z, mode)
+    from .oblique import _fan_fields
+    PLAIN_CALLS["fan_tables"] += 1
+    return pack_tables(geo, *_fan_fields(f0s, Ne2d, Babs2d, bpsi2d, nu_z,
+                                         mode))
+
+
+def _fan_table_scalars(geo):
+    """The 13 doubles of ``csrc/fan_tables.cu``'s C entry: the axes, then
+    the constants as ``magnetoionic`` and ``absorption_coefficient`` form
+    them in Python before a tensor sees them, then ``find_mu_mup``'s
+    y_tol."""
+    from .absorption import _DB_PER_NP
+    from .constants import C_KM_S, CP, G_P
+    from .magnetoionic import find_mu_mup
+    y_tol = find_mu_mup.__kwdefaults__["y_tol"]
+    return (ctypes.c_double * 13)(
+        geo.o0, geo.inv_d0, geo.o1, geo.inv_d1, CP, G_P, math.pi / 180.0,
+        2.0 * math.pi, (2.0 * math.pi * CP) ** 2, 2.0 * math.pi * G_P,
+        2.0 * (C_KM_S * 1e3), _DB_PER_NP, y_tol)
+
+
+def launch_fan_tables(geo, f0s, Ne2d, Babs2d, bpsi2d, nu_z, mode):
+    """Launch ``csrc/fan_tables.cu``: :func:`fan_tables`' tensor in one
+    pass on the card, after a flag kernel that decides the unmagnetised
+    branch over every (frequency, node) as ``find_mu_mup`` does.
+
+    Checks device, dtype and shapes (the kernel reads raw pointers, so no
+    ``torch.func`` transform and no derivative either), launches on the
+    current stream and raises on any CUDA error the launch reports. The
+    allocation is the ``pyrayhf.fan_pack`` span, the launch the
+    ``pyrayhf.fan_fields`` span.
+    """
+    from .magnetoionic import mode_multiplier
+
+    x_mode = mode_multiplier(mode) < 0
+    ins = (f0s, Ne2d, Babs2d, bpsi2d, nu_z)
+    dtype, dev = Ne2d.dtype, Ne2d.device
+    if dev.type != "cuda":
+        raise ValueError(f"the CUDA kernel needs CUDA tensors, got {dev}")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"unsupported dtype {dtype}")
+    if any(t.dtype != dtype or t.device != dev for t in ins):
+        raise ValueError("the slice, ν and the frequencies must share dtype "
+                         "and device")
+    if _transformed(*ins):
+        raise ValueError("the table kernel has no derivative and no "
+                         "batching rule; use oblique._fan_fields and "
+                         "pack_tables under transforms")
+    shape = (geo.nz, geo.nx)
+    if (any(t.shape != shape for t in (Ne2d, Babs2d, bpsi2d))
+            or nu_z.shape != (geo.nz,) or f0s.dim() != 1
+            or f0s.numel() == 0 or geo.nz < 2 or geo.nx < 2):
+        raise ValueError(f"bad fan inputs for a {geo.nz}x{geo.nx} grid: "
+                         f"{[tuple(t.shape) for t in ins]}")
+    f0s, Ne2d, Babs2d, bpsi2d, nu_z = (t.contiguous() for t in ins)
+    F = f0s.numel()
+    with span("pyrayhf.fan_pack"):
+        tab = torch.empty(_CHANNELS * F * geo.nz * geo.nx, dtype=dtype,
+                          device=dev)
+    with span("pyrayhf.fan_fields"):
+        flag = torch.empty(1, dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = cuda_ext.load().pyrayhf_fan_tables(
+                0 if dtype == torch.float32 else 1, int(x_mode),
+                Ne2d.data_ptr(), Babs2d.data_ptr(), bpsi2d.data_ptr(),
+                nu_z.data_ptr(), f0s.data_ptr(), F, geo.nz, geo.nx,
+                _fan_table_scalars(geo), flag.data_ptr(), tab.data_ptr(),
+                stream)
+    if err != 0:
+        raise RuntimeError(f"fan table kernel launch failed: "
+                           f"{cuda_ext.error_string(err)} ({err})")
+    LAUNCHES["fan_tables"] += 1
+    return tab
 
 
 def table_views(geo, tab):
@@ -319,6 +417,23 @@ def _differentiated(t):
     return False
 
 
+def _transformed(*ts):
+    """True under a ``torch.func`` transform or where a derivative follows
+    one of ``ts`` (:func:`_differentiated`): a kernel that reads raw
+    pointers would drop it."""
+    return (torch._C._are_functorch_transforms_active()
+            or any(_differentiated(t) for t in ts))
+
+
+def _refuse_derivatives(*ts):
+    """Raise where a derivative follows one of ``ts``: the fan kernel has
+    none (a ``vmap`` level alone passes)."""
+    if any(_differentiated(t) for t in ts):
+        raise ValueError("the fan kernel has no backward and no forward-"
+                         "mode rule; use engine='xla' of the oblique fan "
+                         "for derivatives")
+
+
 def fan_2d_pallas(z_np, x_np, mu_f, mup_f, kappa_f, elevs, ds, *,
                   geometry="cartesian", n_steps, n_hops=1, x0=0.0,
                   z0=None, interpret=False):
@@ -339,27 +454,58 @@ def fan_2d_pallas(z_np, x_np, mu_f, mup_f, kappa_f, elevs, ds, *,
     if dev.type == "cuda" and interpret:
         raise ValueError("interpret=True has no meaning for a CUDA kernel; "
                          "pass CPU tensors to run the plain version")
-    if any(_differentiated(t) for t in (mu_f, mup_f, kappa_f, elevs, ds)):
-        raise ValueError("the fan kernel has no backward and no forward-"
-                         "mode rule; use engine='xla' of the oblique fan "
-                         "for derivatives")
+    transformed = _transformed(mu_f, mup_f, kappa_f, elevs, ds)
+    if transformed:
+        _refuse_derivatives(mu_f, mup_f, kappa_f, elevs, ds)
     dtype = mu_f.dtype
     args = (fan_geometry(z_np, x_np, geometry),
             dict(n_steps=int(n_steps), n_hops=int(n_hops), x0=x0, z0=z0),
             mu_f, mup_f.to(dtype), kappa_f.to(dtype),
             torch.as_tensor(elevs).to(dtype=dtype, device=dev),
             torch.as_tensor(ds).to(dtype=dtype, device=dev))
-    if torch._C._are_functorch_transforms_active():
+    if transformed:
         return dict(zip(OUTPUTS, _FanKernel.apply(*args).unbind(0)))
     return _fan(*args)
 
 
+def fan_from_slice(z_np, x_np, f0s, Ne2d, Babs2d, bpsi2d, nu_z, mode, elevs,
+                   ds, *, geometry="cartesian", n_steps, n_hops=1, x0=0.0,
+                   z0=None):
+    """The [F, E] fan of one slice (``Ne2d``, ``Babs2d``, ``bpsi2d`` [nz,
+    nx], ψ in degrees, ``nu_z`` [nz]) at the frequencies ``f0s`` [F], the
+    grids and keywords as :func:`fan_2d_pallas`'s: :func:`fan_tables` then
+    :func:`run_fan`, so no [F, nz, nx] field reaches device memory on CUDA
+    tensors. Under a ``torch.func`` transform (:func:`_transformed`)
+    derivatives raise before any field is built, and ``vmap`` takes
+    ``oblique._fan_fields`` through :func:`fan_2d_pallas`'s fold: the plain
+    table build on any device, counted in ``PLAIN_CALLS["fan_tables"]``.
+    """
+    from .oblique import _fan_fields
+    ins = (f0s, Ne2d, Babs2d, bpsi2d, nu_z, elevs, ds)
+    kw = dict(n_steps=n_steps, n_hops=n_hops, x0=x0, z0=z0)
+    if _transformed(*ins):
+        _refuse_derivatives(*ins)
+        PLAIN_CALLS["fan_tables"] += 1
+        return fan_2d_pallas(z_np, x_np, *_fan_fields(
+            f0s, Ne2d, Babs2d, bpsi2d, nu_z, mode), elevs, ds,
+            geometry=geometry, **kw)
+    geo = fan_geometry(z_np, x_np, geometry)
+    return run_fan(geo, fan_tables(geo, f0s, Ne2d, Babs2d, bpsi2d, nu_z,
+                                   mode), elevs, ds, **kw)
+
+
 def _fan(geo, kw, mu_f, mup_f, kappa_f, elevs, ds):
-    """Pack the tables; the kernel on CUDA tensors, its plain version on
-    CPU tensors (there the ``pyrayhf.fan_launch`` span holds it)."""
-    tab = pack_tables(geo, mu_f, mup_f, kappa_f)
+    """Pack the tables and run the fan on them (:func:`run_fan`)."""
+    return run_fan(geo, pack_tables(geo, mu_f, mup_f, kappa_f), elevs, ds,
+                   **kw)
+
+
+def run_fan(geo, tab, elevs, ds, **kw):
+    """The fan on packed tables: the kernel on CUDA tensors, its plain
+    version on CPU tensors (there the ``pyrayhf.fan_launch`` span holds
+    it). ``kw``: :func:`launch_fan`'s keywords."""
     elevs = elevs.contiguous()
-    if mu_f.device.type == "cuda":
+    if tab.device.type == "cuda":
         return launch_fan(geo, tab, elevs, ds, **kw)
     with span("pyrayhf.fan_launch"):
         return plain_fan(geo, tab, elevs, ds, **kw)

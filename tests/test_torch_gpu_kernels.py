@@ -660,9 +660,10 @@ def test_fan_wrapper_on_the_card(cuda):
 def test_oblique_entry_on_the_card_launches_once_and_reads_once(
         cuda, monkeypatch):
     """``synthesize_oblique_ionogram_2d(engine="auto")`` in f64 on CUDA
-    tensors at a small slice: one fan-kernel launch and no plain version;
-    its spans, recorded by a stand-in for ``profiling.span``, are the
-    fields, the tables, the launch with the path's one
+    tensors at a small slice: one table-kernel and one fan-kernel launch
+    and no plain version; its spans, recorded by a stand-in for
+    ``profiling.span``, are the tables (their allocation), the fields (the
+    table kernel's launch), the launch with the path's one
     ``pyrayhf.host_read`` (the step's read) inside it, and the homing, in
     that order, inside ``pyrayhf.oblique``; the outputs within 1e-8
     relative of the plain version's on the CPU. (No profiler session
@@ -700,9 +701,10 @@ def test_oblique_entry_on_the_card_launches_once_and_reads_once(
     TR.reset_counters()
     on = call(cuda)
     torch.cuda.synchronize()
-    assert TR.LAUNCHES["fan_2d"] == 1 and TR.PLAIN_CALLS["fan_2d"] == 0
-    assert seen == ["+oblique", "+fan_fields", "-fan_fields", "+fan_pack",
-                    "-fan_pack", "+fan_launch", "+host_read", "-host_read",
+    assert TR.LAUNCHES == {"fan_2d": 1, "fan_tables": 1}
+    assert sum(TR.PLAIN_CALLS.values()) == 0
+    assert seen == ["+oblique", "+fan_pack", "-fan_pack", "+fan_fields",
+                    "-fan_fields", "+fan_launch", "+host_read", "-host_read",
                     "-fan_launch", "+homing", "-homing", "-oblique"]
     monkeypatch.undo()
     cpu = call("cpu")
@@ -765,6 +767,218 @@ def test_fan_kernel_on_more_frequencies_than_a_grid_row(cuda):
     for key in TR.OUTPUTS:
         assert torch.allclose(k[key], p[key], rtol=1e-8, atol=1e-10,
                               equal_nan=True), key
+
+
+# ---- the fan's tables from the slice (csrc/fan_tables.cu) ---------------
+
+def _bits_equal(a, b):
+    """Bit for bit, a NaN counting as one value whatever its payload."""
+    ints = torch.int64 if a.dtype == torch.float64 else torch.int32
+    na, nb = torch.isnan(a), torch.isnan(b)
+    return (torch.equal(na, nb)
+            and torch.equal(a.view(ints)[~na], b.view(ints)[~nb]))
+
+
+def _table_slice(nz, nx, dtype, babs="earth", seed=0):
+    """Host grids (0-400 km x 0-2,000 km) and the table kernel's inputs on
+    the card: a Chapman layer with a seeded tilt along x and free space on
+    the ground row, ψ over the whole circle node by node, ν(z), and 4
+    frequencies 2-12 MHz, the last at one node's plasma frequency (X = 1
+    exactly there). ``babs``: "earth" (20-60 µT node by node); "zero"
+    (|B| = 0); "tiny" (0 but one node at 1e-19 T: |Y| <= 1.4e-15 at every
+    frequency); "tiny_one" (the same, the first frequency 1 Hz: |Y| >=
+    1e-12 at that frequency and node alone); "nan_some" (0 but one NaN
+    node); "all_nan"."""
+    rng = np.random.default_rng(seed)
+    z, x = np.linspace(0.0, 400.0, nz), np.linspace(0.0, 2000.0, nx)
+    h = (z[:, None] - 250.0) / 45.0
+    ne = 8e11 * (1 + 0.3 * rng.uniform(-1, 1, (1, nx))) * np.exp(
+        0.5 * (1 - h - np.exp(-h)))
+    ne[0] = 0.0
+    bm = rng.uniform(2e-5, 6e-5, (nz, nx))
+    if babs != "earth":
+        bm[:] = np.nan if babs == "all_nan" else 0.0
+        bm[nz // 2, nx // 2] = np.nan if babs == "nan_some" else (
+            1e-19 if babs.startswith("tiny") else bm[0, 0])
+    t = [torch.as_tensor(a, dtype=dtype, device="cuda")
+         for a in (np.linspace(2e6, 12e6, 4), ne, bm,
+                   rng.uniform(-180.0, 180.0, (nz, nx)),
+                   1e7 * np.exp(-(z - 70.0) / 8.0))]
+    t[0][-1] = (torch.sqrt(t[1]) * 8.97866275)[nz // 2, nx // 3]
+    if babs == "tiny_one":
+        t[0][0] = 1.0
+    return z, x, t
+
+
+def _tables_both_ways(z, x, t, mode, geometry):
+    """(the kernel's table, pack_tables of _fan_fields) on the same inputs,
+    with the launch counted once and no plain version."""
+    import pyrayhf_tpu_torch.oblique as OB
+    import pyrayhf_tpu_torch.pallas_ray as TR
+    geo = TR.fan_geometry(z, x, geometry)
+    TR.reset_counters()
+    got = TR.fan_tables(geo, *t, mode)
+    assert TR.LAUNCHES["fan_tables"] == 1
+    assert sum(TR.PLAIN_CALLS.values()) == 0
+    want = TR.pack_tables(geo, *OB._fan_fields(*t, mode))
+    return geo, got, want
+
+
+# (mode, geometry, nz, nx): tiles of 8 x 32 nodes; grids no multiple of
+# them, last tiles one node deep (nz = 8k + 1, nx = 32k + 1, where the
+# edge stencils reach two nodes back), 2-node axes, the benchmark's slice
+TABLE_GRIDS = [("O", "cartesian", 13, 37), ("X", "spherical", 17, 33),
+               ("O", "spherical", 9, 65), ("X", "cartesian", 41, 70),
+               ("O", "cartesian", 2, 2), ("X", "cartesian", 2, 40),
+               ("O", "spherical", 40, 2), ("O", "cartesian", 621, 800)]
+
+
+@pytest.mark.parametrize("mode,geometry,nz,nx", TABLE_GRIDS)
+def test_fan_tables_equal_the_fields_and_pack_tables(cuda, mode, geometry,
+                                                     nz, nx):
+    """The table kernel against ``pack_tables(_fan_fields(...))`` on the
+    card, bit for bit in f64 and f32 (NaN as one value): every IEEE
+    operation in the same order, the Python constants cast as torch casts
+    them; the four edges and corners take the one-sided stencils, the
+    ground row is evanescent for mode X and free space for O, one node
+    sits at X = 1 exactly."""
+    import pyrayhf_tpu_torch.pallas_ray as TR
+    for dtype in (torch.float64, torch.float32):
+        z, x, t = _table_slice(nz, nx, dtype)
+        geo, got, want = _tables_both_ways(z, x, t, mode, geometry)
+        assert got.shape == want.shape == (5 * 4 * nz * nx,)
+        assert got.data_ptr() % 16 == 0
+        rec, kap = TR.table_views(geo, got)
+        for c in range(4):
+            assert _bits_equal(rec[..., c],
+                               TR.table_views(geo, want)[0][..., c]), (
+                dtype, c)
+        assert _bits_equal(kap, TR.table_views(geo, want)[1]), dtype
+        nan_mu = torch.isnan(rec[..., 0])
+        assert nan_mu.any() and (~nan_mu).any()
+        assert (kap[nan_mu] == 0).all() and torch.isfinite(kap).all()
+        X = (torch.sqrt(t[1]) * 8.97866275) ** 2 / t[0][-1] ** 2
+        assert (X == 1).any()
+
+
+@pytest.mark.parametrize("babs", ["zero", "tiny", "tiny_one", "nan_some",
+                                  "all_nan"])
+@pytest.mark.parametrize("mode", ["O", "X"])
+def test_fan_tables_decide_the_unmagnetised_branch_as_find_mu_mup(
+        cuda, babs, mode):
+    """The unmagnetised branch, decided on the card once over every
+    (frequency, node) as ``find_mu_mup`` decides it over [F, nz, nx]: |B|
+    = 0, or 0 with one node of 1e-19 T, takes it; one frequency of 1 Hz at
+    that node keeps the whole slice magnetised; a NaN node is left out; an
+    all-NaN |B| does not take it. The table bit for bit the composition's,
+    f64 and f32; the magnetised formula at |B| = 0 gives μ' NaN (β = 0),
+    the unmagnetised one 1/μ, so the branch shows in μ'."""
+    import pyrayhf_tpu_torch.pallas_ray as TR
+    unmag = babs in ("zero", "tiny", "nan_some")
+    for dtype in (torch.float64, torch.float32):
+        z, x, t = _table_slice(19, 45, dtype, babs)
+        geo, got, want = _tables_both_ways(z, x, t, mode, "cartesian")
+        assert _bits_equal(got, want), (dtype, babs)
+        rec = TR.table_views(geo, got)[0]
+        mu, mup = rec[..., 0], rec[..., 3]
+        lit = torch.isfinite(mu) & (mu > 0)
+        if unmag:
+            assert lit.any() and torch.isfinite(mup[lit]).all(), dtype
+        else:
+            assert not torch.isfinite(mup[lit]).all() or not lit.any(), dtype
+
+
+def test_fan_tables_refuse_what_the_kernel_cannot_take(cuda):
+    """Derivatives, a transform, mixed dtypes and wrong shapes raise before
+    any launch: the kernel reads raw pointers."""
+    import pyrayhf_tpu_torch.pallas_ray as TR
+    z, x, t = _table_slice(13, 37, torch.float64)
+    geo = TR.fan_geometry(z, x, "cartesian")
+    TR.reset_counters()
+    with pytest.raises(ValueError, match="no derivative"):
+        TR.fan_tables(geo, t[0], t[1].clone().requires_grad_(True), *t[2:],
+                      "O")
+    with pytest.raises(ValueError, match="no derivative"):
+        torch.func.vmap(lambda ne: TR.fan_tables(
+            geo, t[0], ne, *t[2:], "O"))(torch.stack([t[1], t[1]]))
+    with pytest.raises(ValueError, match="share dtype"):
+        TR.fan_tables(geo, t[0].float(), *t[1:], "O")
+    with pytest.raises(ValueError, match="bad fan inputs"):
+        TR.fan_tables(geo, t[0], t[1][:, :-1], *t[2:], "O")
+    with pytest.raises(ValueError, match="Mode"):
+        TR.fan_tables(geo, *t, "Z")
+    assert TR.LAUNCHES["fan_tables"] == 0
+
+
+@pytest.mark.parametrize("mode,geometry", [("O", "cartesian"),
+                                           ("X", "spherical")])
+def test_oblique_entry_takes_the_tables_from_the_slice(
+        cuda, monkeypatch, mode, geometry):
+    """``synthesize_oblique_ionogram_2d(engine="auto")``, f64, at a reduced
+    slice (161 x 120 nodes, 6 frequencies x 48 elevations): one table and
+    one fan launch a call, no plain version, and every output bit for bit
+    what the route through the [F, nz, nx] fields and ``fan_2d_pallas``
+    (the one ``torch.func`` transforms take) gives."""
+    import pyrayhf_tpu_torch.pallas_ray as TR
+    from pyrayhf_tpu_torch import synthesize_oblique_ionogram_2d
+    _, x, t = _table_slice(161, 120, torch.float64)
+    z = np.linspace(0.0, 640.0, 161)
+    h = (z[:, None] - 300.0) / 50.0
+    ne = torch.as_tensor(1e12 * (1.0 + 0.2 * x[None, :] / x[-1]) * np.exp(
+        0.5 * (1.0 - h - np.exp(-h))), device=cuda)
+
+    def call():
+        return synthesize_oblique_ionogram_2d(
+            np.linspace(3e6, 12e6, 6), 1000.0, x, z, ne, t[2], t[3],
+            mode=mode, geometry=geometry, n_elev=48, step_km=5.0,
+            s_max_km=3000.0, engine="auto")
+
+    TR.reset_counters()
+    new = [call() for _ in range(2)][1]
+    assert TR.LAUNCHES == {"fan_2d": 2, "fan_tables": 2}
+    assert sum(TR.PLAIN_CALLS.values()) == 0
+    monkeypatch.setattr(TR, "_transformed", lambda *ts: True)
+    TR.reset_counters()
+    old = call()
+    assert TR.LAUNCHES == {"fan_2d": 1, "fan_tables": 0}
+    assert TR.PLAIN_CALLS == {"fan_2d": 0, "fan_tables": 1}
+    assert set(new) == set(old)
+    for k in old:
+        assert _bits_equal(new[k], old[k]), k
+    assert torch.isfinite(new["delay_low_sec"]).any()
+    assert torch.isfinite(new["fan_range_km"]).any()
+
+
+def test_oblique_fan_under_vmap_on_the_card_counts_its_plain_tables(cuda):
+    """``torch.func.vmap`` of the 2-D fan over two slices on the card: the
+    tables are built by their plain version (``_fan_fields`` and
+    ``pack_tables``, counted once in ``PLAIN_CALLS["fan_tables"]``), the
+    fan kernel runs once over the folded frequencies, and each row is bit
+    for bit the unbatched call's (whose tables the table kernel writes);
+    an input that requires grad raises before any table or launch."""
+    import pyrayhf_tpu_torch.pallas_ray as TR
+    from pyrayhf_tpu_torch.oblique import _fan_2d_fn
+    z, x, t = _table_slice(41, 70, torch.float64)
+    fan = _fan_2d_fn(z, x, "O", "cartesian", 16, 200, 1, engine="auto")
+    lims = torch.tensor([5.0, 60.0], dtype=torch.float64, device=cuda)
+
+    def run(ne):
+        return torch.stack(fan(t[0], lims, ne, *t[2:], 10.0)[:5])
+
+    stack = torch.stack([t[1], 0.8 * t[1]])
+    TR.reset_counters()
+    out = torch.func.vmap(run)(stack)
+    assert TR.LAUNCHES == {"fan_2d": 1, "fan_tables": 0}
+    assert TR.PLAIN_CALLS == {"fan_2d": 0, "fan_tables": 1}
+    TR.reset_counters()
+    for v in range(2):
+        assert _bits_equal(out[v], run(stack[v])), v
+    assert TR.LAUNCHES == {"fan_2d": 2, "fan_tables": 2}
+    assert torch.isfinite(out).any()
+    TR.reset_counters()
+    with pytest.raises(ValueError, match="no backward"):
+        run(t[1].clone().requires_grad_(True))
+    assert sum(TR.LAUNCHES.values()) == sum(TR.PLAIN_CALLS.values()) == 0
 
 
 # ---- kernels 2 and 3 at the cutoffs (csrc/ionogram.cu gather_kernel) ----

@@ -263,3 +263,119 @@ def test_vmap_folds_into_one_launch():
         torch.func.vmap(lambda m: torch.func.jvp(
             lambda mm: fan(mm, t[1][0], t[2][0])["ground_range_km"], (m,),
             (torch.ones_like(m),)))(t[0])
+
+
+# ---- the tables straight from the slice (fan_tables) ----------------------
+
+def _slice_tensors():
+    """The scene's slice as CPU tensors: (f0s, Ne, |B|, ψ [deg], ν)."""
+    z, x, ne, babs, bpsi, nu_z = _scene()
+    return z, x, [torch.as_tensor(a) for a in (
+        np.array([5.0e6, 9.0e6]), ne, babs, np.rad2deg(bpsi) + 0.0 * ne,
+        nu_z)]
+
+
+def _bits(t):
+    return torch.nan_to_num(t, nan=-7.0).view(torch.int64)
+
+
+@pytest.mark.parametrize("mode", ["O", "X"])
+@pytest.mark.parametrize("geometry", ["cartesian", "spherical"])
+def test_fan_tables_plain_is_the_fields_and_pack_tables(mode, geometry):
+    """On CPU tensors ``fan_tables`` is ``pack_tables`` of ``_fan_fields``,
+    bit for bit, counted as one plain call and no launch."""
+    from pyrayhf_tpu_torch import oblique
+    z, x, t = _slice_tensors()
+    geo = TR.fan_geometry(z, x, geometry)
+    TR.reset_counters()
+    tab = TR.fan_tables(geo, *t, mode)
+    assert TR.PLAIN_CALLS == {"fan_2d": 0, "fan_tables": 1}
+    assert sum(TR.LAUNCHES.values()) == 0
+    want = TR.pack_tables(geo, *oblique._fan_fields(*t, mode))
+    assert tab.shape == want.shape == (5 * 2 * 101 * 17,)
+    assert torch.equal(_bits(tab), _bits(want))
+    assert torch.isnan(TR.table_views(geo, tab)[0][..., 0]).any()
+
+
+def test_launch_fan_tables_needs_cuda_tensors():
+    """The kernel's launcher refuses CPU tensors (``fan_tables`` takes the
+    plain version for them) and counts nothing."""
+    z, x, t = _slice_tensors()
+    geo = TR.fan_geometry(z, x, "cartesian")
+    TR.reset_counters()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        TR.launch_fan_tables(geo, *t, "O")
+    with pytest.raises(ValueError, match="Mode"):
+        TR.launch_fan_tables(geo, *t, "Q")
+    assert sum(TR.LAUNCHES.values()) == sum(TR.PLAIN_CALLS.values()) == 0
+
+
+def _synthesis(engine, **kw):
+    from pyrayhf_tpu_torch.oblique import synthesize_oblique_ionogram_2d
+    z, x, t = _slice_tensors()
+    return synthesize_oblique_ionogram_2d(
+        t[0].numpy(), 900.0, x, z, *t[1:4], n_elev=16, step_km=10.0,
+        s_max_km=2000.0, engine=engine, **kw)
+
+
+@pytest.mark.parametrize("mode,geometry", [("O", "cartesian"),
+                                           ("X", "spherical")])
+def test_oblique_2d_on_the_cpu_keeps_its_outputs(monkeypatch, mode,
+                                                 geometry):
+    """``engine="pallas"`` on CPU tensors takes the tables from
+    ``fan_tables`` (its plain version) and gives, bit for bit, what the
+    route through ``fan_2d_pallas`` gives; nothing is launched, and either
+    route counts its table build once. ``engine="auto"`` stays on the
+    gradient-ODE fan there."""
+    wrapped = []
+
+    def spy(*a, **kw):
+        wrapped.append(1)
+        return fan_2d_pallas(*a, **kw)
+
+    fan_2d_pallas = TR.fan_2d_pallas
+    monkeypatch.setattr(TR, "fan_2d_pallas", spy)
+    TR.reset_counters()
+    new = _synthesis("pallas", mode=mode, geometry=geometry)
+    assert TR.PLAIN_CALLS == {"fan_2d": 1, "fan_tables": 1} and not wrapped
+    monkeypatch.setattr(TR, "_transformed", lambda *ts: True)
+    TR.reset_counters()
+    old = _synthesis("pallas", mode=mode, geometry=geometry)
+    assert TR.PLAIN_CALLS == {"fan_2d": 1, "fan_tables": 1}
+    assert wrapped == [1]
+    monkeypatch.undo()
+    assert set(new) == set(old)
+    for k in old:
+        assert torch.equal(_bits(new[k]), _bits(old[k])), k
+    assert torch.isfinite(new["fan_range_km"]).any()
+    TR.reset_counters()
+    _synthesis("auto", mode=mode, geometry=geometry)
+    assert sum(TR.PLAIN_CALLS.values()) == sum(TR.LAUNCHES.values()) == 0
+
+
+def test_fan_route_under_vmap_and_derivatives():
+    """Under ``torch.func.vmap`` the 2-D fan keeps the route through the
+    [F, nz, nx] fields and ``fan_2d_pallas``: one folded call over both
+    slices (``_FanKernel``), bit for bit the separate calls, its table
+    build counted once in ``PLAIN_CALLS["fan_tables"]``; an input that
+    requires grad raises ``fan_2d_pallas``' error before any table is
+    built."""
+    from pyrayhf_tpu_torch.oblique import _fan_2d_fn
+    z, x, t = _slice_tensors()
+    fan = _fan_2d_fn(z, x, "O", "cartesian", 8, 120, 1, engine="pallas")
+    lims = torch.tensor([8.0, 60.0], dtype=torch.float64)
+
+    def run(ne):
+        return fan(t[0], lims, ne, t[2], t[3], t[4], 10.0)[0]
+
+    stack = torch.stack([t[1], 0.9 * t[1]])
+    TR.reset_counters()
+    out = torch.func.vmap(run)(stack)
+    assert TR.PLAIN_CALLS == {"fan_2d": 1, "fan_tables": 1}
+    for v in range(2):
+        assert torch.equal(_bits(out[v]), _bits(run(stack[v])))
+    assert torch.isfinite(out).any()
+    TR.reset_counters()
+    with pytest.raises(ValueError, match="no backward"):
+        run(t[1].clone().requires_grad_(True))
+    assert TR.PLAIN_CALLS == {"fan_2d": 0, "fan_tables": 0}

@@ -171,6 +171,30 @@ def test_spans_of_one_cpu_oblique_call():
         assert rng[a][1] <= rng[b][0]
 
 
+def test_cpu_fan_tables_record_the_fields_then_the_tables_once():
+    """``pallas_ray.fan_tables`` on CPU tensors (its plain version, the
+    table the oblique call's kernel engine reads) records
+    ``pyrayhf.fan_fields`` and then ``pyrayhf.fan_pack``, once each, and
+    its table is bit for bit the one it makes with the profiler off."""
+    from pyrayhf_tpu_torch import pallas_ray
+    z, x = np.linspace(0.0, 600.0, 41), np.linspace(0.0, 3800.0, 20)
+    h = (z[:, None] - 280.0) / 50.0
+    ne = 1e12 * np.exp(0.5 * (1.0 - h - np.exp(-h))) * np.ones((1, 20))
+    t = [torch.as_tensor(a, dtype=torch.float64)
+         for a in (np.array([5e6, 8e6]), ne, np.full_like(ne, 4.5e-5),
+                   np.full_like(ne, 60.0), 1e7 * np.exp(-(z - 70.0) / 8.0))]
+    geo = pallas_ray.fan_geometry(z, x, "cartesian")
+    off = pallas_ray.fan_tables(geo, *t, "O")
+    on, events = _traced(lambda: pallas_ray.fan_tables(geo, *t, "O"))
+    assert torch.equal(_bits(torch.nan_to_num(on)),
+                       _bits(torch.nan_to_num(off)))
+    ours = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in events if e.name.startswith("pyrayhf."))
+    assert [n for *_, n in ours] == ["pyrayhf.fan_fields",
+                                     "pyrayhf.fan_pack"]
+    assert ours[0][1] <= ours[1][0]
+
+
 def test_spans_are_the_ones_perf_md_documents():
     text = PERF_MD.read_text()
     layers = text[text.index("## 3."):text.index("## 4.")]
